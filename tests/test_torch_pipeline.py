@@ -1,0 +1,244 @@
+"""Parity of the PyTorch port's estimation pipeline with the JAX package
+(CPU), on the committed mug weights at a small 128x96 camera.
+
+On the CPU the JAX pipeline renders with its XLA backend, which has no coarse
+culling or adaptive relaxation; the tight trajectory test therefore turns
+both off on the port, and a second test holds the port's default march
+(both on) to a looser bar.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+
+from sdfest_tpu.ops import pointset as jpointset
+from sdfest_tpu.ops.camera import Camera as JCamera
+from sdfest_tpu.pipeline.pipeline import SDFPipeline as JPipeline
+from sdfest_tpu.render import xla
+from sdfest_torch.ops import pointset as tpointset
+from sdfest_torch.pipeline.pipeline import NoDepthError, SDFPipeline
+from sdfest_torch.utils.presets import preset
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CAMERA = dict(width=128, height=96, fx=64, fy=64, cx=64, cy=48,
+              pixel_center=0.5)
+GT_POSITION = np.asarray([0.02, -0.01, -0.5], np.float32)
+GT_QUAT = Rotation.from_euler("XYZ", [20, 35, 10], degrees=True).as_quat(
+).astype(np.float32)
+GT_HALF = np.float32(0.1)
+KEYS = ("position", "orientation", "scale", "latent")
+
+
+def _config(**overrides):
+    config = preset("mug_procedural")
+    config["camera"] = dict(CAMERA)
+    config["max_iterations"] = 3
+    config.update(overrides)
+    return config
+
+
+def _np(x):
+    return np.array(x, dtype=np.float32)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """JAX pipeline, an observation of a decoded mug at a ground-truth
+    pose, its lifted tile-order cloud and a perturbed start state."""
+    jpipe = JPipeline(_config(fused_call=False))
+    rng = np.random.default_rng(0)
+    latent = (0.5 * rng.normal(size=(1, 8))).astype(np.float32)
+    sdf = jpipe._decode(jnp.asarray(latent))[0, 0]
+    depth = _np(xla.render_depth(sdf, GT_POSITION, GT_QUAT, 1.0 / GT_HALF,
+                                 camera=JCamera(**CAMERA), threshold=0.005))
+    assert (depth > 0).sum() > 150
+    points, mask = jpointset.depth_to_pointcloud_dense(
+        jnp.asarray(depth), JCamera(**CAMERA), order="tile"
+    )
+    turn = Rotation.from_euler("XYZ", [4, -3, 5], degrees=True)
+    start = {
+        "position": (GT_POSITION + [0.01, -0.008, 0.015])[None].astype(
+            np.float32),
+        "orientation": (turn * Rotation.from_quat(GT_QUAT)).as_quat()[None]
+        .astype(np.float32),
+        "scale": np.asarray([0.11], np.float32),
+        "latent": (latent + 0.1 * rng.normal(size=(1, 8))).astype(np.float32),
+    }
+    state, best, log = jpipe._refine(
+        {k: jnp.asarray(v) for k, v in start.items()}, jnp.asarray(depth)[None],
+        points[None], mask[None], jnp.zeros((1, 3), jnp.float32),
+        jnp.asarray([[0.0, 0.0, 0.0, 1.0]], jnp.float32), True, None, None, 1,
+        5,
+    )
+    return dict(jpipe=jpipe, depth=depth, points=_np(points),
+                mask=np.array(mask), start=start, jstate=state, jbest=best,
+                jlog=log)
+
+
+def _port_refine(scene, n, **overrides):
+    pipe = SDFPipeline(_config(**overrides), device="cpu")
+    return pipe._refine(
+        {k: torch.from_numpy(v) for k, v in scene["start"].items()},
+        torch.from_numpy(scene["depth"]), torch.from_numpy(scene["points"]),
+        torch.from_numpy(scene["mask"]), num_iterations=n,
+    )
+
+
+def test_refine_trajectory_matches_jax(scene):
+    state, best, log = _port_refine(scene, 5, coarse_culling=False,
+                                    adaptive_relaxation=False)
+    want = _np(scene["jlog"]["loss"])
+    assert want[-1] < want[0]
+    np.testing.assert_allclose(log["loss"].numpy(), want, rtol=1e-4)
+    np.testing.assert_allclose(log["inlier_ratio"].numpy(),
+                               _np(scene["jlog"]["inlier_ratio"]), atol=1e-6)
+    for k in KEYS:
+        np.testing.assert_allclose(state[k].numpy(), _np(scene["jstate"][k]),
+                                   atol=1e-4)
+        np.testing.assert_allclose(best[k].numpy(), _np(scene["jbest"][k]),
+                                   atol=1e-4)
+
+
+def test_refine_with_culling_and_adaptive_march_tracks_jax(scene):
+    _, _, log = _port_refine(scene, 3)  # the preset: both on
+    want = _np(scene["jlog"]["loss"])[:3]
+    np.testing.assert_allclose(log["loss"].numpy(), want, rtol=0.05)
+
+
+@pytest.mark.parametrize("camera_pose", [None, "tilted"])
+def test_call_matches_jax(scene, monkeypatch, camera_pose):
+    """__call__ end to end, init included, fed JAX's subsampling draws; once
+    with the identity camera and once with a camera pose in the world."""
+    jpipe, depth = scene["jpipe"], scene["depth"]
+    key = jax.random.split(jax.random.PRNGKey(0), 1)[0]
+    u = np.array(jax.random.uniform(key, (2500,)))
+    monkeypatch.setattr(tpointset, "_uniform",
+                        lambda n, g, d: torch.from_numpy(u))
+    pipe = SDFPipeline(
+        _config(coarse_culling=False, adaptive_relaxation=False),
+        device="cpu",
+    )
+    cam_pos = np.zeros(3, np.float32)
+    cam_quat = np.asarray([0.0, 0.0, 0.0, 1.0], np.float32)
+    if camera_pose == "tilted":
+        cam_pos = np.asarray([0.1, -0.05, 0.2], np.float32)
+        cam_quat = Rotation.from_euler("XYZ", [10, -20, 5], degrees=True
+                                       ).as_quat().astype(np.float32)
+    mask = depth > 0
+    want_init = jpipe._nn_init(
+        jnp.asarray(depth)[None], jnp.asarray(cam_pos)[None],
+        jnp.asarray(cam_quat)[None], jax.random.PRNGKey(0),
+    )
+    got_init = pipe._nn_init(
+        pipe._preprocess_depth(torch.from_numpy(depth),
+                               torch.from_numpy(mask)),
+        torch.from_numpy(cam_pos), torch.from_numpy(cam_quat), None,
+    )
+    for g, w in zip(got_init, want_init):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=1e-4)
+    kwargs = {} if camera_pose is None else dict(
+        camera_positions=cam_pos, camera_orientations=cam_quat)
+    want = jpipe(jnp.asarray(depth), jnp.asarray(mask), **{
+        k: jnp.asarray(v) for k, v in kwargs.items()})
+    got = pipe(torch.from_numpy(depth), torch.from_numpy(mask), **kwargs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=1e-4)
+    assert pipe.last_log["loss"].shape == (3,)
+
+
+def test_losses_match_jax():
+    from sdfest_tpu.pipeline import losses as jlosses
+    from sdfest_torch.pipeline import losses as tlosses
+
+    from conftest import make_sphere_sdf
+
+    rng = np.random.default_rng(6)
+    sdf = make_sphere_sdf(64)
+    pts = (GT_POSITION + rng.normal(scale=0.1, size=(300, 3))).astype(
+        np.float32)
+    pmask = rng.uniform(size=300) < 0.7
+    a = rng.uniform(0.3, 1.0, size=(48, 64)).astype(np.float32)
+    b = (a * rng.uniform(0.95, 1.05, size=a.shape)).astype(np.float32)
+    a[:10] = 0.0
+    b[:, :5] = 0.0
+    t = lambda x: torch.from_numpy(np.asarray(x))
+    values = tlosses.pc_loss(t(pts), t(GT_POSITION), t(GT_QUAT), t(GT_HALF),
+                             t(sdf), t(pmask))
+    want = jlosses.pc_loss(pts, GT_POSITION, GT_QUAT, GT_HALF, sdf, pmask,
+                           backend="xla")
+    np.testing.assert_allclose(values.numpy(), _np(want), atol=1e-6)
+    pairs = [
+        (tlosses.masked_mean_abs(values, t(pmask)),
+         jlosses.masked_mean_abs(want, pmask)),
+        (tlosses.depth_l1_loss(t(a), t(b)), jlosses.depth_l1_loss(a, b)),
+        (tlosses.inlier_ratio(t(a), t(b)), jlosses.inlier_ratio(a, b)),
+    ]
+    for got, w in pairs:
+        np.testing.assert_allclose(float(got), float(w), rtol=1e-6)
+
+
+def test_empty_observation_raises():
+    pipe = SDFPipeline(_config(), device="cpu")
+    depth = torch.ones(96, 128)
+    with pytest.raises(NoDepthError):
+        pipe(depth, torch.zeros(96, 128))
+    with pytest.raises(NoDepthError):  # everything beyond the far field
+        pipe(depth * 3.0, torch.ones(96, 128))
+
+
+@pytest.mark.parametrize("option,value", [
+    ("roi_size", [96, 96]),
+    ("multires_factor", 2),
+    ("early_stop_delta", 0.01),
+    ("temporal_coherence", True),
+    ("init_view", "best"),
+    ("relaxation", 1.5),
+    ("bf16_march", True),
+])
+def test_unported_options_raise(option, value):
+    with pytest.raises(NotImplementedError, match=option):
+        SDFPipeline(_config(**{option: value}), device="cpu")
+
+
+def test_unported_call_paths_raise():
+    pipe = SDFPipeline(_config(), device="cpu")
+    depth = torch.full((96, 128), 0.5)
+    with pytest.raises(NotImplementedError):
+        pipe(depth[None].expand(2, -1, -1), torch.ones(2, 96, 128))
+    with pytest.raises(NotImplementedError):
+        pipe(depth, torch.ones(96, 128), point_constraint=(0, 0, 1.0))
+    with pytest.raises(NotImplementedError):
+        pipe(depth, torch.ones(96, 128),
+             prior_orientation_distribution=torch.ones(576))
+    for method in (pipe.refine_batch, pipe.generate_mesh, pipe.generate_depth):
+        with pytest.raises(NotImplementedError):
+            method()
+    with pytest.raises(ValueError, match="nn_weight"):
+        SDFPipeline(_config(nn_weight=1.0), device="cpu")
+
+
+def test_port_imports_without_jax():
+    """Every module of the port (and chip_smoke.py) imports with jax, flax,
+    optax and the JAX package blocked."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('jax', 'flax', 'optax', 'sdfest_tpu', 'yaml', 'msgpack'):\n"
+        "    sys.modules[m] = None\n"
+        "import sdfest_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    sdfest_torch.__path__, 'sdfest_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20

@@ -1,0 +1,280 @@
+"""Parity of the PyTorch port's renderer with the JAX package (CPU).
+
+The plain march is held against ``sdfest_tpu.render.xla`` (the JAX
+package's CPU backend); the culling + adaptive-relaxation march (the CUDA
+kernel's algorithm, here in its plain twin) is held to the JAX package's own
+kernel bar.  Gradients are compared as ``max|d| <= tol * max(1, max|want|)``.
+"""
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+
+from sdfest_tpu.ops.camera import Camera as JCamera
+from sdfest_tpu.pipeline import losses as jlosses
+from sdfest_tpu.render import pallas_kernel
+from sdfest_tpu.render import xla
+from sdfest_torch.ops.camera import Camera
+from sdfest_torch.ops.interpolation import sample_sdf
+from sdfest_torch.render import kernels, plain
+from sdfest_torch.render import render_depth, render_depth_with_pc_values
+
+from conftest import make_box_sdf, make_sphere_sdf
+
+CAM_ARGS = dict(width=64, height=48, fx=32, fy=32, cx=32, cy=24,
+                pixel_center=0.5)
+CAM, JCAM = Camera(**CAM_ARGS), JCamera(**CAM_ARGS)
+POSITION = np.asarray([0.03, -0.01, -0.55], np.float32)
+QUAT = Rotation.from_euler("XYZ", [15, 30, -10], degrees=True).as_quat().astype(
+    np.float32)
+INV_SCALE = np.float32(1.0 / 0.18)
+SDFS = {"sphere": make_sphere_sdf(64, radius=0.5), "box": make_box_sdf(64)}
+
+
+def _np(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got), _np(want)
+    assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max()), (
+        np.abs(got - want).max(), np.abs(want).max())
+
+
+def _jax_depth(sdf):
+    return _np(xla.render_depth(sdf, POSITION, QUAT, INV_SCALE, camera=JCAM,
+                                threshold=0.005))
+
+
+def _torch_depth(sdf, culling, adaptive):
+    return render_depth(sdf, POSITION, QUAT, INV_SCALE, camera=CAM,
+                        threshold=0.005, culling=culling, adaptive=adaptive,
+                        device="cpu").numpy()
+
+
+@pytest.mark.parametrize("name", ["sphere", "box"])
+def test_plain_march_matches_xla(name):
+    want = _jax_depth(SDFS[name])
+    got = _torch_depth(SDFS[name], culling=False, adaptive=False)
+    assert (want > 0).sum() > 50
+    assert ((got > 0) == (want > 0)).mean() >= 0.999
+    both = (got > 0) & (want > 0)
+    assert np.abs(got[both] - want[both]).max() < 1e-4
+
+
+@pytest.mark.parametrize("name", ["sphere", "box"])
+def test_culling_adaptive_march_matches_xla(name):
+    want = _jax_depth(SDFS[name])
+    got = _torch_depth(SDFS[name], culling=True, adaptive=True)
+    assert ((got > 0) == (want > 0)).mean() > 0.995
+    both = (got > 0) & (want > 0)
+    assert np.abs(got[both] - want[both]).max() < 5e-3
+
+
+def test_coarse_table_bounds_and_matches_jax():
+    sdf = SDFS["box"]
+    want = np.asarray(pallas_kernel.coarse_min_table(jnp.asarray(sdf)))
+    nc = plain.NC
+    want = want[:, :nc].T.reshape(nc, nc, nc)  # Ttc[j*nc + k, i] -> [i, j, k]
+    table = plain.coarse_min_table(_t(sdf))
+    np.testing.assert_array_equal(table.numpy(), _np(want))
+    # a lower bound of the interpolant everywhere (the culling invariant)
+    rng = np.random.default_rng(0)
+    pts = _t(rng.uniform(-1.0, 1.0, size=(5000, 3)))
+    assert bool((plain.coarse_lookup(table, pts) <= sample_sdf(_t(sdf), pts))
+                .all())
+
+
+def test_render_depth_gradients_match_jax_grad():
+    sdf = SDFS["sphere"]
+    rng = np.random.default_rng(1)
+    w = rng.normal(size=(48, 64)).astype(np.float32)
+    args = (sdf, POSITION, QUAT, INV_SCALE)
+
+    def jloss(s, p, q, i):
+        return jnp.sum(xla.render_depth(s, p, q, i, camera=JCAM,
+                                        threshold=0.005) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, args))
+    leaves = [_t(a).requires_grad_() for a in args]
+    depth = render_depth(*leaves, camera=CAM, threshold=0.005, culling=False,
+                         adaptive=False, device="cpu")
+    np.testing.assert_array_equal(depth.detach().numpy() > 0,
+                                  _jax_depth(sdf) > 0)
+    (depth * _t(w)).sum().backward()
+    for leaf, g in zip(leaves, want):
+        _close(leaf.grad.numpy(), g, 1e-4)
+
+
+def test_raster_order_backward_matches_jax_grad():
+    """A camera whose size is not a multiple of the 16-pixel tile takes the
+    raster-order surrogate queries; both fused ops still match jax.grad."""
+    args = dict(width=60, height=44, fx=30, fy=30, cx=30, cy=22,
+                pixel_center=0.5)
+    cam, jcam = Camera(**args), JCamera(**args)
+    sdf = SDFS["box"]
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=(44, 60)).astype(np.float32)
+    jargs = tuple(map(jnp.asarray, (sdf, POSITION, QUAT, INV_SCALE)))
+    want = jax.grad(
+        lambda s, p, q, i: jnp.sum(xla.render_depth(
+            s, p, q, i, camera=jcam, threshold=0.005) * w),
+        argnums=(0, 1, 2, 3),
+    )(*jargs)
+    for fused in (False, True):
+        leaves = [_t(a).requires_grad_() for a in (sdf, POSITION, QUAT,
+                                                   INV_SCALE)]
+        kw = dict(threshold=0.005, culling=False, adaptive=False,
+                  device="cpu")
+        if fused:  # no observed points: only the depth term
+            depth, _ = render_depth_with_pc_values(
+                leaves[0], leaves[1], leaves[2], 1.0 / leaves[3],
+                torch.zeros(1, 3), torch.zeros(1), cam, **kw)
+        else:
+            depth = render_depth(*leaves, camera=cam, **kw)
+        assert int((depth > 0).sum()) > 50
+        (depth * _t(w)).sum().backward()
+        for leaf, g in zip(leaves, want):
+            _close(leaf.grad.numpy(), g, 1e-4)
+
+
+def test_render_depth_backward_equals_plain_surrogate():
+    """The kernel-path backward (tile-order queries, sample-grad + scatter)
+    equals autograd through the XLA-style raster surrogate."""
+    sdf = SDFS["box"]
+    rng = np.random.default_rng(2)
+    w = _t(rng.normal(size=(48, 64)))
+    args = (sdf, POSITION, QUAT, INV_SCALE)
+    a = [_t(x).requires_grad_() for x in args]
+    depth = render_depth(*a, camera=CAM, threshold=0.005, device="cpu")
+    (depth * w).sum().backward()
+    b = [_t(x).requires_grad_() for x in args]
+    dirs = plain.pixel_directions(CAM, torch.device("cpu")).reshape(48, 64, 3)
+    sur = plain.depth_surrogate(*b, depth.detach(), dirs)
+    (sur * w).sum().backward()
+    for x, y in zip(a, b):
+        _close(x.grad.numpy(), y.grad.numpy(), 1e-5)
+
+
+def test_render_depth_with_pc_values_matches_separate_jax_path():
+    sdf = SDFS["sphere"]
+    rng = np.random.default_rng(3)
+    scale = np.float32(0.18)
+    points = (POSITION + rng.normal(scale=0.12, size=(400, 3))).astype(
+        np.float32)
+    point_mask = (rng.uniform(size=400) < 0.8).astype(np.float32)
+    w = rng.normal(size=(48, 64)).astype(np.float32)
+    v = rng.normal(size=(400,)).astype(np.float32)
+
+    def jfwd(s, p, q, sc, pts):
+        depth = xla.render_depth(s, p, q, 1.0 / sc, camera=JCAM,
+                                 threshold=0.005)
+        values = jlosses.pc_loss(pts, p, q, sc, s, point_mask, backend="xla")
+        return depth, values
+
+    jargs = tuple(map(jnp.asarray, (sdf, POSITION, QUAT, scale, points)))
+    want_depth, want_values = jfwd(*jargs)
+    want = jax.grad(
+        lambda *a: jnp.sum(jfwd(*a)[0] * w) + jnp.sum(jfwd(*a)[1] * v),
+        argnums=(0, 1, 2, 3, 4),
+    )(*jargs)
+    leaves = [_t(a).requires_grad_() for a in (sdf, POSITION, QUAT, scale,
+                                               points)]
+    depth, values = render_depth_with_pc_values(
+        *leaves, _t(point_mask), CAM, threshold=0.005, culling=False,
+        adaptive=False, device="cpu",
+    )
+    np.testing.assert_allclose(depth.detach().numpy(), _np(want_depth),
+                               atol=1e-4)
+    np.testing.assert_allclose(values.detach().numpy(), _np(want_values),
+                               atol=1e-5)
+    ((depth * _t(w)).sum() + (values * _t(v)).sum()).backward()
+    for leaf, g in zip(leaves, want):
+        _close(leaf.grad.numpy(), g, 1e-4)
+
+
+def test_sampler_plain_twins_match_jax():
+    sdf = SDFS["sphere"]
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1.1, 1.1, size=(600, 3)).astype(np.float32)
+    mask = (np.arange(600) % 3 != 0).astype(np.float32)
+    cot = rng.normal(size=600).astype(np.float32)
+    want_v = _np(jnp.asarray(mask) * xla.sample_sdf(sdf, pts))
+    want_g = _np(jax.vmap(jax.grad(lambda p: xla.sample_sdf(sdf, p[None])[0]))(
+        jnp.asarray(pts))) * mask[:, None]
+    _, vjp = jax.vjp(lambda s: xla.sample_sdf(s, pts), jnp.asarray(sdf))
+    (want_s,) = vjp(jnp.asarray(cot))
+    np.testing.assert_allclose(
+        kernels.sample(_t(sdf), _t(pts), _t(mask)).numpy(), want_v, atol=1e-5)
+    value, grad = kernels.sample_grad(_t(sdf), _t(pts), _t(mask))
+    np.testing.assert_allclose(value.numpy(), want_v, atol=1e-5)
+    np.testing.assert_allclose(grad.numpy(), want_g, atol=1e-4)
+    np.testing.assert_allclose(
+        kernels.scatter(_t(pts), _t(cot), 64).numpy(), _np(want_s), atol=1e-4)
+
+
+def test_tile_order_matches_jax():
+    x = np.arange(48 * 64 * 3, dtype=np.float32).reshape(48, 64, 3)
+    want = np.asarray(pallas_kernel._tile_image(jnp.asarray(x), 48, 64))
+    got = kernels.tile_image(torch.from_numpy(x), 48, 64)
+    np.testing.assert_array_equal(got.numpy(), want)
+    flat = got[:, 0].contiguous()
+    np.testing.assert_array_equal(kernels.untile_image(flat, 48, 64).numpy(),
+                                  x[..., 0])
+    # host ray planes: the JAX package's camera constants
+    np.testing.assert_array_equal(
+        plain.pixel_directions_np(CAM), pallas_kernel._camera_ray_planes(JCAM)[0]
+    )
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    kernels.reset_launches()
+    leaves = [_t(a).requires_grad_() for a in (SDFS["sphere"], POSITION, QUAT,
+                                               0.18)]
+    depth, values = render_depth_with_pc_values(
+        *leaves, _t(np.tile(POSITION, (10, 1))), torch.ones(10), CAM,
+        threshold=0.005, device="cpu",
+    )
+    (depth.sum() + values.sum()).backward()
+    assert kernels.launches() == {k: 0 for k in kernels.KERNELS}
+
+
+def test_cuda_requested_without_cuda_raises(monkeypatch):
+    from sdfest_torch.pipeline.pipeline import SDFPipeline
+    from sdfest_torch.utils.presets import preset
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_depth(SDFS["sphere"], POSITION, QUAT, INV_SCALE, camera=CAM)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_depth_with_pc_values(SDFS["sphere"], POSITION, QUAT, 0.18,
+                                    np.zeros((3, 3)), np.ones(3), CAM)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SDFPipeline(preset("mug_procedural"))
+    with pytest.raises(ValueError):  # kernels refuse non-CPU, non-CUDA input
+        kernels.sample(torch.zeros(4, 4, 4, device="meta"),
+                       torch.zeros(2, 3, device="meta"),
+                       torch.zeros(2, device="meta"))
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """chip_smoke.py exits non-zero and prints no result without CUDA."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys, torch; torch.cuda.is_available = lambda: False; "
+            "sys.argv = ['chip_smoke.py']; import runpy; "
+            "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
