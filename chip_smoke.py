@@ -6,18 +6,25 @@ card) and the CUDA toolkit:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --phases build,check   # build and check kernels only
+    python3 chip_smoke.py --phases build,check,fast   # the fast.yaml path
 
 Phases:
   build     compile the four kernels from sdfest_torch/csrc (nvcc, sm_90a)
   check     hold each kernel against its plain PyTorch twin at main-path
-            shapes (640x480 camera, decoded 64^3 mug SDF, realistic masks)
+            shapes (640x480 camera, decoded 64^3 mug SDF, realistic masks);
+            ROI marches against the crop of the full march (bit for bit)
+            and against the plain ROI march, at strides 1, 2 and 4
   pipeline  SDFPipeline.__call__ of the mug_procedural preset with the
-            committed weights on a self-rendered observation, 50 iterations;
-            counts kernel launches per call and times 3 calls
+            committed weights on a self-rendered observation, 50 full-frame
+            iterations; counts kernel launches per call and times 3 calls
+  fast      the same under mug_procedural_fast (fast.yaml: ROI crop +
+            [4, 2] multires): plan, launches and march rasters per call,
+            rays marched, 3 timed calls
   time      each kernel and its plain twin over 30 distinct inputs (CUDA
-            events), with the least time the card could take (bound)
-  profile   torch.profiler over one pipeline call: device busy share and
-            the ops that take the time
+            events), with the least time the card could take (bound); the
+            march also at the three ROI shapes of the fast plan
+  profile   torch.profiler over one full-frame and one fast call: device
+            busy share and the ops that take the time
 
 Prints one JSON line {"kernels": [...]}, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Any failed check
@@ -33,7 +40,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "check", "pipeline", "time", "profile")
+PHASES = ("build", "check", "pipeline", "fast", "time", "profile")
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
 SPIN_CYCLES = 100_000_000
@@ -127,6 +134,8 @@ class Smoke:
 
         self.dev = torch.device("cuda")
         self.pipe = SDFPipeline(preset("mug_procedural"), device=self.dev)
+        self.fast_pipe = SDFPipeline(preset("mug_procedural_fast"),
+                                     device=self.dev)
         self.camera = self.pipe.camera
         gen = torch.Generator(device="cpu").manual_seed(0)
         self.latent = (0.5 * torch.randn(1, 8, generator=gen)).to(self.dev)
@@ -262,8 +271,8 @@ class Smoke:
         inv_s = torch.tensor(1.0 / half, device=self.dev) * (1 + d(1, perturb)[0])
         depth = self.observe((p.tolist(), float(1 / inv_s), quat.tolist()))
         with torch.no_grad():
-            sur, sur_mask, _, _ = api._surrogate_queries(
-                p, quat, inv_s, depth, self.camera
+            sur, sur_mask, _ = api._surrogate_queries(
+                p, quat, inv_s, depth, api.ray_set(self.camera, self.dev)
             )
             obj, pc_mask = api._pc_object_points(
                 p, quat, inv_s, points, pmask, self.sdf.shape[0]
@@ -346,6 +355,63 @@ class Smoke:
                 r = self.report["march"]
                 r["max_err"] = max(r["max_err"], dd)
                 r["agreement"] = min(r["agreement"], agree)
+        self.check_roi()
+
+    def roi_inputs(self, gt, factor, roi):
+        """The fast plan's ROI march at one pose and stride: the full
+        strided rays, the ROI's offset (from the strided observation, as the
+        pipeline takes it) and the ROI's rays."""
+        from sdfest_torch.pipeline.pipeline import _roi_offset_for
+        from sdfest_torch.render import api
+
+        camera = self.camera.strided(factor) if factor > 1 else self.camera
+        obs = self.observe(gt)[::factor, ::factor].contiguous()
+        offset = _roi_offset_for(obs, roi)
+        return (api.ray_set(camera, self.dev).march, offset,
+                api.ray_set(camera, self.dev, roi, offset).march)
+
+    def check_roi(self):
+        """At every pose, the ROI march (the fast plan's three shapes)
+        equals the crop of the full march of its stride bit for bit, and
+        holds the plain ROI march's bar."""
+        import torch
+
+        from sdfest_torch.render import api, kernels as k, plain
+
+        thr = self.pipe.config["threshold"]
+        r = self.report["march"]["roi"] = dict(
+            crop_equal=True, agreement=1.0, max_err=0.0, shapes=[],
+            tol="ROI == crop of full (torch.equal); vs plain ROI march: hit "
+                "agreement > 0.995, |ddepth| < 5e-3")
+        for factor, roi in ROI_SHAPES:
+            r["shapes"].append([factor, *roi])
+            for gt in GT_POSES:
+                pos, half, q = gt
+                full_rays, offset, rays = self.roi_inputs(gt, factor, roi)
+                pose = k.pose_params(torch.tensor(pos, device=self.dev),
+                                     unit_quat(q, self.dev),
+                                     torch.tensor(1.0 / half, device=self.dev))
+                args = (pose, thr, 500, True, True)
+                full = k.march(self.sdf, full_rays, *args)
+                got = k.march(self.sdf, rays, *args)
+                want = plain.march_plain(self.sdf, rays.reshape(-1, 3),
+                                         *args).reshape(roi)
+                torch.cuda.synchronize()
+                equal = torch.equal(got, api.crop(full, roi, offset))
+                hit_g, hit_w = got > 0, want > 0
+                agree = float((hit_g == hit_w).float().mean())
+                both = hit_g & hit_w
+                dd = float((got - want)[both].abs().max()) if bool(
+                    both.any()) else 0.0
+                print(f"check march ROI f={factor} {roi[0]}x{roi[1]} at "
+                      f"{offset.tolist()}: equals crop of full {equal}; hits "
+                      f"{int(hit_w.sum())} agreement with plain {agree:.6f} "
+                      f"max|ddepth| {dd:.3e}")
+                assert equal, "ROI march differs from the full march's crop"
+                assert int(hit_w.sum()) > 100, "the ROI shows too few hits"
+                assert agree > 0.995 and dd < 5e-3, "ROI march disagrees"
+                r["agreement"] = min(r["agreement"], agree)
+                r["max_err"] = max(r["max_err"], dd)
 
     def pipeline(self):
         import torch
@@ -398,6 +464,76 @@ class Smoke:
         self.report["_pipeline"] = dict(ms_per_call=mean * 1e3,
                                         it_per_s=n_iter / mean,
                                         witness=witnesses)
+
+    def fast(self):
+        """SDFPipeline.__call__ under mug_procedural_fast: a warm-up call
+        and 3 timed calls, each read for its plan, launches per kernel and
+        the march's rasters (counts set to 0 just before the call)."""
+        import torch
+
+        from sdfest_torch.ops import quaternion
+        from sdfest_torch.render import kernels
+
+        pipe = self.fast_pipe
+        n_iter = pipe.config["max_iterations"]
+        walls, calls = [], []
+        for i, gt in enumerate(GT_POSES):
+            depth = self.observe(gt)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            pos, orient, scale, latent = pipe(depth, depth > 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launches()
+            rasters = dict(kernels.march.rasters)
+            levels, fine_roi, fine_iters = pipe.last_plan
+            rays = sum(h * w * c for (h, w), c in rasters.items())
+            print(f"fast call {i} plan levels {list(levels)} fine "
+                  f"{fine_roi} x {fine_iters}; launches {counts}; march "
+                  f"rasters {rasters}; rays marched {rays}")
+            assert all(roi is not None for _, _, roi in levels) and (
+                fine_roi is not None) and len(levels) == 2, (
+                "the fast plan lacks an ROI at some level")
+            for name, c in counts.items():
+                assert c == n_iter, f"{name} launched {c} times, not {n_iter}"
+            assert sum(rasters.values()) == n_iter
+            loss = pipe.last_log["loss"]
+            l0, l_last = float(loss[0]), float(loss[-1])
+            assert loss.shape == (n_iter,)
+            assert math.isfinite(l0) and math.isfinite(l_last) and l_last < l0
+            for t in (pos, orient, scale, latent):
+                assert bool(torch.isfinite(t).all()), "non-finite estimate"
+            gpos, ghalf, gq = gt
+            e_pos = float(torch.linalg.norm(
+                pos[0] - torch.tensor(gpos, device=self.dev)))
+            e_scale = abs(float(scale[0]) - ghalf)
+            e_rot = math.degrees(float(quaternion.geodesic_distance(
+                orient[0], unit_quat(gq, self.dev))))
+            print(f"fast call {i}: {wall * 1e3:.3f} ms ("
+                  f"{'warm-up' if i == 0 else 'timed'}) loss it0 {l0:.6f} "
+                  f"it{n_iter - 1} {l_last:.6f}; position error "
+                  f"{e_pos * 1e3:.2f} mm scale error {e_scale * 1e3:.2f} mm "
+                  f"orientation error {e_rot:.2f} deg")
+            calls.append(dict(plan=[list(levels), fine_roi, fine_iters],
+                              launches=counts, rasters={
+                                  f"{h}x{w}": c for (h, w), c in
+                                  rasters.items()},
+                              rays=rays, ms=wall * 1e3, loss=[l0, l_last],
+                              errors_mm_mm_deg=[e_pos * 1e3, e_scale * 1e3,
+                                                e_rot]))
+            if i:
+                walls.append(wall)
+        mean = sum(walls) / len(walls)
+        full = self.report.get("_pipeline", {}).get("ms_per_call")
+        print(f"fast mean {mean * 1e3:.3f} ms/call, {n_iter / mean:.1f} "
+              f"iterations/s (full-frame pipeline this run: "
+              f"{'not run' if full is None else f'{full:.3f} ms/call'})")
+        for name in kernels.KERNELS:
+            self.report[name]["launches_fast"] = calls[0]["launches"][name]
+        self.report["march"]["roi"]["rasters_per_call"] = calls[0]["rasters"]
+        self.report["_fast"] = dict(ms_per_call=mean * 1e3,
+                                    it_per_s=n_iter / mean, calls=calls)
 
     def time(self):
         import torch
@@ -473,44 +609,80 @@ class Smoke:
         self._timed("march", ms, pms,
                     n * 16 + steps["cells"] * 4 + 16 ** 3 * 4 + 14 * 4, ops)
         self.report["march"]["steps_per_render"] = steps
+        # the march at the fast plan's three ROI shapes, each at the same 30
+        # poses with the ROI of its ground-truth pose
+        timed = self.report["march"]["roi"]["timed"] = []
+        for factor, roi in ROI_SHAPES:
+            rays = [self.roi_inputs(gt, factor, roi)[2] for gt in GT_POSES]
+            inp = [(pose, rays[i % len(rays)]) for i, pose in enumerate(poses)]
+            ms = cuda_ms(lambda x: k.march(self.sdf, x[1], x[0], thr, 500,
+                                           True, True, coarse=coarse), inp)
+            pms = cuda_ms(lambda x: plain.march_plain(
+                self.sdf, x[1].reshape(-1, 3), x[0], thr, 500, True, True),
+                inp, warmup=1)
+            steps = {"rays": 0, "fine": 0, "bound": 0, "cells": 0}
+            for pose, r in inp:
+                st = {}
+                plain.march_plain(self.sdf, r.reshape(-1, 3), pose, thr, 500,
+                                  True, True, steps=st)
+                for key in steps:
+                    steps[key] += st[key] / reps
+            n = roi[0] * roi[1]
+            ops = (steps["rays"] * OPS_MARCH_RAY
+                   + steps["fine"] * OPS_MARCH_FINE
+                   + steps["bound"] * OPS_MARCH_BOUND)
+            nbytes = n * 16 + steps["cells"] * 4 + 16 ** 3 * 4 + 14 * 4
+            b_ms, by = bound(nbytes, ops)
+            print(f"time march ROI f={factor} {roi[0]}x{roi[1]} kernel "
+                  f"{ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.5f} ms ({by}: "
+                  f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.3f} Mop) steps {steps}")
+            timed.append(dict(factor=factor, raster=list(roi), ms=ms,
+                              plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                              bytes=nbytes, ops=ops, steps=steps))
 
     def profile(self):
-        """torch.profiler over one pipeline call: device busy share and the
-        ops that take the time."""
+        """torch.profiler over one full-frame and one fast call: device
+        busy share and the ops that take the time."""
+        self._profile_call(self.pipe, "full-frame")
+        self._profile_call(self.fast_pipe, "fast")
+
+    def _profile_call(self, pipe, label):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
         from torch.autograd import DeviceType
 
         depth = self.observe(GT_POSES[0])
-        self.pipe(depth, depth > 0)  # warm-up
+        pipe(depth, depth > 0)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        self.pipe(depth, depth > 0)
+        pipe(depth, depth > 0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
-            self.pipe(depth, depth > 0)
+            pipe(depth, depth > 0)
             torch.cuda.synchronize()
         events = prof.key_averages()
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         n_kernels = sum(e.count for e in kernels)
-        n_iter = self.pipe.config["max_iterations"]
-        print(f"profile: unprofiled wall {wall_ms:.3f} ms/call; device "
-              f"kernels {dev_ms:.3f} ms/call ({n_kernels} launches, "
+        n_iter = pipe.config["max_iterations"]
+        print(f"profile {label}: unprofiled wall {wall_ms:.3f} ms/call; "
+              f"device kernels {dev_ms:.3f} ms/call ({n_kernels} launches, "
               f"{n_kernels / n_iter:.1f} per iteration); device busy share "
               f"{dev_ms / wall_ms:.4f}, idle share {1 - dev_ms / wall_ms:.4f}")
+        self.report[f"_profile_{label}"] = dict(
+            wall_ms=wall_ms, device_ms=dev_ms, launches=n_kernels,
+            busy_share=dev_ms / wall_ms)
         for name in SOURCES:  # the port's kernels, as the trace times them
             rows = [e for e in kernels if f"{name}_kernel(" in e.key]
             for e in rows:
-                print(f"profile kernel {name}: {e.count} launches, mean "
-                      f"{e.self_device_time_total / e.count / 1e3:.4f} ms "
-                      f"({e.key})")
-        table = events.table(sort_by="self_device_time_total", row_limit=15,
-                             max_name_column_width=48)
-        print(table)
+                print(f"profile {label} kernel {name}: {e.count} launches, "
+                      f"mean {e.self_device_time_total / e.count / 1e3:.4f} "
+                      f"ms ({e.key})")
+        print(events.table(sort_by="self_device_time_total", row_limit=15,
+                           max_name_column_width=48))
         print(events.table(sort_by="self_cpu_time_total", row_limit=12,
                            max_name_column_width=48))
 
@@ -522,6 +694,9 @@ class Smoke:
         self.report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=by, bytes=nbytes, ops=ops)
 
+
+# (stride, ROI) of the fast plan on the GT_POSES observations at 640x480
+ROI_SHAPES = [(4, (64, 80)), (2, (128, 160)), (1, (240, 320))]
 
 SOURCES = {
     "march": ("sdfest_torch/csrc/march.cu",
@@ -543,11 +718,13 @@ def kernels_line(report) -> str:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": r.get("launches"), "max_abs_err": r.get("max_err"),
-            "tol": r.get("tol"),
+            "tol": r.get("tol"), "launches_fast": r.get("launches_fast"),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": None,
         })
+        if "roi" in r:
+            out[-1]["roi"] = r["roi"]
     return json.dumps({"kernels": out})
 
 
@@ -587,16 +764,22 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     smoke = Smoke()
-    if "check" in phases or "time" in phases or "pipeline" in phases:
+    if set(phases) & {"check", "pipeline", "fast", "time"}:
         smoke.check()
     if "pipeline" in phases:
         smoke.pipeline()
+    if "fast" in phases:
+        smoke.fast()
     if "time" in phases:
         smoke.time()
     if "profile" in phases:
         smoke.profile()
-    print(json.dumps({"pipeline": smoke.report.get("_pipeline"),
-                      "card": card}))
+    print(json.dumps({
+        "pipeline": smoke.report.get("_pipeline"),
+        "fast": smoke.report.get("_fast"),
+        "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
+                    if k.startswith("_profile_")},
+        "card": card}))
     print(kernels_line(smoke.report))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,15 @@
 // Replaces the TPU kernel sdfest_tpu/render/pallas_kernel.py:
 // render_depth_pallas_fwd -> _render_fwd_impl -> _march_kernel /
 // _march_kernel_body, default "v2" branch (culling=True, adaptive=True,
-// relaxation=1, no bf16, no aux, no ROI).
+// relaxation=1, no bf16, no aux), and its ROI crop branch
+// (pallas_kernel.py:1708-1760, :1660-1667).
+//
+// ROI renders: the kernel marches whatever n rays it is given.  An ROI
+// render passes the (Hr, Wr) crop of the camera's direction field at the
+// ROI offset (gathered once per refinement phase on the device, see
+// render/api.py: ray_set); a ray's result depends on its direction alone,
+// so the ROI render equals the crop of the full render bit for bit and no
+// tile alignment is needed.
 //
 // Design.  One thread per pixel, 256 threads per block.  The TPU kernel
 // marched 16x16-pixel tiles in lock-step with one-hot MXU matmuls standing

@@ -1,7 +1,8 @@
 """Pinhole camera model (counterpart of ``sdfest_tpu/ops/camera.py``).
 
 A frozen, hashable dataclass, so ray-direction tables can be cached per
-camera.  ``strided`` and the Open3D export are not ported yet.
+camera.  ``strided`` gives the exactly-strided camera of the coarse
+refinement phases; the Open3D export is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +34,32 @@ class Camera:
         cx_corrected = self.cx - self.pixel_center + pixel_center
         cy_corrected = self.cy - self.pixel_center + pixel_center
         return self.fx, self.fy, cx_corrected, cy_corrected, self.s
+
+    def strided(self, factor: int) -> "Camera":
+        """Camera observing every ``factor``-th pixel of this camera.
+
+        Its pixel ``(i, j)`` ray is this camera's pixel ``(factor*i,
+        factor*j)`` ray: with ``c = cx - pixel_center``, ``fx' = fx/factor``
+        and ``cx' = c/factor + pixel_center`` give the same slope.  So
+        ``depth[::factor, ::factor]`` is an exact sub-observation, which the
+        coarse-to-fine refinement rests on.
+        """
+        if factor < 1 or self.width % factor or self.height % factor:
+            raise ValueError(
+                f"stride {factor} must divide {self.width}x{self.height}"
+            )
+        if self.s != 0.0:
+            raise ValueError("strided() requires zero skew")
+        pc = self.pixel_center
+        return dataclasses.replace(
+            self,
+            width=self.width // factor,
+            height=self.height // factor,
+            fx=self.fx / factor,
+            fy=self.fy / factor,
+            cx=(self.cx - pc) / factor + pc,
+            cy=(self.cy - pc) / factor + pc,
+        )
 
     @staticmethod
     def from_fov(width: int, height: int, fov_deg: float) -> "Camera":

@@ -30,19 +30,29 @@ def depth_to_pointcloud_dense(
     convention: str = "opengl",
     mask: Optional[torch.Tensor] = None,
     order: str = "raster",
+    pixel_offset: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lift an ``(H, W)`` depth image to ``(H*W, 3)`` points and a mask.
 
     ``order="tile"`` permutes the rows into 16x16-pixel tile-major order
     when both dims allow it (the order the JAX package's pc loss uses; the
-    reductions over it are order-invariant).  Invalid rows hold the lift of
-    zero depth (all zeros).
+    reductions over it are order-invariant), and keeps raster order
+    otherwise.  Invalid rows hold the lift of zero depth (all zeros).
+
+    ``pixel_offset``: an integer ``(2,)`` ``[row, col]`` tensor on the
+    image's device (never read on the host) when the image is an ROI crop
+    starting at that pixel of ``camera``'s frame; the crop's lift is then
+    exactly the matching rows of the full lift.
     """
     fx, fy, cx, cy, _ = camera.get_pinhole_camera_parameters(0.0)
     h, w = depth_image.shape
     dev = depth_image.device
-    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    if pixel_offset is not None:
+        rows = rows + pixel_offset[0].to(torch.float32)
+        cols = cols + pixel_offset[1].to(torch.float32)
+    rows, cols = rows.expand(h, w), cols.expand(h, w)
     z = depth_image.to(torch.float32)
     if convention == "opengl":
         x = (cols - cx) * z / fx

@@ -8,6 +8,8 @@
 - :func:`render_depth_with_pc_values`: the refinement loop's fused op, the
   march plus the pc values forward, and ONE sample-grad plus ONE scatter over
   the concatenated surrogate and pc queries backward (``api.py:288-462``).
+- :func:`ray_set`: the rays of a full-frame or ROI render (``_roi_dirs``);
+  an ROI render marches only the crop's rays.
 
 The same code runs on both devices; only the kernels differ (CUDA tensors
 launch the hand-written kernels, CPU tensors take their plain versions).
@@ -15,7 +17,7 @@ launch the hand-written kernels, CPU tensors take their plain versions).
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,37 +90,96 @@ def _tiled_directions(camera: Camera, device: torch.device) -> torch.Tensor:
     return kernels.tile_image(d, h, w).contiguous().to(device)
 
 
-def _tiled(camera: Camera) -> bool:
-    return camera.height % kernels.TILE == 0 and camera.width % kernels.TILE == 0
+def _tiled(h: int, w: int) -> bool:
+    return h % kernels.TILE == 0 and w % kernels.TILE == 0
 
 
-def _surrogate_queries(position, orientation, inv_scale, depth, camera):
-    """Object-frame queries, mask and ``|d_z|`` of the depth surrogate, in
-    tile order when the raster allows (``api.py:339-364``) and raster order
-    otherwise, plus the function that brings a raster into that order."""
-    h, w = depth.shape
-    if _tiled(camera):
-        dirs = _tiled_directions(camera, depth.device)
-        order = lambda x: kernels.tile_image(x[..., None], h, w).reshape(-1)
-    else:
-        dirs = pixel_directions(camera, depth.device)
-        order = lambda x: x.reshape(-1)
+def crop(x: torch.Tensor, roi: Tuple[int, int],
+         roi_offset: torch.Tensor) -> torch.Tensor:
+    """The ``(Hr, Wr, ...)`` crop of ``x (H, W, ...)`` at ``roi_offset``.
+
+    ``roi_offset`` is an integer ``(2,)`` ``[row, col]`` tensor on ``x``'s
+    device.  It is clamped so that the crop lies in the frame, as
+    ``jax.lax.dynamic_slice`` clamps, and applied as an index gather, so
+    it is never read on the host.
+    """
+    h, w = x.shape[:2]
+    if roi[0] > h or roi[1] > w:
+        raise ValueError(f"roi {tuple(roi)} does not fit the {h}x{w} frame")
+    dev = x.device
+    r0 = torch.clamp(roi_offset[0].long(), 0, h - roi[0])
+    c0 = torch.clamp(roi_offset[1].long(), 0, w - roi[1])
+    rows = r0 + torch.arange(roi[0], device=dev)
+    cols = c0 + torch.arange(roi[1], device=dev)
+    return x[rows[:, None], cols[None, :]]
+
+
+class Rays(NamedTuple):
+    """The rays of one render, in the two orders the fused op reads.
+
+    ``march``: ``(Hr, Wr, 3)`` in raster order, the march kernel's input.
+    ``surrogate``: ``(Hr*Wr, 3)`` in the surrogate's query order, 16x16
+    tile-major when both dims are multiples of 16, raster otherwise.
+    """
+
+    march: torch.Tensor
+    surrogate: torch.Tensor
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return tuple(self.march.shape[:2])
+
+    def order(self, x: torch.Tensor) -> torch.Tensor:
+        """An ``(Hr, Wr)`` raster, flat in the surrogate's query order."""
+        h, w = self.shape
+        if _tiled(h, w):
+            return kernels.tile_image(x[..., None], h, w).reshape(-1)
+        return x.reshape(-1)
+
+
+def ray_set(camera: Camera, device, roi: Optional[Tuple[int, int]] = None,
+            roi_offset: Optional[torch.Tensor] = None) -> Rays:
+    """The rays of a render of ``camera``, or of its ``roi=(Hr, Wr)`` crop at
+    ``roi_offset`` (``_roi_dirs``, ``sdfest_tpu/render/api.py:229-245``).
+
+    Full frame: the cached camera constants, no launch.  ROI: a crop of the
+    cached full-frame directions, gathered on the device; the refinement
+    loop builds it once per phase and passes it to every iteration.
+    """
+    device = torch.device(device)
+    h, w = camera.height, camera.width
+    full = pixel_directions(camera, device).reshape(h, w, 3)
+    if roi is None:
+        sur = _tiled_directions(camera, device) if _tiled(h, w) else (
+            pixel_directions(camera, device))
+        return Rays(full, sur)
+    roi = (int(roi[0]), int(roi[1]))
+    if roi_offset is None:
+        roi_offset = torch.zeros(2, dtype=torch.int32, device=device)
+    march = crop(full, roi, roi_offset).contiguous()
+    sur = kernels.tile_image(march, *roi) if _tiled(*roi) else (
+        march.reshape(-1, 3))
+    return Rays(march, sur.contiguous())
+
+
+def _surrogate_queries(position, orientation, inv_scale, depth, rays):
+    """Object-frame queries, mask and ``|d_z|`` of the depth surrogate in
+    the ray set's query order (``api.py:339-364``)."""
+    dirs = rays.surrogate
     dz = dirs[:, 2]
-    depth_o = order(depth)
+    depth_o = rays.order(depth)
     t = -depth_o / dz
     x = t[:, None] * dirs
     o = quaternion.apply(quaternion.invert(orientation), x - position)
     o = o / torch.sum(orientation * orientation)
-    return o * inv_scale, depth_o > 0, torch.abs(dz), order
+    return o * inv_scale, depth_o > 0, torch.abs(dz)
 
 
 def _render_forward(sdf, position, orientation, inv_scale, static):
-    camera, threshold, max_steps, culling, adaptive = static
-    dirs = pixel_directions(camera, sdf.device)
+    rays, threshold, max_steps, culling, adaptive = static
     pose = kernels.pose_params(position, orientation, inv_scale)
-    depth = kernels.march(sdf.contiguous(), dirs, pose, threshold, max_steps,
-                          culling, adaptive)
-    return depth.reshape(camera.height, camera.width)
+    return kernels.march(sdf.contiguous(), rays.march, pose, threshold,
+                         max_steps, culling, adaptive)
 
 
 def _leaf(x: torch.Tensor, needs: bool) -> torch.Tensor:
@@ -145,23 +206,22 @@ class _RenderDepth(torch.autograd.Function):
     def forward(ctx, sdf, position, orientation, inv_scale, static):
         depth = _render_forward(sdf, position, orientation, inv_scale, static)
         ctx.save_for_backward(sdf, position, orientation, inv_scale, depth)
-        ctx.camera = static[0]
+        ctx.rays = static[0]
         return depth
 
     @staticmethod
     def backward(ctx, grad_depth):
         sdf, position, orientation, inv_scale, depth = ctx.saved_tensors
         needs = ctx.needs_input_grad[:4]
+        rays = ctx.rays
         with torch.enable_grad():
             s, p, q, i = (_leaf(x, n) for x, n in zip(
                 (sdf, position, orientation, inv_scale), needs))
-            sur, mask, abs_dz, order = _surrogate_queries(
-                p, q, i, depth, ctx.camera
-            )
+            sur, mask, abs_dz = _surrogate_queries(p, q, i, depth, rays)
             vals = sample_sdf_masked_extrapolating(s, sur, mask)
             sur_val = vals / i * abs_dz
-            grads = _grads([sur_val], [order(grad_depth)], [s, p, q, i],
-                           needs)
+            grads = _grads([sur_val], [rays.order(grad_depth)],
+                           [s, p, q, i], needs)
         return (*grads, None)
 
 
@@ -176,6 +236,8 @@ def render_depth(
     culling: bool = True,
     adaptive: bool = True,
     device="cuda",
+    roi: Optional[Tuple[int, int]] = None,
+    roi_offset=None,
 ) -> torch.Tensor:
     """Render the depth image ``(H, W)`` of a posed, scaled, voxelized SDF.
 
@@ -186,12 +248,18 @@ def render_depth(
     surrogate.  ``culling``/``adaptive`` select the march's coarse-bound
     steps and per-ray over-relaxation; with both off it is the plain march
     of the JAX package's XLA backend.  Runs on ``device`` ("cuda" unless the
-    caller asks for "cpu"); CUDA requested and absent raises.  ROI,
-    relaxed and bf16 marching are not ported yet.
+    caller asks for "cpu"); CUDA requested and absent raises.
+
+    ``roi=(Hr, Wr)`` + ``roi_offset`` (an integer ``[row, col]``, zeros
+    when None) render only that crop of the frame: the march runs on the
+    crop's rays, so the ``(Hr, Wr)`` result equals the same crop of the
+    full render bit for bit.  Relaxed and bf16 marching are not ported yet.
     """
     device = resolve_device(device)
-    static = (camera, float(threshold), int(max_steps), bool(culling),
-              bool(adaptive))
+    if roi_offset is not None:
+        roi_offset = torch.as_tensor(roi_offset, device=device)
+    static = (ray_set(camera, device, roi, roi_offset), float(threshold),
+              int(max_steps), bool(culling), bool(adaptive))
     return _RenderDepth.apply(
         _f32(sdf, device), _f32(position, device), _f32(orientation, device),
         _f32(inv_scale, device), static,
@@ -230,7 +298,7 @@ class _RenderPC(torch.autograd.Function):
                                 mask.to(torch.float32))
         ctx.save_for_backward(sdf, position, orientation, inv_scale, points,
                               point_mask, depth)
-        ctx.camera = static[0]
+        ctx.rays = static[0]
         return depth, values
 
     @staticmethod
@@ -242,8 +310,8 @@ class _RenderPC(torch.autograd.Function):
         with torch.enable_grad():
             s, p, q, i, pts = (_leaf(x, n) for x, n in zip(
                 (sdf, position, orientation, inv_scale, points), needs))
-            sur, sur_mask, abs_dz, order = _surrogate_queries(
-                p, q, i, depth, ctx.camera
+            sur, sur_mask, abs_dz = _surrogate_queries(
+                p, q, i, depth, ctx.rays
             )
             obj, pc_mask = _pc_object_points(p, q, i, pts, point_mask, res)
             vals = sample_sdf_masked_extrapolating(
@@ -253,7 +321,8 @@ class _RenderPC(torch.autograd.Function):
             n_sur = sur.shape[0]
             sur_val = vals[:n_sur] / i * abs_dz
             grads = _grads(
-                [sur_val, vals[n_sur:]], [order(grad_depth), grad_vals],
+                [sur_val, vals[n_sur:]], [ctx.rays.order(grad_depth),
+                                          grad_vals],
                 [s, p, q, i, pts], needs,
             )
         return (*grads, None, None)
@@ -272,6 +341,9 @@ def render_depth_with_pc_values(
     culling: bool = True,
     adaptive: bool = True,
     device="cuda",
+    roi: Optional[Tuple[int, int]] = None,
+    roi_offset=None,
+    rays: Optional[Rays] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a depth image AND sample the SDF at observed points, fused.
 
@@ -279,11 +351,23 @@ def render_depth_with_pc_values(
     metric distances of ``sdfest_tpu.pipeline.losses.pc_loss`` (trilinear
     value at the posed points times ``scale``, 0 outside the volume or the
     mask).  The backward runs one sample-grad and one scatter for both.
+
+    ``roi=(Hr, Wr)`` + ``roi_offset`` render only that crop (``depth`` is
+    ``(Hr, Wr)``, the same crop of the full render bit for bit); the pc
+    values do not change (``api.py:416-420``).  ``rays`` passes the
+    :func:`ray_set` of ``(camera, roi, roi_offset)`` instead, built once by
+    a caller that renders the same crop many times.
     """
     device = resolve_device(device)
     scale = _f32(scale, device)
     inv_scale = 1.0 / scale
-    static = (camera, float(threshold), int(max_steps), bool(culling),
+    if rays is None:
+        if roi_offset is not None:
+            roi_offset = torch.as_tensor(roi_offset, device=device)
+        rays = ray_set(camera, device, roi, roi_offset)
+    elif roi is not None or roi_offset is not None:
+        raise ValueError("pass either roi/roi_offset or a prebuilt ray set")
+    static = (rays, float(threshold), int(max_steps), bool(culling),
               bool(adaptive))
     depth, values = _RenderPC.apply(
         _f32(sdf, device), _f32(position, device), _f32(orientation, device),

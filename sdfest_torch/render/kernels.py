@@ -144,37 +144,49 @@ def march(
     adaptive: bool = True,
     coarse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sphere-trace depth ``(N,)`` of rays ``dirs (N, 3)`` (``csrc/march.cu``;
-    plain version :func:`sdfest_torch.render.plain.march_plain`).
+    """Sphere-trace the depth of rays ``dirs (..., 3)``, shaped like their
+    leading dims (``csrc/march.cu``; plain version
+    :func:`sdfest_torch.render.plain.march_plain`).
 
-    ``coarse`` may pass a precomputed :func:`coarse_min_table` of ``sdf``
-    (built here when culling and not given)."""
+    The rays are any set: a full frame ``(H, W, 3)`` or the crop of an ROI
+    render (:func:`sdfest_torch.render.api.ray_set`); each ray depends on
+    nothing but its own direction, so an ROI render equals the crop of the
+    full render bit for bit.  ``march.rasters`` counts the launches per
+    leading shape of ``dirs``.  ``coarse`` may pass a precomputed
+    :func:`coarse_min_table` of ``sdf`` (built here when culling and not
+    given)."""
     res = _check_grid(sdf)
-    n = _check_points(dirs)
+    if dirs.ndim < 2 or dirs.shape[-1] != 3:
+        raise ValueError("expected ray directions (..., 3)")
+    raster = tuple(dirs.shape[:-1])
+    flat = dirs.reshape(-1, 3)
+    n = flat.shape[0]
     if pose.shape != (14,):
         raise ValueError("pose must be [rot (9), origin_o (3), inv_s, s]")
     if _on_cpu(sdf, dirs, pose):
-        return march_plain(sdf, dirs, pose, threshold, max_steps, culling,
-                           adaptive)
+        return march_plain(sdf, flat, pose, threshold, max_steps, culling,
+                           adaptive).reshape(raster)
     if culling and coarse is None:
         coarse = coarse_min_table(sdf)
     if culling and (coarse.shape != (NC, NC, NC) or not coarse.is_contiguous()
                     or coarse.device != sdf.device):
         raise ValueError("coarse table must be a contiguous (16, 16, 16) "
                          "tensor on the grid's device")
-    depth = torch.empty(n, dtype=torch.float32, device=sdf.device)
+    depth = torch.empty(raster, dtype=torch.float32, device=sdf.device)
     if n:
         _launch(
             "march", sdf.device, sdf.data_ptr(),
-            coarse.data_ptr() if culling else None, dirs.data_ptr(),
+            coarse.data_ptr() if culling else None, flat.data_ptr(),
             pose.data_ptr(), depth.data_ptr(), n, res, float(threshold),
             int(max_steps), int(bool(culling)), int(bool(adaptive)),
         )
         march.launches += 1
+        march.rasters[raster] = march.rasters.get(raster, 0) + 1
     return depth
 
 
 march.launches = 0
+march.rasters = {}
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +297,11 @@ KERNELS = {"march": march, "sample": sample, "sample_grad": sample_grad,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (and clear the march's launch
+    count per raster)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    march.rasters = {}
 
 
 def launches() -> dict:

@@ -122,7 +122,11 @@ def march_plain(
     rot = pose[:9].reshape(3, 3)
     origin_o = pose[9:12]
     inv_scale, scale = pose[12], pose[13]
-    dirs_o = dirs @ rot
+    # R^T d per ray, written out in the CUDA kernel's order: every ray's
+    # result depends on its own direction only (no matmul blocking), so an
+    # ROI render is the full render's crop bit for bit
+    dirs_o = (dirs[:, 0:1] * rot[0] + dirs[:, 1:2] * rot[1]
+              + dirs[:, 2:3] * rot[2])
     hit, t, t_max = obb_interval(dirs_o, -origin_o, scale)
     dz = dirs[:, 2]
     depth = torch.zeros_like(t)

@@ -3,8 +3,10 @@
 ``MUG_PROCEDURAL`` is ``configs/estimation/models/mug_procedural.yaml``
 updated by ``configs/estimation/default.yaml`` (both under
 ``sdfest_tpu/configs/estimation/``), merged as the README's quick start does:
-``config = load(model); config.update(load(default))``.  A CPU test holds the
-dict against ``yaml.safe_load`` of the two files.
+``config = load(model); config.update(load(default))``.
+``MUG_PROCEDURAL_FAST`` adds the production overlay
+``configs/estimation/fast.yaml`` (ROI crop + ``[4, 2]`` multires) on top.
+CPU tests hold the dicts against the YAML files.
 """
 from __future__ import annotations
 
@@ -117,7 +119,16 @@ MUG_PROCEDURAL: Dict[str, Any] = {
     "early_stop_interval": 10,
 }
 
-PRESETS = {"mug_procedural": MUG_PROCEDURAL}
+MUG_PROCEDURAL_FAST: Dict[str, Any] = {
+    **copy.deepcopy(MUG_PROCEDURAL),
+    # fast.yaml
+    "roi_size": "auto",
+    "multires_factor": [4, 2],
+    "multires_iterations": "auto",
+}
+
+PRESETS = {"mug_procedural": MUG_PROCEDURAL,
+           "mug_procedural_fast": MUG_PROCEDURAL_FAST}
 
 
 def preset(name: str) -> Dict[str, Any]:

@@ -86,3 +86,29 @@ def test_fused_op_launches_each_kernel_once(dev):
     assert kernels.launches() == {k: 1 for k in kernels.KERNELS}
     for t in (sdf, pos, q, scale):
         assert bool(torch.isfinite(t.grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [True, False])
+def test_roi_march_equals_crop_of_full_march(dev, flags):
+    """On the card, the march on an ROI's rays equals the crop of the full
+    render bit for bit, for aligned and unaligned crops."""
+    cam = Camera(width=96, height=64, fx=48, fy=48, cx=48, cy=32,
+                 pixel_center=0.5)
+    sdf = _box_sdf().to(dev)
+    q = torch.tensor([0.2, 0.1, 0.0, 0.97], device=dev)
+    pose = kernels.pose_params(torch.tensor([0.02, -0.01, -0.5], device=dev),
+                               q / q.norm(), torch.tensor(5.0, device=dev))
+    full = kernels.march(sdf, api.ray_set(cam, dev).march, pose, 0.005, 500,
+                         flags, flags)
+    assert int((full > 0).sum()) > 300
+    for roi, off in (((32, 48), (0, 0)), ((32, 48), (16, 32)),
+                     ((32, 48), (32, 48)), ((20, 37), (9, 5))):
+        rays = api.ray_set(cam, dev, roi,
+                           torch.tensor(off, dtype=torch.int32, device=dev))
+        kernels.reset_launches()
+        got = kernels.march(sdf, rays.march, pose, 0.005, 500, flags, flags)
+        torch.cuda.synchronize()
+        assert kernels.march.rasters == {roi: 1}
+        assert torch.equal(got, full[off[0]:off[0] + roi[0],
+                                     off[1]:off[1] + roi[1]])

@@ -4,6 +4,8 @@ Inputs are float32 numpy arrays from a seed, fed to both packages; the JAX
 outputs are cast to float32 before comparing (the test session runs JAX in
 x64 mode).
 """
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -189,3 +191,64 @@ def test_resize_trilinear_matches_jax():
             _np(jinterp.resize_trilinear(jnp.asarray(vol), size)),
             atol=1e-5,
         )
+
+
+@pytest.mark.parametrize("factor", [1, 2, 4])
+def test_camera_strided_matches_jax(factor):
+    args = dict(width=640, height=480, fx=320.0, fy=310.0, cx=320.3,
+                cy=239.6, pixel_center=0.5)
+    want = jcamera.Camera(**args).strided(factor)
+    got = tcamera.Camera(**args).strided(factor)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("factor,skew", [(3, 0.0), (0, 0.0), (7, 0.0),
+                                         (2, 0.1)])
+def test_camera_strided_rejects_like_jax(factor, skew):
+    args = dict(width=64, height=48, fx=32, fy=32, cx=32, cy=24, s=skew)
+    for cls in (jcamera.Camera, tcamera.Camera):
+        with pytest.raises(ValueError):
+            cls(**args).strided(factor)
+
+
+def _offset_scene():
+    rng = np.random.default_rng(8)
+    depth = rng.uniform(0.3, 1.0, size=(64, 96)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.3] = 0.0
+    args = dict(width=96, height=64, fx=48, fy=47, cx=48.5, cy=31.5,
+                pixel_center=0.5)
+    return depth, args
+
+
+@pytest.mark.parametrize("order", ["raster", "tile"])
+@pytest.mark.parametrize("roi,offset", [((32, 48), (16, 32)),
+                                        ((20, 40), (7, 13))])
+def test_depth_to_pointcloud_dense_offset_matches_jax(order, roi, offset):
+    """A crop lifted with its pixel offset, against JAX; a 16-aligned crop
+    takes tile order, another stays raster (as JAX does)."""
+    depth, args = _offset_scene()
+    sub = depth[offset[0]:offset[0] + roi[0], offset[1]:offset[1] + roi[1]]
+    want_p, want_m = jpointset.depth_to_pointcloud_dense(
+        jnp.asarray(sub), jcamera.Camera(**args), order=order,
+        pixel_offset=jnp.asarray(offset, jnp.int32),
+    )
+    got_p, got_m = tpointset.depth_to_pointcloud_dense(
+        _t(sub), tcamera.Camera(**args), order=order,
+        pixel_offset=torch.tensor(offset, dtype=torch.int32),
+    )
+    np.testing.assert_allclose(got_p.numpy(), _np(want_p), atol=1e-6)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+
+
+def test_crop_lift_equals_matching_rows_of_full_lift():
+    depth, args = _offset_scene()
+    cam = tcamera.Camera(**args)
+    full_p, full_m = tpointset.depth_to_pointcloud_dense(_t(depth), cam)
+    full_p, full_m = full_p.reshape(64, 96, 3), full_m.reshape(64, 96)
+    for (r, c), (h, w) in [((16, 32), (32, 48)), ((5, 9), (21, 30))]:
+        got_p, got_m = tpointset.depth_to_pointcloud_dense(
+            _t(depth[r:r + h, c:c + w]), cam,
+            pixel_offset=torch.tensor([r, c], dtype=torch.int32),
+        )
+        assert torch.equal(got_p, full_p[r:r + h, c:c + w].reshape(-1, 3))
+        assert torch.equal(got_m, full_m[r:r + h, c:c + w].reshape(-1))

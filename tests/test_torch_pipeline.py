@@ -22,6 +22,8 @@ from sdfest_tpu.ops.camera import Camera as JCamera
 from sdfest_tpu.pipeline.pipeline import SDFPipeline as JPipeline
 from sdfest_tpu.render import xla
 from sdfest_torch.ops import pointset as tpointset
+from sdfest_torch.ops.camera import Camera
+from sdfest_torch.pipeline import pipeline as tpipeline
 from sdfest_torch.pipeline.pipeline import NoDepthError, SDFPipeline
 from sdfest_torch.utils.presets import preset
 
@@ -193,8 +195,7 @@ def test_empty_observation_raises():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("roi_size", [96, 96]),
-    ("multires_factor", 2),
+    ("reuse_plan", True),
     ("early_stop_delta", 0.01),
     ("temporal_coherence", True),
     ("init_view", "best"),
@@ -242,3 +243,230 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 20
+
+
+# ---------------------------------------------------------------------------
+# slice 2: ROI crop + multires (the fast.yaml schedule)
+# ---------------------------------------------------------------------------
+
+FAST = dict(roi_size="auto", multires_factor=[4, 2],
+            multires_iterations="auto")
+SMALL_CAMERA = dict(width=256, height=192, fx=128, fy=128, cx=128, cy=96,
+                    pixel_center=0.5)
+
+
+@pytest.fixture(scope="module")
+def planners():
+    """A JAX and a port pipeline whose config and camera each planner test
+    swaps in (the planners read nothing else)."""
+    jpipe = JPipeline(preset("mug_procedural"))
+    pipe = SDFPipeline(preset("mug_procedural"), device="cpu")
+
+    def use(**overrides):
+        config = preset("mug_procedural")
+        config.update(overrides)
+        for p, cam in ((jpipe, JCamera), (pipe, Camera)):
+            p.config = config
+            p.camera = cam(**config["camera"])
+        return jpipe, pipe
+
+    return use
+
+
+PLAN_CASES = {
+    # chip_smoke's four poses at 640x480 under fast.yaml
+    "fast_poses": (FAST, [(90, 77)]),
+    "fast_pose_4": (FAST, [(69, 72)]),
+    "fast_no_view": (FAST, []),
+    "explicit_roi": (dict(roi_size=[200, 240], multires_factor=[4, 2],
+                          multires_iterations=[10, 10]), [(90, 77)]),
+    "object_too_big": (FAST, [(400, 500)]),
+    "coarse_fits_fine_not": (dict(FAST, roi_margin=60), [(120, 100)]),
+    "single_level_auto": (dict(roi_size="auto", multires_factor=2,
+                               multires_iterations="auto"), [(90, 77)]),
+    "single_level_no_iterations": (dict(multires_factor=2), [(90, 77)]),
+    "single_level_clamped": (dict(max_iterations=4, multires_factor=2,
+                                  multires_iterations=99), [(30, 30)]),
+    "non_dividing_level": (dict(max_iterations=8, multires_factor=[7, 2],
+                                multires_iterations=[3, 2],
+                                roi_size="auto"), [(90, 77)]),
+    "roi_only": (dict(roi_size="auto"), [(90, 77)]),
+    "neither": ({}, [(90, 77)]),
+    "small_camera": (dict(FAST, camera=SMALL_CAMERA, max_iterations=5,
+                          roi_margin=16), [(60, 50)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_planner_matches_jax(planners, case):
+    overrides, spans = PLAN_CASES[case]
+    jpipe, pipe = planners(**overrides)
+    assert pipe._multires_for() == jpipe._multires_for()
+    for factor in (1, 2, 4):
+        assert pipe._roi_from_spans(spans, factor) == jpipe._roi_from_spans(
+            spans, factor)
+    assert pipe._plan_for(spans) == jpipe._plan_for(spans)
+
+
+def test_plan_of_chip_smoke_poses(planners):
+    """fast.yaml at 640x480: ROI at every level, 20/20/10 iterations."""
+    _, pipe = planners(**FAST)
+    for spans in ([(90, 77)], [(91, 90)], [(92, 100)], [(69, 72)]):
+        assert pipe._plan_for(spans) == (
+            ((4, 20, (64, 80)), (2, 20, (128, 160))), (240, 320), 10)
+
+
+@pytest.mark.parametrize("overrides,match", [
+    (dict(multires_factor=[4, 2], multires_iterations=[3]), "must match"),
+    (dict(multires_factor=[4, 2], multires_iterations=3), "matching list"),
+    (dict(max_iterations=5, multires_factor=[4, 2],
+          multires_iterations=[3, 2]), "full-resolution"),
+])
+def test_multires_config_errors_match_jax(planners, overrides, match):
+    for p in planners(**overrides):
+        with pytest.raises(ValueError, match=match):
+            p._multires_for()
+
+
+@pytest.mark.parametrize("roi", [(32, 48), (16, 16), (64, 96)])
+def test_roi_offset_and_probe_match_jax(roi):
+    from sdfest_tpu.pipeline.pipeline import _roi_offset_for as j_offset
+
+    rng = np.random.default_rng(11)
+    depth = np.zeros((4, 64, 96), np.float32)
+    depth[0, 10:30, 20:50] = 0.5  # inside
+    depth[1, 0:6, 80:96] = 0.5  # at a corner: the offset clamps
+    depth[2] = rng.uniform(size=(64, 96)) < 0.02  # scattered pixels
+    # depth[3] stays empty: offset (0, 0), span 0
+    jpipe = JPipeline(_config(fused_call=False))
+    want_valid, want_spans = jpipe._probe(jnp.asarray(depth),
+                                          jnp.asarray(depth > 0))
+    for v in range(4):
+        got = tpipeline._roi_offset_for(torch.from_numpy(depth[v]), roi)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(j_offset(jnp.asarray(depth[v]), roi)))
+        probe = tpipeline._probe(torch.from_numpy(depth[v])).tolist()
+        assert probe == [int(want_valid[v]), *map(int, want_spans[v])]
+
+
+@pytest.mark.parametrize("roi,ds_factor", [((64, 64), 1), ((32, 32), 2),
+                                           (None, 2), ((48, 64), 2)])
+def test_refine_roi_and_stride_trajectory_matches_jax(scene, roi, ds_factor):
+    """One refinement phase with an ROI and/or a stride, 5 iterations,
+    against JAX's _refine (culling and adaptive off, as the XLA march)."""
+    jpipe, depth = scene["jpipe"], scene["depth"]
+    depth_c, jpoints, jmask = jpipe._multires_inputs(
+        jnp.asarray(depth)[None], ds_factor)
+    cam_pos = jnp.zeros((1, 3), jnp.float32)
+    cam_quat = jnp.asarray([[0.0, 0.0, 0.0, 1.0]], jnp.float32)
+    start = {k: jnp.asarray(v) for k, v in scene["start"].items()}
+    want_state, want_best, want_log = jpipe._refine(
+        start, depth_c, jpoints, jmask, cam_pos, cam_quat, True, None, roi,
+        ds_factor, 5)
+    pipe = SDFPipeline(_config(coarse_culling=False,
+                               adaptive_relaxation=False), device="cpu")
+    tdepth = torch.from_numpy(np.array(depth_c[0], dtype=np.float32))
+    points, mask = (None, None) if roi else pipe._lift(tdepth, ds_factor)
+    state, best, log = pipe._refine(
+        {k: torch.from_numpy(v) for k, v in scene["start"].items()}, tdepth,
+        points, mask, num_iterations=5, roi=roi, ds_factor=ds_factor)
+    want = _np(want_log["loss"])
+    assert want[-1] < want[0]
+    np.testing.assert_allclose(log["loss"].numpy(), want, rtol=1e-4)
+    np.testing.assert_allclose(log["inlier_ratio"].numpy(),
+                               _np(want_log["inlier_ratio"]), atol=1e-6)
+    for k in KEYS:
+        np.testing.assert_allclose(state[k].numpy(), _np(want_state[k]),
+                                   atol=1e-4)
+        np.testing.assert_allclose(best[k].numpy(), _np(want_best[k]),
+                                   atol=1e-4)
+
+
+def test_fast_call_matches_jax(monkeypatch):
+    """__call__ under the fast overlay (ROI at every level of the [4, 2]
+    schedule, auto split 2/2/1) against JAX's fused __call__, init
+    included, fed JAX's subsampling draws."""
+    config = preset("mug_procedural_fast")
+    config.update(camera=dict(SMALL_CAMERA), max_iterations=5, roi_margin=16,
+                  coarse_culling=False, adaptive_relaxation=False)
+    jpipe = JPipeline(dict(config))
+    rng = np.random.default_rng(0)
+    latent = (0.5 * rng.normal(size=(1, 8))).astype(np.float32)
+    sdf = jpipe._decode(jnp.asarray(latent))[0, 0]
+    depth = _np(xla.render_depth(sdf, GT_POSITION, GT_QUAT, 1.0 / GT_HALF,
+                                 camera=JCamera(**SMALL_CAMERA),
+                                 threshold=0.005))
+    mask = depth > 0
+    key = jax.random.split(jax.random.PRNGKey(0), 1)[0]
+    u = np.array(jax.random.uniform(key, (2500,)))
+    monkeypatch.setattr(tpointset, "_uniform",
+                        lambda n, g, d: torch.from_numpy(u))
+    want = jpipe(jnp.asarray(depth), jnp.asarray(mask))
+    pipe = SDFPipeline(config, device="cpu")
+    got = pipe(torch.from_numpy(depth), torch.from_numpy(mask))
+    assert pipe.last_plan == jpipe._cached_plan
+    levels, fine_roi, fine_iters = pipe.last_plan
+    assert [lv[:2] for lv in levels] == [(4, 2), (2, 2)] and fine_iters == 1
+    assert all(lv[2] is not None for lv in levels) and fine_roi is not None
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=1e-4)
+    assert pipe.last_log["loss"].shape == (5,)
+
+
+def test_fast_preset_matches_merged_yaml():
+    """mug_procedural_fast is the JAX package's merge of the model config,
+    default.yaml and the fast.yaml overlay."""
+    from sdfest_tpu.utils import config as jconfig
+
+    base = os.path.join(ROOT, "sdfest_tpu", "configs", "estimation")
+    merged = {}
+    for name in ("models/mug_procedural.yaml", "default.yaml", "fast.yaml"):
+        merged = jconfig._deep_merge(
+            merged, jconfig.load_config_from_file(os.path.join(base, name)))
+    assert preset("mug_procedural_fast") == merged
+
+
+# the JAX init's orientation error on chip_smoke's four poses (degrees)
+REFERENCE_INIT_DEG = (31.6, 173.5, 171.3, 177.0)
+
+
+@pytest.mark.parametrize("pose", range(4))
+def test_init_start_is_the_reference_networks_at_full_size(monkeypatch,
+                                                           pose):
+    """At 640x480 on chip_smoke's poses, the port's init equals the JAX
+    package's, and on poses 1-3 both start more than 150 deg from the true
+    orientation: the committed init network gives that start, not the
+    port."""
+    from chip_smoke import GT_POSES
+
+    jpipe = JPipeline(preset("mug_procedural"))
+    pipe = SDFPipeline(preset("mug_procedural"), device="cpu")
+    latent = 0.5 * torch.randn(1, 8, generator=torch.Generator(
+        ).manual_seed(0))
+    sdf = jpipe._decode(jnp.asarray(latent.numpy()))[0, 0]
+    pos, half, quat = GT_POSES[pose]
+    quat = np.asarray(quat, np.float32) / np.linalg.norm(quat)
+    depth = _np(xla.render_depth(sdf, np.asarray(pos, np.float32), quat,
+                                 np.float32(1.0 / half),
+                                 camera=JCamera(**preset("mug_procedural")[
+                                     "camera"]), threshold=0.005))
+    assert (depth > 0).sum() > 3000
+    key = jax.random.split(jax.random.PRNGKey(0), 1)[0]
+    u = np.array(jax.random.uniform(key, (2500,)))
+    monkeypatch.setattr(tpointset, "_uniform",
+                        lambda n, g, d: torch.from_numpy(u))
+    cam_pos, cam_quat = np.zeros(3, np.float32), np.asarray(
+        [0.0, 0.0, 0.0, 1.0], np.float32)
+    want = jpipe._nn_init(jnp.asarray(depth)[None], jnp.asarray(cam_pos)[None],
+                          jnp.asarray(cam_quat)[None], jax.random.PRNGKey(0))
+    tdepth = torch.from_numpy(depth)
+    got = pipe._nn_init(pipe._preprocess_depth(tdepth, tdepth > 0),
+                        torch.from_numpy(cam_pos), torch.from_numpy(cam_quat),
+                        None)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=1e-4)
+    deg = np.degrees((Rotation.from_quat(quat.astype(np.float64)).inv()
+                      * Rotation.from_quat(np.array(want[3])[0])).magnitude())
+    assert abs(deg - REFERENCE_INIT_DEG[pose]) < 0.05, deg
+    assert pose == 0 or deg > 150.0

@@ -278,3 +278,109 @@ def test_chip_smoke_refuses_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+ROI_CAM_ARGS = dict(width=96, height=64, fx=48, fy=48, cx=48, cy=32,
+                    pixel_center=0.5)
+ROI_QUAT = (np.asarray([0.2, 0.1, 0.0, 0.97]) / np.linalg.norm(
+    [0.2, 0.1, 0.0, 0.97])).astype(np.float32)
+ROI_POSITION = np.asarray([0.02, -0.01, -0.5], np.float32)
+
+
+@pytest.mark.parametrize("flags", [True, False])
+@pytest.mark.parametrize("name", ["sphere", "box"])
+def test_roi_render_equals_full_crop(name, flags):
+    """An ROI render equals the same crop of the full render bit for bit
+    (the camera and offsets of the JAX package's own ROI test), with
+    culling + adaptive relaxation on and off."""
+    cam = Camera(**ROI_CAM_ARGS)
+    kw = dict(camera=cam, threshold=0.005, culling=flags, adaptive=flags,
+              device="cpu")
+    args = (SDFS[name], ROI_POSITION, ROI_QUAT, 5.0)
+    full = render_depth(*args, **kw)
+    for off in ((0, 0), (16, 32), (32, 48)):
+        roi = render_depth(*args, roi=(32, 48), roi_offset=off, **kw)
+        assert roi.shape == (32, 48)
+        assert torch.equal(roi, full[off[0]:off[0] + 32, off[1]:off[1] + 48])
+    assert int((full > 0).sum()) > 300
+
+
+@pytest.mark.parametrize("roi,offset", [((32, 48), (16, 24)),
+                                        ((24, 40), (21, 30))])
+def test_roi_render_with_pc_values_matches_jax(roi, offset):
+    """Forward and gradients of the fused op on an ROI (16-aligned: tile
+    order surrogate; unaligned: raster order) against the JAX package's
+    XLA ROI path (full render + crop + pc_loss)."""
+    from sdfest_tpu.render.api import (
+        render_depth_with_pc_values as jrender_pc,
+    )
+
+    sdf = SDFS["box"]
+    cam, jcam = Camera(**ROI_CAM_ARGS), JCamera(**ROI_CAM_ARGS)
+    rng = np.random.default_rng(7)
+    scale = np.float32(0.2)
+    points = (ROI_POSITION + rng.normal(scale=0.12, size=(300, 3))).astype(
+        np.float32)
+    point_mask = (rng.uniform(size=300) < 0.8).astype(np.float32)
+    w = rng.normal(size=roi).astype(np.float32)
+    v = rng.normal(size=(300,)).astype(np.float32)
+    off = jnp.asarray(offset, jnp.int32)
+
+    def jfwd(s, p, q, sc, pts):
+        return jrender_pc(s, p, q, sc, pts, point_mask, camera=jcam,
+                          threshold=0.005, backend="xla", roi=roi,
+                          roi_offset=off)
+
+    jargs = tuple(map(jnp.asarray, (sdf, ROI_POSITION, ROI_QUAT, scale,
+                                    points)))
+    want_depth, want_values = jfwd(*jargs)
+    want = jax.grad(
+        lambda *a: jnp.sum(jfwd(*a)[0] * w) + jnp.sum(jfwd(*a)[1] * v),
+        argnums=(0, 1, 2, 3, 4),
+    )(*jargs)
+    leaves = [_t(a).requires_grad_() for a in (sdf, ROI_POSITION, ROI_QUAT,
+                                               scale, points)]
+    depth, values = render_depth_with_pc_values(
+        *leaves, _t(point_mask), cam, threshold=0.005, culling=False,
+        adaptive=False, device="cpu", roi=roi, roi_offset=offset,
+    )
+    assert depth.shape == roi and int((depth > 0).sum()) > 100
+    np.testing.assert_allclose(depth.detach().numpy(), _np(want_depth),
+                               atol=1e-4)
+    np.testing.assert_allclose(values.detach().numpy(), _np(want_values),
+                               atol=1e-4)
+    ((depth * _t(w)).sum() + (values * _t(v)).sum()).backward()
+    for leaf, g in zip(leaves, want):
+        _close(leaf.grad.numpy(), g, 1e-3)
+
+
+def test_prebuilt_ray_set_equals_roi_arguments():
+    """The refinement loop's prebuilt ray set gives the same depth and
+    gradients as roi/roi_offset; passing both is refused."""
+    from sdfest_torch.render.api import ray_set
+
+    cam = Camera(**ROI_CAM_ARGS)
+    off = torch.tensor([16, 32], dtype=torch.int32)
+    rays = ray_set(cam, "cpu", (32, 48), off)
+    assert rays.shape == (32, 48)
+    full = plain.pixel_directions(cam, torch.device("cpu")).reshape(64, 96, 3)
+    assert torch.equal(rays.march, full[16:48, 32:80])
+    assert torch.equal(rays.surrogate, kernels.tile_image(rays.march, 32, 48))
+    outs = []
+    for kw in (dict(roi=(32, 48), roi_offset=off), dict(rays=rays)):
+        leaves = [_t(a).requires_grad_() for a in (SDFS["sphere"],
+                                                   ROI_POSITION, ROI_QUAT)]
+        depth, values = render_depth_with_pc_values(
+            *leaves, 0.2, torch.zeros(1, 3), torch.zeros(1), cam,
+            threshold=0.005, device="cpu", **kw)
+        depth.sum().backward()
+        outs.append([depth.detach()] + [x.grad for x in leaves])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="either"):
+        render_depth_with_pc_values(
+            SDFS["sphere"], ROI_POSITION, ROI_QUAT, 0.2, torch.zeros(1, 3),
+            torch.zeros(1), cam, device="cpu", roi=(32, 48), rays=rays)
+    with pytest.raises(ValueError, match="fit"):
+        render_depth(SDFS["sphere"], ROI_POSITION, ROI_QUAT, 5.0, camera=cam,
+                     device="cpu", roi=(80, 48))
