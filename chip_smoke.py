@@ -7,24 +7,35 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --phases build,check   # build and check kernels only
     python3 chip_smoke.py --phases build,check,fast   # the fast.yaml path
+    python3 chip_smoke.py --phases build,check,temporal   # warm refinement
 
 Phases:
-  build     compile the four kernels from sdfest_torch/csrc (nvcc, sm_90a)
+  build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
   check     hold each kernel against its plain PyTorch twin at main-path
             shapes (640x480 camera, decoded 64^3 mug SDF, realistic masks);
             ROI marches against the crop of the full march (bit for bit)
-            and against the plain ROI march, at strides 1, 2 and 4
+            and against the plain ROI march, at strides 1, 2 and 4; the
+            warm/aux march cold and with a real warm step's inputs, and
+            all rays skipped; the relaxed march with and without culling
   pipeline  SDFPipeline.__call__ of the mug_procedural preset with the
             committed weights on a self-rendered observation, 50 full-frame
             iterations; counts kernel launches per call and times 3 calls
   fast      the same under mug_procedural_fast (fast.yaml: ROI crop +
             [4, 2] multires): plan, launches and march rasters per call,
-            rays marched, 3 timed calls
+            rays marched, 3 timed calls; then mug_procedural_fast_adaptive
+            (+ early stop): active iterations per phase and per call
+  temporal  the same under mug_procedural_temporal (temporal coherence:
+            the warm march every iteration): launches, skipped /
+            warm-started / cold rays per call, 3 timed calls; warm against
+            cold _refine from a perturbed ground-truth state
+  relaxed   mug_procedural with relaxation 1.5, culling on and off:
+            launches and one timed call each
   time      each kernel and its plain twin over 30 distinct inputs (CUDA
             events), with the least time the card could take (bound); the
-            march also at the three ROI shapes of the fast plan
-  profile   torch.profiler over one full-frame and one fast call: device
-            busy share and the ops that take the time
+            march also at the three ROI shapes of the fast plan, plain,
+            relaxed, and the warm march cold and mid-refinement
+  profile   torch.profiler over one full-frame, fast and temporal call:
+            device busy share and the ops that take the time
 
 Prints one JSON line {"kernels": [...]}, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Any failed check
@@ -36,11 +47,13 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 
-PHASES = ("build", "check", "pipeline", "fast", "time", "profile")
+PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
+          "time", "profile")
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
 SPIN_CYCLES = 100_000_000
@@ -59,6 +72,14 @@ OPS_SCATTER = 62
 # per bound step = position (6) + coarse index (15) + test/step (4);
 # per ray = rotation (15) + slab test (~30)
 OPS_MARCH_FINE, OPS_MARCH_BOUND, OPS_MARCH_RAY = 66, 25, 45
+# warm march: + the corridor update per step (dip, min, 2 selects: ~6),
+# + the warm start per ray (compare, max: 2) and 3 output selects
+OPS_WARM_FINE, OPS_WARM_BOUND, OPS_WARM_RAY = 72, 31, 50
+RELAXATION = 1.5  # the relaxed paths' over-relaxation factor
+# an Adam-sized step between two refinement iterations, from which the
+# warm march's mid-refinement inputs are made: positions ~1e-3, the
+# quaternion ~1e-2, the scale ~1e-3 relative
+STEP_POSITION, STEP_QUAT, STEP_SCALE = 1e-3, 1e-2, 1e-3
 GT_POSES = [  # (position, half-width, quaternion xyzw), tilted views
     ((0.02, -0.01, -0.5), 0.1, (0.25, 0.35, 0.1, 0.895)),
     ((-0.03, 0.02, -0.55), 0.11, (-0.2, 0.4, 0.15, 0.88)),
@@ -136,6 +157,15 @@ class Smoke:
         self.pipe = SDFPipeline(preset("mug_procedural"), device=self.dev)
         self.fast_pipe = SDFPipeline(preset("mug_procedural_fast"),
                                      device=self.dev)
+        self.adaptive_pipe = SDFPipeline(
+            preset("mug_procedural_fast_adaptive"), device=self.dev)
+        self.temporal_pipe = SDFPipeline(preset("mug_procedural_temporal"),
+                                         device=self.dev)
+        self.relaxed_pipes = {}
+        for culling in (True, False):
+            config = preset("mug_procedural")
+            config.update(relaxation=RELAXATION, coarse_culling=culling)
+            self.relaxed_pipes[culling] = SDFPipeline(config, device=self.dev)
         self.camera = self.pipe.camera
         gen = torch.Generator(device="cpu").manual_seed(0)
         self.latent = (0.5 * torch.randn(1, 8, generator=gen)).to(self.dev)
@@ -144,6 +174,55 @@ class Smoke:
         self.report = {}
 
     # -- helpers -----------------------------------------------------------
+
+    def pose(self, pos, q, half):
+        """The march's pose operand of a pose (position, quaternion,
+        half-width)."""
+        import torch
+
+        from sdfest_torch.render import kernels
+
+        return kernels.pose_params(
+            torch.as_tensor(pos, dtype=torch.float32, device=self.dev),
+            unit_quat(q, self.dev),
+            torch.tensor(1.0 / float(half), device=self.dev))
+
+    def warm_step(self, gt, seed):
+        """The warm march's inputs in mid-refinement near pose ``gt``: the
+        warm state of a cold warm march at ``gt``, then an Adam-sized move
+        (STEP_*) and the ``(pose, t_init, skip)`` that warm_render_step
+        derives for the new pose (motion from ``motion_bound``)."""
+        import torch
+
+        from sdfest_torch.render import api, kernels as k, plain, warm
+
+        pos, half, q = gt
+        thr = self.pipe.config["threshold"]
+        rays = api.ray_set(self.camera, self.dev).march
+        shape = rays.shape[:2]
+        pose0 = self.pose(pos, q, half)
+        outs = k.march_warm(self.sdf, rays, pose0,
+                            torch.full(shape, -1.0, device=self.dev),
+                            torch.zeros(shape, device=self.dev), thr, 500)
+        _, t_min, _ = plain.ray_interval(rays.reshape(-1, 3), pose0)
+        state = dict(zip(plain.WARM_OUTPUTS[1:], outs[1:]),
+                     hit=(outs[0] > 0).float(), t0=t_min.reshape(shape),
+                     macc=torch.zeros(shape, device=self.dev))
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        d = lambda n, s: (s * torch.randn(n, generator=g)).tolist()
+        pos1 = [a + b for a, b in zip(pos, d(3, STEP_POSITION))]
+        q1 = unit_quat([a + b for a, b in zip(unit_quat(q, "cpu").tolist(),
+                                             d(4, STEP_QUAT))], self.dev)
+        half1 = half * (1.0 + d(1, STEP_SCALE)[0])
+        t = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                      device=self.dev)
+        motion = warm.motion_bound(t(pos1), q1, t(half1), self.sdf, {
+            "position": t(pos), "orientation": unit_quat(q, self.dev),
+            "scale": t(half), "sdf": self.sdf})
+        pose1 = self.pose(pos1, q1, half1)
+        t_init, skip, _ = warm.warm_inputs(state, rays, pose1, motion, False,
+                                           thr)
+        return pose1, t_init.contiguous(), skip.contiguous()
 
     def render(self, sdf, pos, q, half):
         """Depth of ``sdf`` at a pose (port's march)."""
@@ -333,9 +412,7 @@ class Smoke:
             tol="hit agreement > 0.995, |ddepth| < 5e-3")
         for culling in (True, False):
             for pos, half, q in GT_POSES:
-                pose = k.pose_params(torch.tensor(pos, device=self.dev),
-                                     unit_quat(q, self.dev),
-                                     torch.tensor(1.0 / half, device=self.dev))
+                pose = self.pose(pos, q, half)
                 args = (self.sdf, dirs, pose, self.pipe.config["threshold"],
                         500, culling, culling)
                 got = k.march(*args)
@@ -356,6 +433,100 @@ class Smoke:
                 r["max_err"] = max(r["max_err"], dd)
                 r["agreement"] = min(r["agreement"], agree)
         self.check_roi()
+        self.check_warm()
+        self.check_relaxed()
+
+    def check_warm(self):
+        """The warm/aux march against its twin at every pose, cold and with
+        a real warm step's inputs: the march's bar on the depth, the
+        corridor fields within 1e-4 on rays whose hit status agrees; every
+        ray skipped gives zeros and t == t_last == t0 exactly."""
+        import torch
+
+        from sdfest_torch.render import api, kernels as k, plain
+
+        thr = self.pipe.config["threshold"]
+        rays = api.ray_set(self.camera, self.dev).march
+        shape = rays.shape[:2]
+        r = self.report["march_warm"] = dict(
+            max_err=0.0, agreement=1.0, corridor_max_err=0.0,
+            tol="hit agreement > 0.995, |ddepth| < 5e-3; corridor fields "
+                "|d| < 1e-4 where the hit status agrees; all skipped: zeros, "
+                "t == t_last == t0 exactly")
+        cold = (torch.full(shape, -1.0, device=self.dev),
+                torch.zeros(shape, device=self.dev))
+        for i, gt in enumerate(GT_POSES):
+            pos, half, q = gt
+            for label, (pose, t_init, skip) in (
+                    ("cold", (self.pose(pos, q, half), *cold)),
+                    ("warm", self.warm_step(gt, 10 + i))):
+                got = k.march_warm(self.sdf, rays, pose, t_init, skip, thr,
+                                   500)
+                want = [x.reshape(shape) for x in plain.march_warm_plain(
+                    self.sdf, rays.reshape(-1, 3), pose, t_init.reshape(-1),
+                    skip.reshape(-1), thr, 500)]
+                hit_g, hit_w = got[0] > 0, want[0] > 0
+                same = hit_g == hit_w
+                agree = float(same.float().mean())
+                both = hit_g & hit_w
+                dd = float((got[0] - want[0])[both].abs().max())
+                de = max(float((g - w)[same].abs().max())
+                         for g, w in zip(got[1:], want[1:]))
+                print(f"check march_warm pose {i} {label}: hits "
+                      f"{int(hit_w.sum())} skipped {int(skip.sum())} "
+                      f"warm-started {int((t_init >= 0).sum())} agreement "
+                      f"{agree:.6f} max|ddepth| {dd:.3e} corridor max|d| "
+                      f"{de:.3e}")
+                assert int(hit_w.sum()) > 3000, "too few hits"
+                assert agree > 0.995 and dd < 5e-3, "march_warm disagrees"
+                assert de < 1e-4, "march_warm corridor fields disagree"
+                r["max_err"] = max(r["max_err"], dd)
+                r["agreement"] = min(r["agreement"], agree)
+                r["corridor_max_err"] = max(r["corridor_max_err"], de)
+        pos, half, q = GT_POSES[0]
+        pose = self.pose(pos, q, half)
+        depth, t, v0, min_dip, v_last, t_last = k.march_warm(
+            self.sdf, rays, pose, cold[0], torch.ones(shape, device=self.dev),
+            thr, 500)
+        _, t0, _ = plain.ray_interval(rays.reshape(-1, 3), pose)
+        t0 = t0.reshape(shape)
+        zeros = all(float(x.abs().sum()) == 0.0
+                    for x in (depth, v0, min_dip, v_last))
+        at_t0 = torch.equal(t, t0) and torch.equal(t_last, t0)
+        print(f"check march_warm all skipped: zeros {zeros}, t == t_last == "
+              f"t0 {at_t0}")
+        assert zeros and at_t0, "all-skip march_warm is not at its start"
+        r["all_skipped_exact"] = True
+
+    def check_relaxed(self):
+        """The relaxed march (relaxation 1.5) against its twin at every
+        pose, with and without culling."""
+        from sdfest_torch.render import api, kernels as k, plain
+
+        thr = self.pipe.config["threshold"]
+        rays = api.ray_set(self.camera, self.dev).march
+        r = self.report["march_relaxed"] = dict(
+            max_err=0.0, agreement=1.0,
+            tol="hit agreement > 0.995, |ddepth| < 5e-3")
+        for culling in (True, False):
+            for i, (pos, half, q) in enumerate(GT_POSES):
+                pose = self.pose(pos, q, half)
+                got = k.march(self.sdf, rays, pose, thr, 500, culling, True,
+                              relaxation=RELAXATION)
+                want = plain.march_plain(
+                    self.sdf, rays.reshape(-1, 3), pose, thr, 500, culling,
+                    True, relaxation=RELAXATION).reshape(got.shape)
+                hit_g, hit_w = got > 0, want > 0
+                agree = float((hit_g == hit_w).float().mean())
+                both = hit_g & hit_w
+                dd = float((got - want)[both].abs().max())
+                print(f"check march relaxed {RELAXATION} culling={culling} "
+                      f"pose {i}: hits {int(hit_w.sum())} agreement "
+                      f"{agree:.6f} max|ddepth| {dd:.3e}")
+                assert int(hit_w.sum()) > 3000, "too few hits"
+                assert agree > 0.995 and dd < 5e-3, "relaxed march disagrees"
+                r["max_err"] = max(r["max_err"], dd)
+                r["agreement"] = min(r["agreement"], agree)
 
     def roi_inputs(self, gt, factor, roi):
         """The fast plan's ROI march at one pose and stride: the full
@@ -388,9 +559,7 @@ class Smoke:
             for gt in GT_POSES:
                 pos, half, q = gt
                 full_rays, offset, rays = self.roi_inputs(gt, factor, roi)
-                pose = k.pose_params(torch.tensor(pos, device=self.dev),
-                                     unit_quat(q, self.dev),
-                                     torch.tensor(1.0 / half, device=self.dev))
+                pose = self.pose(pos, q, half)
                 args = (pose, thr, 500, True, True)
                 full = k.march(self.sdf, full_rays, *args)
                 got = k.march(self.sdf, rays, *args)
@@ -427,9 +596,9 @@ class Smoke:
         counts = kernels.launches()
         n_iter = self.pipe.config["max_iterations"]
         print(f"pipeline launches per call {counts} ({n_iter} iterations)")
-        for name, c in counts.items():
-            assert c == n_iter, f"{name} launched {c} times, not {n_iter}"
-            self.report[name]["launches"] = c
+        expect_launches(counts, n_iter)
+        for name in FUSED_KERNELS:
+            self.report[name]["launches"] = counts[name]
         loss = self.pipe.last_log["loss"]
         l0, l_last = float(loss[0]), float(loss[-1])
         print(f"pipeline loss it0 {l0:.6f} it{n_iter - 1} {l_last:.6f}")
@@ -495,8 +664,7 @@ class Smoke:
             assert all(roi is not None for _, _, roi in levels) and (
                 fine_roi is not None) and len(levels) == 2, (
                 "the fast plan lacks an ROI at some level")
-            for name, c in counts.items():
-                assert c == n_iter, f"{name} launched {c} times, not {n_iter}"
+            expect_launches(counts, n_iter)
             assert sum(rasters.values()) == n_iter
             loss = pipe.last_log["loss"]
             l0, l_last = float(loss[0]), float(loss[-1])
@@ -529,11 +697,188 @@ class Smoke:
         print(f"fast mean {mean * 1e3:.3f} ms/call, {n_iter / mean:.1f} "
               f"iterations/s (full-frame pipeline this run: "
               f"{'not run' if full is None else f'{full:.3f} ms/call'})")
-        for name in kernels.KERNELS:
+        for name in FUSED_KERNELS:
             self.report[name]["launches_fast"] = calls[0]["launches"][name]
         self.report["march"]["roi"]["rasters_per_call"] = calls[0]["rasters"]
         self.report["_fast"] = dict(ms_per_call=mean * 1e3,
                                     it_per_s=n_iter / mean, calls=calls)
+        self.fast_adaptive()
+
+    def fast_adaptive(self):
+        """SDFPipeline.__call__ under mug_procedural_fast_adaptive (fast.yaml
+        + early stop): a warm-up and 3 timed calls, each read for its active
+        iterations per phase and its launches (one of each fused-op kernel
+        per active iteration)."""
+        import torch
+
+        from sdfest_torch.render import kernels
+
+        pipe = self.adaptive_pipe
+        n_iter = pipe.config["max_iterations"]
+        walls, calls = [], []
+        for i, gt in enumerate(GT_POSES):
+            depth = self.observe(gt)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            pos, orient, scale, latent = pipe(depth, depth > 0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launches()
+            levels, fine_roi, fine_iters = pipe.last_plan
+            active = pipe.last_log["active"].tolist()
+            per_phase, at = [], 0
+            for n in [n for _, n, _ in levels] + [fine_iters]:
+                per_phase.append(int(sum(active[at:at + n])))
+                at += n
+            n_active = int(sum(active))
+            print(f"fast_adaptive call {i}: {wall * 1e3:.3f} ms ("
+                  f"{'warm-up' if i == 0 else 'timed'}) active iterations "
+                  f"{n_active} of {n_iter}, per phase {per_phase} of "
+                  f"{[n for _, n, _ in levels] + [fine_iters]}; launches "
+                  f"{counts}")
+            assert len(active) == n_iter and at == n_iter
+            expect_launches(counts, n_active)
+            for t in (pos, orient, scale, latent):
+                assert bool(torch.isfinite(t).all()), "non-finite estimate"
+            calls.append(dict(active=n_active, active_per_phase=per_phase,
+                              ms=wall * 1e3, launches=counts))
+            if i:
+                walls.append(wall)
+        mean = sum(walls) / len(walls)
+        print(f"fast_adaptive mean {mean * 1e3:.3f} ms/call (fast this run: "
+              f"{self.report['_fast']['ms_per_call']:.3f} ms/call)")
+        self.report["_fast_adaptive"] = dict(ms_per_call=mean * 1e3,
+                                             calls=calls)
+
+    def temporal(self):
+        """SDFPipeline.__call__ under mug_procedural_temporal: every
+        iteration renders through the warm march.  Call 0 counts launches
+        and the skipped / warm-started / cold rays (summed on the device,
+        read after the call); calls 1-3 are timed.  Then warm against cold
+        _refine, 12 iterations from a perturbed ground-truth state."""
+        import torch
+
+        from sdfest_torch.ops import pointset, quaternion
+        from sdfest_torch.render import kernels, warm
+
+        pipe = self.temporal_pipe
+        n_iter = pipe.config["max_iterations"]
+        rays = self.camera.height * self.camera.width
+        inputs = warm.warm_inputs
+        tally = []
+
+        def counted(*args, **kwargs):
+            t_init, skip, macc = inputs(*args, **kwargs)
+            tally.append(torch.stack([skip.sum(),
+                                      ((t_init >= 0) & (skip <= 0)).sum()]))
+            return t_init, skip, macc
+
+        walls = []
+        for i, gt in enumerate(GT_POSES):
+            depth = self.observe(gt)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            warm.warm_inputs = counted if i == 0 else inputs
+            try:
+                t0 = time.perf_counter()
+                pos, orient, scale, latent = pipe(depth, depth > 0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                warm.warm_inputs = inputs
+            counts = kernels.launches()
+            loss = pipe.last_log["loss"]
+            l0, l_last = float(loss[0]), float(loss[-1])
+            print(f"temporal call {i}: {wall * 1e3:.3f} ms ("
+                  f"{'counted' if i == 0 else 'timed'}) launches {counts} "
+                  f"plan {pipe.last_plan} loss it0 {l0:.6f} "
+                  f"it{n_iter - 1} {l_last:.6f}")
+            assert pipe.last_plan == ((), None, None), "not one full frame"
+            assert math.isfinite(l0) and math.isfinite(l_last) and l_last < l0
+            for t in (pos, orient, scale, latent):
+                assert bool(torch.isfinite(t).all()), "non-finite estimate"
+            if i == 0:
+                want = {"march": 0, "march_warm": n_iter, "sample": 0,
+                        "sample_grad": 2 * n_iter, "scatter": 2 * n_iter}
+                assert counts == want, f"launches {counts}, expected {want}"
+                skipped, warm_started = (int(x) for x in
+                                         torch.stack(tally).sum(0).tolist())
+                rays_call = dict(skipped=skipped, warm_started=warm_started,
+                                 cold=n_iter * rays - skipped - warm_started)
+                print(f"temporal rays per call (of {n_iter} x {rays}): "
+                      f"{rays_call}")
+                self.report["march_warm"]["launches"] = counts["march_warm"]
+                temporal_counts = counts
+            else:
+                walls.append(wall)
+        mean = sum(walls) / len(walls)
+        full = self.report.get("_pipeline", {}).get("ms_per_call")
+        print(f"temporal mean {mean * 1e3:.3f} ms/call, {n_iter / mean:.1f} "
+              f"iterations/s (full-frame pipeline this run: "
+              f"{'not run' if full is None else f'{full:.3f} ms/call'})")
+        # warm against cold _refine from a perturbed ground-truth state
+        gpos, ghalf, gq = GT_POSES[0]
+        depth = self.observe(GT_POSES[0])
+        points, point_mask = pointset.depth_to_pointcloud_dense(
+            depth, self.camera, order="tile")
+        turn = unit_quat([0.035, -0.026, 0.044, 0.998], self.dev)
+        start = {"position": torch.tensor(
+                     [[gpos[0] + 0.01, gpos[1] - 0.008, gpos[2] + 0.015]],
+                     device=self.dev),
+                 "orientation": quaternion.multiply(
+                     turn, unit_quat(gq, self.dev))[None],
+                 "scale": torch.tensor([ghalf * 1.1], device=self.dev),
+                 "latent": self.latent}
+        ends = {}
+        for label, p in (("warm", pipe), ("cold", self.pipe)):
+            state, _, log = p._refine(start, depth, points, point_mask,
+                                      num_iterations=12)
+            ends[label] = state
+        d_pos = float((ends["warm"]["position"]
+                       - ends["cold"]["position"]).abs().max())
+        d_scale = float((ends["warm"]["scale"]
+                         - ends["cold"]["scale"]).abs().max())
+        print(f"temporal warm vs cold _refine, 12 iterations: max|dposition| "
+              f"{d_pos:.3e} max|dscale| {d_scale:.3e} (tol 2e-3)")
+        assert d_pos < 2e-3 and d_scale < 2e-3, "warm and cold refine differ"
+        self.report["_temporal"] = dict(
+            ms_per_call=mean * 1e3, it_per_s=n_iter / mean,
+            launches=temporal_counts, rays=rays_call,
+            warm_vs_cold=dict(position=d_pos, scale=d_scale, tol=2e-3))
+
+    def relaxed(self):
+        """mug_procedural with relaxation 1.5, culling on and off: the
+        launches of one call (every march relaxed) and one timed call."""
+        import torch
+
+        from sdfest_torch.render import kernels
+
+        r = self.report.setdefault("march_relaxed", {})
+        for culling, pipe in self.relaxed_pipes.items():
+            n_iter = pipe.config["max_iterations"]
+            walls = []
+            for i, gt in enumerate(GT_POSES[:2]):
+                depth = self.observe(gt)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                out = pipe(depth, depth > 0)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                counts = kernels.launches()
+                loss = pipe.last_log["loss"]
+                print(f"relaxed culling={culling} call {i}: "
+                      f"{walls[-1] * 1e3:.3f} ms launches {counts} loss "
+                      f"{float(loss[0]):.6f} -> {float(loss[-1]):.6f}")
+                expect_launches(counts, n_iter)
+                assert float(loss[-1]) < float(loss[0])
+                for t in out:
+                    assert bool(torch.isfinite(t).all()), "non-finite"
+            key = "culling" if culling else "no_culling"
+            r.setdefault(key, {}).update(launches=counts["march"],
+                                         ms_per_call=walls[-1] * 1e3)
+        r["launches"] = r["culling"]["launches"]
 
     def time(self):
         import torch
@@ -584,11 +929,9 @@ class Smoke:
         for i in range(reps):
             pos, half, q = GT_POSES[i % len(GT_POSES)]
             jitter = (0.01 * torch.randn(3, generator=g)).tolist()
-            poses.append(k.pose_params(
+            poses.append(self.pose(
                 torch.tensor(pos, device=self.dev) + torch.tensor(
-                    jitter, device=self.dev),
-                unit_quat(q, self.dev),
-                torch.tensor(1.0 / half, device=self.dev)))
+                    jitter, device=self.dev), q, half))
         thr = self.pipe.config["threshold"]
         ms = cuda_ms(lambda pose: k.march(self.sdf, dirs, pose, thr, 500,
                                           True, True, coarse=coarse), poses)
@@ -639,12 +982,119 @@ class Smoke:
             timed.append(dict(factor=factor, raster=list(roi), ms=ms,
                               plain_ms=pms, bound_ms=b_ms, bound_by=by,
                               bytes=nbytes, ops=ops, steps=steps))
+        self.time_march_variants(poses, dirs, coarse)
+
+    def time_march_variants(self, poses, dirs, coarse):
+        """The plain branch, the relaxed march (culling on and off) and the
+        warm march (cold, and mid-refinement with a real warm step's
+        inputs), each at the same 30 poses as the default march."""
+        import torch
+
+        from sdfest_torch.render import kernels as k
+        from sdfest_torch.render import plain
+
+        thr = self.pipe.config["threshold"]
+        n = dirs.shape[0]
+        reps = len(poses)
+
+        def mean_steps(run):
+            steps = {"rays": 0, "fine": 0, "bound": 0, "cells": 0}
+            for x in run:
+                for key, v in x.items():
+                    steps[key] += v / reps
+            return steps
+
+        def march_steps(culling, adaptive, relaxation):
+            out = []
+            for pose in poses:
+                st = {}
+                plain.march_plain(self.sdf, dirs, pose, thr, 500, culling,
+                                  adaptive, steps=st, relaxation=relaxation)
+                out.append(st)
+            return mean_steps(out)
+
+        def report(entry, ms, pms, steps, n_bytes, ops_ray, ops_fine,
+                   ops_bound):
+            ops = (steps["rays"] * ops_ray + steps["fine"] * ops_fine
+                   + steps["bound"] * ops_bound)
+            nbytes = n_bytes + steps["cells"] * 4
+            b_ms, by = bound(nbytes, ops)
+            entry.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                         bytes=nbytes, ops=ops, steps=steps)
+            return (f"kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+                    f"{b_ms:.5f} ms ({by}: {nbytes / 1e6:.3f} MB, "
+                    f"{ops / 1e6:.3f} Mop) steps {steps}")
+
+        table = 16 ** 3 * 4 + 14 * 4
+        # plain branch: directions in, depth out, grid cells, no table
+        ms = cuda_ms(lambda pose: k.march(self.sdf, dirs, pose, thr, 500,
+                                          False, False), poses)
+        pms = cuda_ms(lambda pose: plain.march_plain(
+            self.sdf, dirs, pose, thr, 500, False, False), poses, warmup=1)
+        entry = self.report["march"].setdefault("plain", {})
+        print("time march plain " + report(
+            entry, ms, pms, march_steps(False, False, 1.0), n * 16 + 14 * 4,
+            OPS_MARCH_RAY, OPS_MARCH_FINE, OPS_MARCH_BOUND))
+        # relaxed, culling on and off
+        r = self.report.setdefault("march_relaxed", {})
+        for culling in (True, False):
+            ms = cuda_ms(lambda pose: k.march(
+                self.sdf, dirs, pose, thr, 500, culling, True,
+                coarse=coarse if culling else None,
+                relaxation=RELAXATION), poses)
+            pms = cuda_ms(lambda pose: plain.march_plain(
+                self.sdf, dirs, pose, thr, 500, culling, True,
+                relaxation=RELAXATION), poses, warmup=1)
+            key = "culling" if culling else "no_culling"
+            print(f"time march relaxed {key} " + report(
+                r.setdefault(key, {}), ms, pms,
+                march_steps(culling, True, RELAXATION),
+                n * 16 + (table if culling else 14 * 4), OPS_MARCH_RAY,
+                OPS_MARCH_FINE, OPS_MARCH_BOUND))
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            r[key] = r["culling"][key]
+        # warm march: directions, t_init and skip in; depth and the five
+        # corridor fields out
+        shape = (self.camera.height, self.camera.width)
+        rays = dirs.reshape(*shape, 3)
+        cold = [(pose, torch.full(shape, -1.0, device=self.dev),
+                 torch.zeros(shape, device=self.dev)) for pose in poses]
+        mid = [self.warm_step(GT_POSES[i % len(GT_POSES)], 200 + i)
+               for i in range(reps)]
+        w = self.report.setdefault("march_warm", {})
+        for label, inp in (("cold", cold), ("mid_refinement", mid)):
+            ms = cuda_ms(lambda x: k.march_warm(self.sdf, rays, *x, thr, 500,
+                                                coarse=coarse), inp)
+            pms = cuda_ms(lambda x: plain.march_warm_plain(
+                self.sdf, dirs, x[0], x[1].reshape(-1), x[2].reshape(-1),
+                thr, 500), inp, warmup=1)
+            run = []
+            for pose, t_init, skip in inp:
+                st = {}
+                plain.march_warm_plain(self.sdf, dirs, pose,
+                                       t_init.reshape(-1), skip.reshape(-1),
+                                       thr, 500, steps=st)
+                run.append(st)
+            entry = w.setdefault(label, {})
+            entry["skipped"] = sum(float(x[2].sum()) for x in inp) / reps
+            entry["warm_started"] = sum(
+                float(((x[1] >= 0) & (x[2] <= 0)).sum()) for x in inp) / reps
+            print(f"time march_warm {label} " + report(
+                entry, ms, pms, mean_steps(run), n * 44 + table,
+                OPS_WARM_RAY, OPS_WARM_FINE, OPS_WARM_BOUND)
+                + f" skipped {entry['skipped']:.0f} warm-started "
+                  f"{entry['warm_started']:.0f}")
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            w[key] = w["mid_refinement"][key]
 
     def profile(self):
-        """torch.profiler over one full-frame and one fast call: device
-        busy share and the ops that take the time."""
+        """torch.profiler over one full-frame, fast and temporal call:
+        device busy share and the ops that take the time.  (A
+        fast-adaptive call does the fast call's work: nothing freezes at
+        50 iterations.)"""
         self._profile_call(self.pipe, "full-frame")
         self._profile_call(self.fast_pipe, "fast")
+        self._profile_call(self.temporal_pipe, "temporal")
 
     def _profile_call(self, pipe, label):
         import torch
@@ -676,7 +1126,8 @@ class Smoke:
             wall_ms=wall_ms, device_ms=dev_ms, launches=n_kernels,
             busy_share=dev_ms / wall_ms)
         for name in SOURCES:  # the port's kernels, as the trace times them
-            rows = [e for e in kernels if f"{name}_kernel(" in e.key]
+            rows = [e for e in kernels
+                    if re.search(rf"\b{name}_kernel[(<]", e.key)]
             for e in rows:
                 print(f"profile {label} kernel {name}: {e.count} launches, "
                       f"mean {e.self_device_time_total / e.count / 1e3:.4f} "
@@ -695,12 +1146,28 @@ class Smoke:
                                  bound_by=by, bytes=nbytes, ops=ops)
 
 
+# the kernels of the fused render op (one launch each per iteration); the
+# warm march launches on the temporal path only
+FUSED_KERNELS = ("march", "sample", "sample_grad", "scatter")
+
+
+def expect_launches(counts, n):
+    """The launches of a fused-op path: ``n`` of each fused-op kernel and
+    no warm march."""
+    want = {name: n if name in FUSED_KERNELS else 0 for name in counts}
+    assert counts == want, f"launches {counts}, expected {want}"
+
+
 # (stride, ROI) of the fast plan on the GT_POSES observations at 640x480
 ROI_SHAPES = [(4, (64, 80)), (2, (128, 160)), (1, (240, 320))]
 
 SOURCES = {
     "march": ("sdfest_torch/csrc/march.cu",
               "sdfest_tpu/render/pallas_kernel.py:546"),
+    "march_warm": ("sdfest_torch/csrc/march.cu",
+                   "sdfest_tpu/render/pallas_kernel.py:657"),
+    "march_relaxed": ("sdfest_torch/csrc/march.cu",
+                      "sdfest_tpu/render/pallas_kernel.py:1398, :1502"),
     "sample": ("sdfest_torch/csrc/sample.cu",
                "sdfest_tpu/render/pallas_kernel.py:1899"),
     "sample_grad": ("sdfest_torch/csrc/sample_grad.cu",
@@ -723,8 +1190,10 @@ def kernels_line(report) -> str:
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": None,
         })
-        if "roi" in r:
-            out[-1]["roi"] = r["roi"]
+        for sub in ("roi", "plain", "cold", "mid_refinement", "culling",
+                    "no_culling"):
+            if sub in r:
+                out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
 
 
@@ -760,23 +1229,23 @@ def main(argv=None) -> int:
           f"(nvcc {_build.build_seconds} s) -> {sorted(paths)}")
     for name, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "error" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "error", "spill")):
                 print(f"ptxas {name}: {line.strip()}")
 
     smoke = Smoke()
-    if set(phases) & {"check", "pipeline", "fast", "time"}:
-        smoke.check()
-    if "pipeline" in phases:
-        smoke.pipeline()
-    if "fast" in phases:
-        smoke.fast()
-    if "time" in phases:
-        smoke.time()
-    if "profile" in phases:
-        smoke.profile()
+    if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "time"}:
+        phases = ["check"] + [p for p in phases if p != "check"]
+    for phase in PHASES[1:]:
+        if phase in phases:
+            t0 = time.perf_counter()
+            getattr(smoke, phase)()
+            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s wall")
     print(json.dumps({
         "pipeline": smoke.report.get("_pipeline"),
         "fast": smoke.report.get("_fast"),
+        "fast_adaptive": smoke.report.get("_fast_adaptive"),
+        "temporal": smoke.report.get("_temporal"),
         "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
                     if k.startswith("_profile_")},
         "card": card}))

@@ -2,9 +2,14 @@
 //
 // Replaces the TPU kernel sdfest_tpu/render/pallas_kernel.py:
 // render_depth_pallas_fwd -> _render_fwd_impl -> _march_kernel /
-// _march_kernel_body, default "v2" branch (culling=True, adaptive=True,
-// relaxation=1, no bf16, no aux), and its ROI crop branch
-// (pallas_kernel.py:1708-1760, :1660-1667).
+// _march_kernel_body, in these branches:
+//  - march_kernel: the default "v2" branch (culling=True, adaptive=True,
+//    relaxation=1, no bf16, no aux), the plain branch (culling and adaptive
+//    off, :1377-1397), the relaxed branches (relaxation > 1, with culling
+//    :1398-1501 and without :1502-1548) and the ROI crop branch
+//    (pallas_kernel.py:1708-1760, :1660-1667);
+//  - march_warm_kernel: the warm/aux corridor march of temporal coherence
+//    (t_init/skip in, aux=True, :636-650, :657-776), described above it.
 //
 // ROI renders: the kernel marches whatever n rays it is given.  An ROI
 // render passes the (Hr, Wr) crop of the camera's direction field at the
@@ -31,6 +36,14 @@
 //       over-relaxation with certified revert of pallas_kernel.py:1082-1112
 //       (omega from 1.4, +0.2 per certified step up to 1.9, reset to 1 on
 //       revert; a hit fires only on a certified sample);
+//     - with relaxation > 1 (Keinert et al. 2014; `adaptive` is ignored, as
+//       the TPU dispatch takes v2 only when relaxation <= 1): a fine step
+//       goes t += relaxation * d; when the unbounding spheres of two
+//       consecutive samples do not overlap (stepped > d_prev + d) the ray
+//       reverts to t - stepped + d_prev and steps plainly from there
+//       (:1512-1535); with culling a bound step is taken only when the
+//       bound also validates the pending overshoot (stepped <= d_prev + cd)
+//       and resets the chain (:1414-1417, :1481-1487);
 //     - the ray stops once t >= t_max, checked after every step.
 //  depth = -t * d_z at the hit, 0 otherwise.
 // The TPU decided coarse/fine per tile; here each ray decides for itself.
@@ -53,79 +66,115 @@ constexpr float kOmegaInit = 1.4f;
 constexpr float kOmegaGrow = 0.2f;
 constexpr float kOmegaMax = 1.9f;
 
+// A ray in the object frame and its slab test against the scaled box
+// (sdfest_tpu/render/xla.py:50-72): every product and sum in the order of
+// render/plain.py (object_rays, obb_interval), so t_min and t_max equal the
+// plain version's bit for bit.
+struct Ray {
+  float ox, oy, oz, inv_scale, scale;
+  float d[3];
+  float dz;  // camera-frame z of the direction (depth = -t * dz)
+  float t_min, t_max;
+  bool hit;
+};
+
 // pose: [rot (3x3, row-major), origin_o (3), inv_scale, scale]
+__device__ __forceinline__ Ray setup_ray(const float* __restrict__ dirs,
+                                         const float* __restrict__ pose,
+                                         int i) {
+  Ray r;
+  float rot[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) rot[k] = __ldg(pose + k);
+  r.ox = __ldg(pose + 9);
+  r.oy = __ldg(pose + 10);
+  r.oz = __ldg(pose + 11);
+  r.inv_scale = __ldg(pose + 12);
+  r.scale = __ldg(pose + 13);
+  const float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
+  r.dz = dz;
+  // dirs_o = dirs @ rot
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    r.d[a] = dx * rot[a] + dy * rot[3 + a] + dz * rot[6 + a];
+  // slab test of the ray (origin 0) against the box, e = -origin_o
+  const float e[3] = {-r.ox, -r.oy, -r.oz};
+  float lo = -INFINITY, hi = INFINITY;
+  bool miss_parallel = false;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (fabsf(r.d[a]) <= 1e-20f) {
+      miss_parallel = miss_parallel || fabsf(e[a]) > r.scale;
+    } else {
+      const float t1 = (e[a] + r.scale) / r.d[a];
+      const float t2 = (e[a] - r.scale) / r.d[a];
+      lo = fmaxf(lo, fminf(t1, t2));
+      hi = fminf(hi, fmaxf(t1, t2));
+    }
+  }
+  const float t = fmaxf(lo, -1e-10f);
+  r.t_max = hi;
+  r.hit = !miss_parallel && t <= r.t_max && r.t_max >= 0.0f;
+  r.t_min = fmaxf(t, 0.0f);
+  return r;
+}
+
+// The coarse table's certified lower bound (times scale) at a point.
+__device__ __forceinline__ float coarse_bound(const float* coarse_s, float px,
+                                              float py, float pz,
+                                              float scale) {
+  const float h = kNC * 0.5f;
+  const int cx = (int)fminf(fmaxf(floorf((px + 1.0f) * h), 0.0f), kNC - 1);
+  const int cy = (int)fminf(fmaxf(floorf((py + 1.0f) * h), 0.0f), kNC - 1);
+  const int cz = (int)fminf(fmaxf(floorf((pz + 1.0f) * h), 0.0f), kNC - 1);
+  return coarse_s[(cx * kNC + cy) * kNC + cz] * scale;
+}
+
+__device__ __forceinline__ void load_coarse(float* coarse_s,
+                                            const float* __restrict__ coarse) {
+  for (int k = threadIdx.x; k < kNC * kNC * kNC; k += blockDim.x)
+    coarse_s[k] = coarse[k];
+  __syncthreads();
+}
+
+// kRelaxed: relaxation > 1, a template parameter so that the default
+// branch's step loop carries no test of it.
+template <bool kRelaxed>
 __global__ void march_kernel(const float* __restrict__ sdf,
                              const float* __restrict__ coarse,
                              const float* __restrict__ dirs,
                              const float* __restrict__ pose,
                              float* __restrict__ depth, int n, int res,
                              float threshold, int max_steps, int culling,
-                             int adaptive) {
+                             int adaptive, float relaxation) {
   __shared__ float coarse_s[kNC * kNC * kNC];
-  if (culling) {
-    for (int k = threadIdx.x; k < kNC * kNC * kNC; k += blockDim.x)
-      coarse_s[k] = coarse[k];
-    __syncthreads();
-  }
+  if (culling) load_coarse(coarse_s, coarse);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
-  float rot[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) rot[k] = __ldg(pose + k);
-  const float ox = __ldg(pose + 9), oy = __ldg(pose + 10), oz = __ldg(pose + 11);
-  const float inv_scale = __ldg(pose + 12);
-  const float scale = __ldg(pose + 13);
-
-  const float dx = dirs[3 * i], dy = dirs[3 * i + 1], dz = dirs[3 * i + 2];
-  // dirs_o = dirs @ rot
-  float d[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    d[a] = dx * rot[a] + dy * rot[3 + a] + dz * rot[6 + a];
-
-  // slab test of the ray (origin 0) against the box, e = -origin_o
-  const float e[3] = {-ox, -oy, -oz};
-  float lo = -INFINITY, hi = INFINITY;
-  bool miss_parallel = false;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (fabsf(d[a]) <= 1e-20f) {
-      miss_parallel = miss_parallel || fabsf(e[a]) > scale;
-    } else {
-      const float t1 = (e[a] + scale) / d[a];
-      const float t2 = (e[a] - scale) / d[a];
-      lo = fmaxf(lo, fminf(t1, t2));
-      hi = fminf(hi, fmaxf(t1, t2));
-    }
-  }
-  float t = fmaxf(lo, -1e-10f);
-  const float t_max = hi;
-  const bool hit_box = !miss_parallel && t <= t_max && t_max >= 0.0f;
-  t = fmaxf(t, 0.0f);
+  const Ray r = setup_ray(dirs, pose, i);
+  float t = r.t_min;
   float result = 0.0f;
-  if (hit_box && t < t_max) {
+  if (r.hit && t < r.t_max) {
     float stepped = 0.0f, d_prev = 0.0f;
     float omega = adaptive ? kOmegaInit : 1.0f;
     for (int step = 0; step < max_steps; ++step) {
-      const float px = (ox + t * d[0]) * inv_scale;
-      const float py = (oy + t * d[1]) * inv_scale;
-      const float pz = (oz + t * d[2]) * inv_scale;
+      const float px = (r.ox + t * r.d[0]) * r.inv_scale;
+      const float py = (r.oy + t * r.d[1]) * r.inv_scale;
+      const float pz = (r.oz + t * r.d[2]) * r.inv_scale;
       if (culling) {
-        const float h = kNC * 0.5f;
-        const int cx = (int)fminf(fmaxf(floorf((px + 1.0f) * h), 0.0f), kNC - 1);
-        const int cy = (int)fminf(fmaxf(floorf((py + 1.0f) * h), 0.0f), kNC - 1);
-        const int cz = (int)fminf(fmaxf(floorf((pz + 1.0f) * h), 0.0f), kNC - 1);
-        const float cd = coarse_s[(cx * kNC + cy) * kNC + cz] * scale;
-        if (cd >= threshold * t + 1e-5f) {
+        const float cd = coarse_bound(coarse_s, px, py, pz, r.scale);
+        if (cd >= threshold * t + 1e-5f &&
+            !(kRelaxed && stepped > d_prev + cd)) {
           t = t + cd;
           stepped = 0.0f;
-          if (!(t < t_max)) break;
+          if (kRelaxed) d_prev = 0.0f;
+          if (!(t < r.t_max)) break;
           continue;
         }
       }
-      const float dist = sdfest::sample(sdf, px, py, pz, res) * scale;
-      if (adaptive) {
+      const float dist = sdfest::sample(sdf, px, py, pz, res) * r.scale;
+      if (kRelaxed || adaptive) {
         if (stepped > d_prev + dist && stepped > 0.0f) {
           // uncertified overstep: back to the last certified point
           t = t - stepped + d_prev;
@@ -133,10 +182,10 @@ __global__ void march_kernel(const float* __restrict__ sdf,
           omega = 1.0f;
         } else {
           if (dist < threshold * t) {
-            result = -t * dz;
+            result = -t * r.dz;
             break;
           }
-          const float step_len = omega * dist;
+          const float step_len = (kRelaxed ? relaxation : omega) * dist;
           t = t + step_len;
           stepped = step_len;
           d_prev = dist;
@@ -144,15 +193,99 @@ __global__ void march_kernel(const float* __restrict__ sdf,
         }
       } else {
         if (dist < threshold * t) {
-          result = -t * dz;
+          result = -t * r.dz;
           break;
         }
         t = t + dist;
       }
-      if (!(t < t_max)) break;
+      if (!(t < r.t_max)) break;
     }
   }
   depth[i] = result;
+}
+
+// Warm/aux corridor march (temporal coherence).  Replaces the aux branch of
+// _march_kernel_body (pallas_kernel.py:636-650, :657-776): the culling
+// march with relaxation 1 and no over-relaxation, per-ray warm-start and
+// skip inputs, and the corridor outputs the skip rule of
+// sdfest_torch/render/warm.py reads.
+//
+// Per ray: t0 = max(t_min, t_init) when t_init >= 0, else t_min; the ray
+// marches when it hits the box, t0 < t_max and skip <= 0.  Every step is a
+// bound step (coarse bound cd >= threshold*t + 1e-5) or a fine sample, and
+// either value v, a lower bound of the field at t, first updates the
+// corridor (`corridor()` of :673-682): min_dip = min over consecutive
+// values of (v_prev + v - (t - t_prev)) / 2, a 1-Lipschitz lower bound of
+// the field between them; v0 = the first value; v_prev/t_prev = the last.
+// A fine sample then tests the hit (depth = -t * d_z) or steps t += v.
+// Outputs: t (terminal), v0, min_dip and v_last (0 when the ray took no
+// step) and t_last; a ray that does not march gives depth 0, t = t_last =
+// t0 and zeros, as the TPU wrapper fills its unwritten tiles (:1880-1891).
+//
+// The TPU decided coarse/fine per 16x16 tile and sampled only a y-window of
+// the grid per iteration; here each ray decides for itself.  The depth
+// keeps the march's bar (hit agreement > 0.995, |ddepth| < 5e-3), but the
+// corridor fields are not the TPU's to the bit: they are the same kind of
+// certified lower bounds, which is all the skip rule needs.  max_steps
+// counts one sample or one bound lookup per step (the TPU counted
+// while-iterations of up to _UNROLL_AUX sub-steps); at 500, the default of
+// warm_render_step, it rarely binds.
+//
+// What bounds it on the H100: as march_kernel, the dependent gathers along
+// each ray's step chain; it moves 2 more inputs and 5 more outputs per ray
+// (~13.5 MB at 640x480 against ~5 MB), still far from the bytes bound.
+__global__ void march_warm_kernel(
+    const float* __restrict__ sdf, const float* __restrict__ coarse,
+    const float* __restrict__ dirs, const float* __restrict__ pose,
+    const float* __restrict__ t_init, const float* __restrict__ skip,
+    float* __restrict__ depth, float* __restrict__ t_out,
+    float* __restrict__ v0_out, float* __restrict__ min_dip_out,
+    float* __restrict__ v_last_out, float* __restrict__ t_last_out, int n,
+    int res, float threshold, int max_steps) {
+  __shared__ float coarse_s[kNC * kNC * kNC];
+  load_coarse(coarse_s, coarse);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+
+  const Ray r = setup_ray(dirs, pose, i);
+  const float ti = t_init[i];
+  const float t0 = ti >= 0.0f ? fmaxf(r.t_min, ti) : r.t_min;
+  float t = t0;
+  float result = 0.0f;
+  float v_prev = 0.0f, t_prev = t0, min_dip = 1e9f, v0 = 0.0f;
+  bool have = false;
+  if (r.hit && t0 < r.t_max && skip[i] <= 0.0f) {
+    for (int step = 0; step < max_steps; ++step) {
+      const float px = (r.ox + t * r.d[0]) * r.inv_scale;
+      const float py = (r.oy + t * r.d[1]) * r.inv_scale;
+      const float pz = (r.oz + t * r.d[2]) * r.inv_scale;
+      const float cd = coarse_bound(coarse_s, px, py, pz, r.scale);
+      const bool bound_step = cd >= threshold * t + 1e-5f;
+      const float v = bound_step
+          ? cd : sdfest::sample(sdf, px, py, pz, res) * r.scale;
+      if (have) {
+        const float dip = (v_prev + v - (t - t_prev)) * 0.5f;
+        min_dip = fminf(min_dip, dip);
+      } else {
+        v0 = v;
+      }
+      v_prev = v;
+      t_prev = t;
+      have = true;
+      if (!bound_step && v < threshold * t) {
+        result = -t * r.dz;
+        break;
+      }
+      t = t + v;
+      if (!(t < r.t_max)) break;
+    }
+  }
+  depth[i] = result;
+  t_out[i] = t;
+  v0_out[i] = have ? v0 : 0.0f;
+  min_dip_out[i] = have ? min_dip : 0.0f;
+  v_last_out[i] = have ? v_prev : 0.0f;
+  t_last_out[i] = t_prev;
 }
 
 }  // namespace
@@ -161,11 +294,27 @@ extern "C" int sdfest_march(const float* sdf, const float* coarse,
                             const float* dirs, const float* pose,
                             float* depth, int n, int res, float threshold,
                             int max_steps, int culling, int adaptive,
-                            void* stream) {
+                            float relaxation, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
-  march_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = relaxation > 1.0f ? march_kernel<true> : march_kernel<false>;
+  kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
       sdf, coarse, dirs, pose, depth, n, res, threshold, max_steps, culling,
-      adaptive);
+      adaptive, relaxation);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sdfest_march_warm(const float* sdf, const float* coarse,
+                                 const float* dirs, const float* pose,
+                                 const float* t_init, const float* skip,
+                                 float* depth, float* t, float* v0,
+                                 float* min_dip, float* v_last, float* t_last,
+                                 int n, int res, float threshold,
+                                 int max_steps, void* stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
+  march_warm_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+      sdf, coarse, dirs, pose, t_init, skip, depth, t, v0, min_dip, v_last,
+      t_last, n, res, threshold, max_steps);
   return (int)cudaGetLastError();
 }

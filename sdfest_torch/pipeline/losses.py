@@ -38,6 +38,20 @@ def masked_mean_abs(values: torch.Tensor, point_mask: torch.Tensor
     return torch.sum(torch.abs(values) * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
+def masked_pc_loss(
+    points: torch.Tensor,
+    point_mask: torch.Tensor,
+    position: torch.Tensor,
+    orientation: torch.Tensor,
+    scale: torch.Tensor,
+    sdf: torch.Tensor,
+) -> torch.Tensor:
+    """Mean ``|pc_loss|`` over the valid points ``(M, 3)`` (the pc term of a
+    refinement that does not take the fused render op)."""
+    values = pc_loss(points, position, orientation, scale, sdf, point_mask)
+    return masked_mean_abs(values, point_mask)
+
+
 def depth_l1_loss(depth_input: torch.Tensor, depth_estimate: torch.Tensor
                   ) -> torch.Tensor:
     """Mean absolute depth error over pixels valid in both images."""

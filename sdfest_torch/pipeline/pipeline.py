@@ -16,14 +16,23 @@ of ``multires_factor`` (each against the exactly-strided sub-observation of
 only an ROI crop around the observed pixels when ``roi_size`` is set and
 the object fits (``fast.yaml``: ``roi_size: auto``, ``[4, 2]``).
 
+With ``temporal_coherence`` (preset ``mug_procedural_temporal``) every
+iteration renders through the warm/aux corridor march instead
+(:mod:`sdfest_torch.render.warm`: warm starts, skipped rays and a full
+refresh every ``temporal_refresh_interval`` iterations) and the pc loss is
+sampled on its own; it rules out ROI and multires, so the plan is one
+full-frame phase.  ``relaxation > 1`` takes the relaxed march.
+
 The loop has no host synchronisation: the best estimate is tracked with
 ``torch.where`` and the log is stacked at the end.  The one sync of a call
-reads the probe (:class:`NoDepthError` and the plan).
+reads the probe (:class:`NoDepthError` and the plan).  Early stop
+(``early_stop_delta > 0``, preset ``mug_procedural_fast_adaptive``) adds
+one host read per check of each phase: every ``early_stop_interval``
+iterations, at most 5 per 50-iteration call at the default interval of 10.
 
-Out of this slice, and raising ``NotImplementedError``: early stop,
-temporal coherence, ``reuse_plan``, multi-view and ``init_view: best``,
-priors and the point constraint, ``refine_batch``, ``generate_mesh`` and
-``generate_depth``.
+Out of this slice, and raising ``NotImplementedError``: the bf16 march,
+``reuse_plan``, multi-view and ``init_view: best``, priors and the point
+constraint, ``refine_batch``, ``generate_mesh`` and ``generate_depth``.
 """
 from __future__ import annotations
 
@@ -41,6 +50,11 @@ from sdfest_torch.render.api import (
     crop,
     ray_set,
     render_depth_with_pc_values,
+)
+from sdfest_torch.render.warm import (
+    init_warm_views,
+    motion_bound,
+    warm_render_step,
 )
 from sdfest_torch.utils import msgpack_reader
 from sdfest_torch.utils.device import resolve_device
@@ -108,9 +122,6 @@ def _check_slice(config: dict) -> None:
     """
     unported = {
         "reuse_plan": bool(config.get("reuse_plan", False)),
-        "early_stop_delta": float(config.get("early_stop_delta") or 0.0) > 0,
-        "temporal_coherence": bool(config.get("temporal_coherence", False)),
-        "relaxation": float(config.get("relaxation", 1.0)) > 1.0,
         "bf16_march": bool(config.get("bf16_march", False)),
         "init_view": config.get("init_view", "first") != "first",
     }
@@ -254,6 +265,22 @@ class SDFPipeline:
 
         return step
 
+    def _use_temporal_coherence(self) -> bool:
+        """Whether refinement renders take the warm march
+        (``pipeline.py:1081-1095``): ``temporal_coherence`` on the kernel
+        backend (``renderer_backend`` "auto" or "pallas", whose
+        counterpart the port's kernels are; "xla" turns it off), with the
+        culling march at relaxation 1.  The JAX package's 64^3-grid and
+        16-aligned-camera conditions are the TPU kernel's limits; the
+        port's warm march has neither."""
+        return bool(
+            self.config.get("temporal_coherence", False)
+            and self.config.get("renderer_backend", "auto") in ("auto",
+                                                                "pallas")
+            and self.config.get("relaxation", 1.0) <= 1.0
+            and self.config.get("coarse_culling", True)
+        )
+
     # ------------------------------------------------------------------
     # the plan: ROI sizes and multires levels
     # ------------------------------------------------------------------
@@ -267,10 +294,11 @@ class SDFPipeline:
         ``[Hr, Wr]`` one crop scaled by the stride; the wander margin
         ``roi_margin`` scales by the stride too, and every size is rounded
         up to a multiple of 16.  The port's march takes any ray set, so the
-        alignment is kept only to give the plan of the JAX package.
+        alignment is kept only to give the plan of the JAX package.  None
+        under temporal coherence.
         """
         roi_cfg = self.config.get("roi_size")
-        if not roi_cfg:
+        if not roi_cfg or self._use_temporal_coherence():
             return None
         h = self.camera.height // factor
         w = self.camera.width // factor
@@ -303,13 +331,14 @@ class SDFPipeline:
         on the TPU the pallas backend would also drop a level whose strided
         raster is not 16-aligned when no ROI is configured (and, per call,
         one whose object fits no aligned ROI), because its march needs
-        aligned tiles; the port's march takes any ray set.
+        aligned tiles; the port's march takes any ray set.  None under
+        temporal coherence.
         """
         f_cfg = self.config.get("multires_factor", 1) or 1
         n_cfg = self.config.get("multires_iterations", 0)
         is_schedule = isinstance(f_cfg, (list, tuple))
         factors = [int(f) for f in (f_cfg if is_schedule else [f_cfg])]
-        if self.camera.s != 0.0:
+        if self._use_temporal_coherence() or self.camera.s != 0.0:
             return None
         max_iterations = int(self.config["max_iterations"])
         if n_cfg == "auto":
@@ -402,9 +431,16 @@ class SDFPipeline:
         from this phase's depth) and the cloud is re-lifted from the crop,
         so ``points``/``point_mask`` are ignored and may be None
         (``pipeline.py:445-474``).  Adam starts afresh (zero moments, step
-        1).  Returns ``(state, best, log)``: the final state, the state with
-        the best inlier ratio of its pre-step render, and the per-iteration
-        log (each entry stacked over iterations).
+        1).  Under temporal coherence (full frame only) each render takes
+        the warm march and the pc loss is sampled apart from it.  With
+        ``early_stop_delta > 0`` the phase stops once an interval of
+        ``early_stop_interval`` iterations improves the loss by less than
+        that share (one host read per check); the remaining log rows repeat
+        the last one with ``active`` 0, and state and best stay as they
+        were.  Returns ``(state, best, log)``: the final state, the state
+        with the best inlier ratio of its pre-step render, and the
+        per-iteration log (each entry stacked over iterations, ``active``
+        1 on the iterations that ran).
         """
         dev = self.device
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -412,6 +448,22 @@ class SDFPipeline:
         depth_image = f32(depth_image)
         camera = (self.camera if ds_factor == 1
                   else self.camera.strided(ds_factor))
+        use_warm = self._use_temporal_coherence()
+        refresh_k = int(self.config.get("temporal_refresh_interval", 8))
+        if use_warm and refresh_k < 1:
+            raise ValueError(
+                f"temporal_refresh_interval must be >= 1, got {refresh_k}")
+        if use_warm and roi is not None:
+            raise ValueError("roi refinement and temporal_coherence are "
+                             "mutually exclusive")
+        if use_warm and ds_factor != 1:
+            raise ValueError("multires refinement and temporal_coherence "
+                             "are mutually exclusive")
+        early_delta = float(self.config.get("early_stop_delta", 0.0) or 0.0)
+        early_interval = int(self.config.get("early_stop_interval", 10))
+        if early_delta > 0.0 and early_interval < 1:
+            raise ValueError(
+                f"early_stop_interval must be >= 1, got {early_interval}")
         if roi is None:
             points = f32(points)
             point_mask = torch.as_tensor(point_mask, device=dev)
@@ -434,12 +486,14 @@ class SDFPipeline:
                   else int(self.config["max_iterations"]))
         depth_weight = self.config.get("depth_weight", 1.0)
         pc_weight = self.config.get("pc_weight", 1.0)
+        threshold = self.config["threshold"]
         render_kwargs = dict(
             camera=camera,
             rays=rays,
-            threshold=self.config["threshold"],
+            threshold=threshold,
             culling=bool(self.config.get("coarse_culling", True)),
             adaptive=bool(self.config.get("adaptive_relaxation", True)),
+            relaxation=float(self.config.get("relaxation", 1.0)),
             device=dev,
         )
         adam = self._make_adam()
@@ -447,6 +501,17 @@ class SDFPipeline:
                    for k, v in state.items()}
         best = {"inlier_ratio": f32(-1.0),
                 **{k: state[k].clone() for k in _STATE_KEYS}}
+        if use_warm:
+            view_warm = {k: v[0] for k, v in init_warm_views(
+                1, camera.height, camera.width, dev).items()}
+            shared = {
+                "position": state["position"][0],
+                "orientation": state["orientation"][0] / torch.sqrt(
+                    torch.sum(state["orientation"][0] ** 2)),
+                "scale": state["scale"][0],
+                "sdf": torch.zeros((self.resolution,) * 3, device=dev),
+            }
+        ref_loss = f32(1e30)  # early stop: the first check always improves
         logs = []
         for it in range(n_iter):
             params = {k: state[k].detach().requires_grad_(True)
@@ -462,11 +527,28 @@ class SDFPipeline:
                 q_w2c, params["position"][0] - camera_position
             )
             orientation_c = quaternion.multiply(q_w2c, norm_q[0])
-            depth_estimate, pc_values = render_depth_with_pc_values(
-                sdf, position_c, orientation_c, params["scale"][0], points,
-                point_mask, **render_kwargs,
-            )
-            loss_pc = losses.masked_mean_abs(pc_values, point_mask)
+            if use_warm:
+                motion = motion_bound(params["position"][0], norm_q[0],
+                                      params["scale"][0], sdf, shared)
+                depth_estimate, view_warm = warm_render_step(
+                    sdf, position_c, orientation_c, params["scale"][0],
+                    view_warm, motion, it % refresh_k == 0, camera,
+                    threshold, device=dev,
+                )
+                loss_pc = losses.masked_pc_loss(
+                    points, point_mask, position_c, orientation_c,
+                    params["scale"][0], sdf,
+                )
+                shared = {"position": params["position"][0].detach(),
+                          "orientation": norm_q[0].detach(),
+                          "scale": params["scale"][0].detach(),
+                          "sdf": sdf.detach()}
+            else:
+                depth_estimate, pc_values = render_depth_with_pc_values(
+                    sdf, position_c, orientation_c, params["scale"][0],
+                    points, point_mask, **render_kwargs,
+                )
+                loss_pc = losses.masked_mean_abs(pc_values, point_mask)
             loss_depth = losses.depth_l1_loss(depth_image, depth_estimate)
             loss = depth_weight * loss_depth + pc_weight * loss_pc
             wanted = [k for k in _STATE_KEYS
@@ -496,7 +578,18 @@ class SDFPipeline:
                     "loss_pc": loss_pc.detach(),
                     "inlier_ratio": ratio,
                     **{k: state[k] for k in _STATE_KEYS},
+                    "active": f32(1.0),
                 })
+                if early_delta > 0.0 and (it + 1) % early_interval == 0:
+                    # the absolute floor lets a zero-loss plateau count as
+                    # converged (pipeline.py:670-677)
+                    improved = (ref_loss - loss) >= early_delta * torch.clamp(
+                        torch.abs(ref_loss), min=1e-8)
+                    ref_loss = loss.detach()
+                    if not bool(improved):  # the check's host read
+                        break
+        if logs:
+            logs += [dict(logs[-1], active=f32(0.0))] * (n_iter - len(logs))
         log = {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]} if (
             logs) else {}
         return state, best, log

@@ -8,6 +8,9 @@
 - :func:`render_depth_with_pc_values`: the refinement loop's fused op, the
   march plus the pc values forward, and ONE sample-grad plus ONE scatter over
   the concatenated surrogate and pc queries backward (``api.py:288-462``).
+- :func:`render_depth_warm`: the temporal-coherence render, the warm/aux
+  corridor march forward (per-ray warm start and skip in, corridor fields
+  out) and the same surrogate backward (``api.py:470-540``).
 - :func:`ray_set`: the rays of a full-frame or ROI render (``_roi_dirs``);
   an ROI render marches only the crop's rays.
 
@@ -17,7 +20,7 @@ launch the hand-written kernels, CPU tensors take their plain versions).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -25,7 +28,12 @@ from sdfest_torch.ops import quaternion
 from sdfest_torch.ops.camera import Camera
 from sdfest_torch.ops.interpolation import _base_and_frac
 from sdfest_torch.render import kernels
-from sdfest_torch.render.plain import pixel_directions, pixel_directions_np
+from sdfest_torch.render.plain import (
+    WARM_OUTPUTS,
+    pixel_directions,
+    pixel_directions_np,
+    ray_interval,
+)
 from sdfest_torch.utils.device import resolve_device
 
 
@@ -176,10 +184,10 @@ def _surrogate_queries(position, orientation, inv_scale, depth, rays):
 
 
 def _render_forward(sdf, position, orientation, inv_scale, static):
-    rays, threshold, max_steps, culling, adaptive = static
+    rays, threshold, max_steps, culling, adaptive, relaxation = static
     pose = kernels.pose_params(position, orientation, inv_scale)
     return kernels.march(sdf.contiguous(), rays.march, pose, threshold,
-                         max_steps, culling, adaptive)
+                         max_steps, culling, adaptive, relaxation=relaxation)
 
 
 def _leaf(x: torch.Tensor, needs: bool) -> torch.Tensor:
@@ -211,18 +219,23 @@ class _RenderDepth(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_depth):
-        sdf, position, orientation, inv_scale, depth = ctx.saved_tensors
-        needs = ctx.needs_input_grad[:4]
-        rays = ctx.rays
-        with torch.enable_grad():
-            s, p, q, i = (_leaf(x, n) for x, n in zip(
-                (sdf, position, orientation, inv_scale), needs))
-            sur, mask, abs_dz = _surrogate_queries(p, q, i, depth, rays)
-            vals = sample_sdf_masked_extrapolating(s, sur, mask)
-            sur_val = vals / i * abs_dz
-            grads = _grads([sur_val], [rays.order(grad_depth)],
-                           [s, p, q, i], needs)
-        return (*grads, None)
+        return (*_surrogate_backward(ctx, grad_depth), None)
+
+
+def _surrogate_backward(ctx, grad_depth):
+    """Gradients of ``(sdf, position, orientation, inv_scale)`` through the
+    depth surrogate: one sample-grad and one scatter over the ray set."""
+    sdf, position, orientation, inv_scale, depth = ctx.saved_tensors
+    needs = ctx.needs_input_grad[:4]
+    rays = ctx.rays
+    with torch.enable_grad():
+        s, p, q, i = (_leaf(x, n) for x, n in zip(
+            (sdf, position, orientation, inv_scale), needs))
+        sur, mask, abs_dz = _surrogate_queries(p, q, i, depth, rays)
+        vals = sample_sdf_masked_extrapolating(s, sur, mask)
+        sur_val = vals / i * abs_dz
+        return _grads([sur_val], [rays.order(grad_depth)], [s, p, q, i],
+                      needs)
 
 
 def render_depth(
@@ -238,6 +251,7 @@ def render_depth(
     device="cuda",
     roi: Optional[Tuple[int, int]] = None,
     roi_offset=None,
+    relaxation: float = 1.0,
 ) -> torch.Tensor:
     """Render the depth image ``(H, W)`` of a posed, scaled, voxelized SDF.
 
@@ -247,19 +261,22 @@ def render_depth(
     ``position``, ``orientation`` and ``inv_scale`` through the analytic
     surrogate.  ``culling``/``adaptive`` select the march's coarse-bound
     steps and per-ray over-relaxation; with both off it is the plain march
-    of the JAX package's XLA backend.  Runs on ``device`` ("cuda" unless the
-    caller asks for "cpu"); CUDA requested and absent raises.
+    of the JAX package's XLA backend.  ``relaxation > 1`` takes the relaxed
+    march (Keinert's over-stepping with revert, ``adaptive`` ignored).
+    Runs on ``device`` ("cuda" unless the caller asks for "cpu"); CUDA
+    requested and absent raises.
 
     ``roi=(Hr, Wr)`` + ``roi_offset`` (an integer ``[row, col]``, zeros
     when None) render only that crop of the frame: the march runs on the
     crop's rays, so the ``(Hr, Wr)`` result equals the same crop of the
-    full render bit for bit.  Relaxed and bf16 marching are not ported yet.
+    full render bit for bit.  bf16 marching is not ported yet.
     """
     device = resolve_device(device)
     if roi_offset is not None:
         roi_offset = torch.as_tensor(roi_offset, device=device)
     static = (ray_set(camera, device, roi, roi_offset), float(threshold),
-              int(max_steps), bool(culling), bool(adaptive))
+              int(max_steps), bool(culling), bool(adaptive),
+              float(relaxation))
     return _RenderDepth.apply(
         _f32(sdf, device), _f32(position, device), _f32(orientation, device),
         _f32(inv_scale, device), static,
@@ -344,6 +361,7 @@ def render_depth_with_pc_values(
     roi: Optional[Tuple[int, int]] = None,
     roi_offset=None,
     rays: Optional[Rays] = None,
+    relaxation: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a depth image AND sample the SDF at observed points, fused.
 
@@ -356,7 +374,8 @@ def render_depth_with_pc_values(
     ``(Hr, Wr)``, the same crop of the full render bit for bit); the pc
     values do not change (``api.py:416-420``).  ``rays`` passes the
     :func:`ray_set` of ``(camera, roi, roi_offset)`` instead, built once by
-    a caller that renders the same crop many times.
+    a caller that renders the same crop many times.  ``relaxation`` as in
+    :func:`render_depth`.
     """
     device = resolve_device(device)
     scale = _f32(scale, device)
@@ -368,10 +387,80 @@ def render_depth_with_pc_values(
     elif roi is not None or roi_offset is not None:
         raise ValueError("pass either roi/roi_offset or a prebuilt ray set")
     static = (rays, float(threshold), int(max_steps), bool(culling),
-              bool(adaptive))
+              bool(adaptive), float(relaxation))
     depth, values = _RenderPC.apply(
         _f32(sdf, device), _f32(position, device), _f32(orientation, device),
         inv_scale, _f32(points, device),
         torch.as_tensor(point_mask, device=device), static,
     )
     return depth, values * scale
+
+
+# ---------------------------------------------------------------------------
+# temporal-coherence warm render
+# ---------------------------------------------------------------------------
+
+
+class _RenderDepthWarm(torch.autograd.Function):
+    """Forward: the warm/aux corridor march kernel.  Backward: the surrogate
+    VJP of :class:`_RenderDepth` over the full-frame ray set
+    (``_render_pallas_warm``); the corridor outputs carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, sdf, position, orientation, inv_scale, t_init, skip,
+                static):
+        rays, pose, threshold, max_steps = static
+        outs = kernels.march_warm(sdf.contiguous(), rays.march, pose, t_init,
+                                  skip, threshold, max_steps)
+        ctx.save_for_backward(sdf, position, orientation, inv_scale, outs[0])
+        ctx.rays = rays
+        ctx.mark_non_differentiable(*outs[1:])
+        return outs
+
+    @staticmethod
+    def backward(ctx, grad_depth, *_):
+        return (*_surrogate_backward(ctx, grad_depth), None, None, None)
+
+
+def render_depth_warm(
+    sdf,
+    position,
+    orientation,
+    inv_scale,
+    t_init,
+    skip,
+    camera: Camera,
+    threshold: float = 0.0,
+    max_steps: int = 500,
+    device="cuda",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Depth render with per-ray temporal-coherence state (the counterpart
+    of ``sdfest_tpu.render.api.render_depth_warm``).
+
+    The march is the culling march with relaxation 1 (no adaptive
+    over-relaxation).  Rays with ``t_init >= 0`` (``(H, W)``) start at
+    ``max(t_min, t_init)`` instead of the box entry; rays with ``skip > 0``
+    are not marched (depth 0).  Differentiable w.r.t. ``sdf``, ``position``,
+    ``orientation`` and ``inv_scale`` through the surrogate of
+    :func:`render_depth`.
+
+    Returns ``(depth (H, W), aux)``: ``aux`` holds the ``(H, W)`` corridor
+    fields ``t``, ``v0``, ``min_dip``, ``v_last``, ``t_last`` (see
+    ``csrc/march.cu``) and the ray setup ``t0`` (the actual start),
+    ``t_min``, ``t_max`` (the box interval), none of them differentiable.
+    """
+    device = resolve_device(device)
+    rays = ray_set(camera, device)
+    args = [_f32(x, device) for x in (sdf, position, orientation, inv_scale)]
+    t_init = _f32(t_init, device).contiguous()
+    skip = _f32(skip, device).contiguous()
+    with torch.no_grad():
+        pose = kernels.pose_params(*args[1:])
+        _, t_min, t_max = (x.reshape(rays.shape) for x in ray_interval(
+            rays.march.reshape(-1, 3), pose))
+        t0 = torch.where(t_init >= 0.0, torch.maximum(t_min, t_init), t_min)
+    outs = _RenderDepthWarm.apply(
+        *args, t_init, skip, (rays, pose, float(threshold), int(max_steps)))
+    aux = dict(zip(WARM_OUTPUTS[1:], outs[1:]), t0=t0, t_min=t_min,
+               t_max=t_max)
+    return outs[0], aux

@@ -1,4 +1,4 @@
-"""The four CUDA kernels of the port, their plain PyTorch twins and launch
+"""The five CUDA kernels of the port, their plain PyTorch twins and launch
 counts.
 
 Each wrapper takes its plain version for tensors on the CPU, and for CUDA
@@ -6,12 +6,20 @@ tensors launches the hand-written kernel from ``sdfest_torch/csrc/`` or
 raises: there is no fallback.  ``<wrapper>.launches`` counts the kernel's
 launches (a plain integer, reset by assigning 0).
 
-| wrapper       | CUDA source          | replaces (pallas_kernel.py)              |
-|---------------|----------------------|------------------------------------------|
-| ``march``       | ``csrc/march.cu``       | ``render_depth_pallas_fwd`` (:1607)       |
-| ``sample``      | ``csrc/sample.cu``      | ``sample_sdf_pallas`` (:2104)             |
-| ``sample_grad`` | ``csrc/sample_grad.cu`` | ``sample_sdf_grad_pallas`` (:2168)        |
-| ``scatter``     | ``csrc/scatter.cu``     | ``scatter_sdf_grad_pallas`` (:2304)       |
+| wrapper         | CUDA source             | replaces (pallas_kernel.py)    |
+|-----------------|-------------------------|--------------------------------|
+| ``march``       | ``csrc/march.cu``       | ``render_depth_pallas_fwd``    |
+|                 |                         | (:1607): v2, plain, relaxed    |
+|                 |                         | and ROI branches               |
+| ``march_warm``  | ``csrc/march.cu``       | the same, warm/aux branch      |
+|                 |                         | (:657)                         |
+| ``sample``      | ``csrc/sample.cu``      | ``sample_sdf_pallas`` (:2104)  |
+| ``sample_grad`` | ``csrc/sample_grad.cu`` | ``sample_sdf_grad_pallas``     |
+|                 |                         | (:2168)                        |
+| ``scatter``     | ``csrc/scatter.cu``     | ``scatter_sdf_grad_pallas``    |
+|                 |                         | (:2304)                        |
+
+The bf16-verified march branch (:777-881, :1296-1376) is not ported yet.
 
 What bounds each kernel on the H100 and what its design does about it is
 noted at the top of its source.
@@ -30,18 +38,28 @@ from sdfest_torch.ops.interpolation import (
     trilinear_weights,
 )
 from sdfest_torch.render import _build
-from sdfest_torch.render.plain import NC, coarse_min_table, march_plain
+from sdfest_torch.render.plain import (
+    NC,
+    coarse_min_table,
+    march_plain,
+    march_warm_plain,
+)
 
 TILE = 16  # pixel tile edge of the tile-major query order
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# wrapper -> (library, C entry, argument types)
 _SIGNATURES = {
-    "march": ("sdfest_march", [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P]),
-    "sample": ("sdfest_sample", [_P, _P, _P, _P, _I, _I, _P]),
-    "sample_grad": ("sdfest_sample_grad", [_P, _P, _P, _P, _P, _I, _I, _P]),
-    "scatter": ("sdfest_scatter", [_P, _P, _P, _I, _I, _P]),
+    "march": ("march", "sdfest_march",
+              [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _F, _P]),
+    "march_warm": ("march", "sdfest_march_warm",
+                   [_P] * 12 + [_I, _I, _F, _I, _P]),
+    "sample": ("sample", "sdfest_sample", [_P, _P, _P, _P, _I, _I, _P]),
+    "sample_grad": ("sample_grad", "sdfest_sample_grad",
+                    [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "scatter": ("scatter", "sdfest_scatter", [_P, _P, _P, _I, _I, _P]),
 }
 _FUNCS = {}
 
@@ -49,8 +67,8 @@ _FUNCS = {}
 def _function(name: str):
     fn = _FUNCS.get(name)
     if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.library(name), symbol)
+        library, symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(_build.library(library), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FUNCS[name] = fn
@@ -134,6 +152,28 @@ def pose_params(
 # ---------------------------------------------------------------------------
 
 
+def _rays(dirs: torch.Tensor) -> Tuple[tuple, torch.Tensor]:
+    if dirs.ndim < 2 or dirs.shape[-1] != 3:
+        raise ValueError("expected ray directions (..., 3)")
+    return tuple(dirs.shape[:-1]), dirs.reshape(-1, 3)
+
+
+def _check_pose(pose: torch.Tensor) -> None:
+    if pose.shape != (14,):
+        raise ValueError("pose must be [rot (9), origin_o (3), inv_s, s]")
+
+
+def _coarse_for(sdf: torch.Tensor, coarse: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    if coarse is None:
+        coarse = coarse_min_table(sdf)
+    if (coarse.shape != (NC, NC, NC) or not coarse.is_contiguous()
+            or coarse.device != sdf.device):
+        raise ValueError("coarse table must be a contiguous (16, 16, 16) "
+                         "tensor on the grid's device")
+    return coarse
+
+
 def march(
     sdf: torch.Tensor,
     dirs: torch.Tensor,
@@ -143,6 +183,7 @@ def march(
     culling: bool = True,
     adaptive: bool = True,
     coarse: Optional[torch.Tensor] = None,
+    relaxation: float = 1.0,
 ) -> torch.Tensor:
     """Sphere-trace the depth of rays ``dirs (..., 3)``, shaped like their
     leading dims (``csrc/march.cu``; plain version
@@ -151,34 +192,28 @@ def march(
     The rays are any set: a full frame ``(H, W, 3)`` or the crop of an ROI
     render (:func:`sdfest_torch.render.api.ray_set`); each ray depends on
     nothing but its own direction, so an ROI render equals the crop of the
-    full render bit for bit.  ``march.rasters`` counts the launches per
-    leading shape of ``dirs``.  ``coarse`` may pass a precomputed
+    full render bit for bit.  ``relaxation > 1`` selects the relaxed march
+    (``adaptive`` is then ignored).  ``march.rasters`` counts the launches
+    per leading shape of ``dirs``.  ``coarse`` may pass a precomputed
     :func:`coarse_min_table` of ``sdf`` (built here when culling and not
     given)."""
     res = _check_grid(sdf)
-    if dirs.ndim < 2 or dirs.shape[-1] != 3:
-        raise ValueError("expected ray directions (..., 3)")
-    raster = tuple(dirs.shape[:-1])
-    flat = dirs.reshape(-1, 3)
-    n = flat.shape[0]
-    if pose.shape != (14,):
-        raise ValueError("pose must be [rot (9), origin_o (3), inv_s, s]")
+    raster, flat = _rays(dirs)
+    _check_pose(pose)
     if _on_cpu(sdf, dirs, pose):
         return march_plain(sdf, flat, pose, threshold, max_steps, culling,
-                           adaptive).reshape(raster)
-    if culling and coarse is None:
-        coarse = coarse_min_table(sdf)
-    if culling and (coarse.shape != (NC, NC, NC) or not coarse.is_contiguous()
-                    or coarse.device != sdf.device):
-        raise ValueError("coarse table must be a contiguous (16, 16, 16) "
-                         "tensor on the grid's device")
+                           adaptive, relaxation=relaxation).reshape(raster)
+    if culling:
+        coarse = _coarse_for(sdf, coarse)
     depth = torch.empty(raster, dtype=torch.float32, device=sdf.device)
+    n = flat.shape[0]
     if n:
         _launch(
             "march", sdf.device, sdf.data_ptr(),
             coarse.data_ptr() if culling else None, flat.data_ptr(),
             pose.data_ptr(), depth.data_ptr(), n, res, float(threshold),
             int(max_steps), int(bool(culling)), int(bool(adaptive)),
+            float(relaxation),
         )
         march.launches += 1
         march.rasters[raster] = march.rasters.get(raster, 0) + 1
@@ -187,6 +222,49 @@ def march(
 
 march.launches = 0
 march.rasters = {}
+
+
+def march_warm(
+    sdf: torch.Tensor,
+    dirs: torch.Tensor,
+    pose: torch.Tensor,
+    t_init: torch.Tensor,
+    skip: torch.Tensor,
+    threshold: float,
+    max_steps: int,
+    coarse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The warm/aux corridor march of rays ``dirs (..., 3)`` with per-ray
+    ``t_init`` and ``skip`` shaped like the rays' leading dims
+    (``march_warm_kernel`` in ``csrc/march.cu``; plain version
+    :func:`sdfest_torch.render.plain.march_warm_plain`).
+
+    Returns ``(depth, t, v0, min_dip, v_last, t_last)``, each shaped like
+    ``t_init``.  ``coarse`` as in :func:`march`."""
+    res = _check_grid(sdf)
+    raster, flat = _rays(dirs)
+    _check_pose(pose)
+    if t_init.shape != raster or skip.shape != raster:
+        raise ValueError("t_init and skip must be shaped like the rays")
+    if _on_cpu(sdf, dirs, pose, t_init, skip):
+        return tuple(x.reshape(raster) for x in march_warm_plain(
+            sdf, flat, pose, t_init.reshape(-1), skip.reshape(-1), threshold,
+            max_steps))
+    coarse = _coarse_for(sdf, coarse)
+    outs = torch.empty((6, *raster), dtype=torch.float32, device=sdf.device)
+    n = flat.shape[0]
+    if n:
+        _launch(
+            "march_warm", sdf.device, sdf.data_ptr(), coarse.data_ptr(),
+            flat.data_ptr(), pose.data_ptr(), t_init.data_ptr(),
+            skip.data_ptr(), *(o.data_ptr() for o in outs), n, res,
+            float(threshold), int(max_steps),
+        )
+        march_warm.launches += 1
+    return tuple(outs)
+
+
+march_warm.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -292,8 +370,8 @@ def scatter(
 
 scatter.launches = 0
 
-KERNELS = {"march": march, "sample": sample, "sample_grad": sample_grad,
-           "scatter": scatter}
+KERNELS = {"march": march, "march_warm": march_warm, "sample": sample,
+           "sample_grad": sample_grad, "scatter": scatter}
 
 
 def reset_launches() -> None:

@@ -4,8 +4,9 @@ and the depth surrogate.
 
 :func:`march_plain` is the twin the CUDA march is held against.  With
 ``culling`` and ``adaptive`` off it is ``xla._render_forward`` step for step;
-with them on it runs the CUDA kernel's per-ray algorithm, vectorized over
-all rays as one masked while-loop.
+with them on, or with ``relaxation > 1``, it runs the CUDA kernel's per-ray
+algorithm, vectorized over all rays as one masked while-loop.
+:func:`march_warm_plain` is the same for the warm/aux corridor march.
 """
 from __future__ import annotations
 
@@ -99,6 +100,47 @@ def coarse_lookup(table: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return table.reshape(-1)[(ci[:, 0] * nc + ci[:, 1]) * nc + ci[:, 2]]
 
 
+def object_rays(dirs: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """``R^T d`` per ray ``(N, 3)``, written out in the CUDA kernels' order:
+    every ray's result depends on its own direction only (no matmul
+    blocking), so an ROI render is the full render's crop bit for bit."""
+    rot = pose[:9].reshape(3, 3)
+    return (dirs[:, 0:1] * rot[0] + dirs[:, 1:2] * rot[1]
+            + dirs[:, 2:3] * rot[2])
+
+
+def ray_interval(dirs: torch.Tensor, pose: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(hit, t_min, t_max)`` of rays ``(N, 3)`` against the posed box, as
+    the CUDA kernels compute them (bit for bit)."""
+    return obb_interval(object_rays(dirs, pose), -pose[9:12], pose[13])
+
+
+def _point(pose, dirs_o, t):
+    return (pose[9:12] + t[:, None] * dirs_o) * pose[12]
+
+
+class _StepCount:
+    """The ``steps`` report of the plain marches: rays that entered the box,
+    fine and bound ray-steps, distinct grid cells the fine steps read."""
+
+    def __init__(self, active: torch.Tensor, sdf: torch.Tensor):
+        self.rays, self.fine, self.bound = int(active.sum()), 0, 0
+        self.res = sdf.shape[0]
+        self.touched = torch.zeros(sdf.numel(), dtype=torch.bool,
+                                   device=sdf.device)
+
+    def add(self, fine: torch.Tensor, far: torch.Tensor, p: torch.Tensor):
+        self.fine += int(fine.sum())
+        self.bound += int(far.sum())
+        idx, _ = trilinear_weights(p[fine], self.res)
+        self.touched[idx.reshape(-1)] = True
+
+    def report(self, steps: Dict[str, int]) -> None:
+        steps.update(rays=self.rays, fine=self.fine, bound=self.bound,
+                     cells=int(self.touched.sum()))
+
+
 def march_plain(
     sdf: torch.Tensor,
     dirs: torch.Tensor,
@@ -108,62 +150,54 @@ def march_plain(
     culling: bool,
     adaptive: bool,
     steps: Optional[Dict[str, int]] = None,
+    relaxation: float = 1.0,
 ) -> torch.Tensor:
     """Depth ``(N,)`` of rays ``dirs (N, 3)`` against the posed SDF.
 
     ``pose`` is ``[rot (9, row-major), origin_o (3), inv_scale, scale]``
     (:func:`sdfest_torch.render.kernels.pose_params`).  One step is one
-    sample or one coarse bound lookup, for every active ray at once.  When
-    ``steps`` is given, it receives the number of ``rays`` that entered the
-    box, of ``fine`` and ``bound`` ray-steps taken and of distinct grid
-    ``cells`` the fine steps read (the work the march does on these
-    inputs).
+    sample or one coarse bound lookup, for every active ray at once.  With
+    ``relaxation > 1`` the march over-steps by that factor with Keinert's
+    revert, and ``adaptive`` is ignored (``march.cu``).  When ``steps`` is
+    given, it receives the number of ``rays`` that entered the box, of
+    ``fine`` and ``bound`` ray-steps taken and of distinct grid ``cells``
+    the fine steps read (the work the march does on these inputs).
     """
-    rot = pose[:9].reshape(3, 3)
-    origin_o = pose[9:12]
-    inv_scale, scale = pose[12], pose[13]
-    # R^T d per ray, written out in the CUDA kernel's order: every ray's
-    # result depends on its own direction only (no matmul blocking), so an
-    # ROI render is the full render's crop bit for bit
-    dirs_o = (dirs[:, 0:1] * rot[0] + dirs[:, 1:2] * rot[1]
-              + dirs[:, 2:3] * rot[2])
-    hit, t, t_max = obb_interval(dirs_o, -origin_o, scale)
+    scale = pose[13]
+    dirs_o = object_rays(dirs, pose)
+    hit, t, t_max = obb_interval(dirs_o, -pose[9:12], scale)
     dz = dirs[:, 2]
     depth = torch.zeros_like(t)
     active = hit & (t < t_max)
     zeros = torch.zeros_like(t)
     stepped, d_prev = zeros, zeros
+    relaxed = relaxation > 1.0
     omega = torch.full_like(t, OMEGA_INIT if adaptive else 1.0)
     table = coarse_min_table(sdf) if culling else None
-    count = {"fine": 0, "bound": 0}
-    if steps is not None:
-        count["rays"] = int(active.sum())
-        touched = torch.zeros(sdf.numel(), dtype=torch.bool,
-                              device=sdf.device)
+    count = _StepCount(active, sdf) if steps is not None else None
     for _ in range(max_steps):
         if not bool(torch.any(active)):
             break
-        p = (origin_o + t[:, None] * dirs_o) * inv_scale
-        fine = active
+        p = _point(pose, dirs_o, t)
+        fine, far = active, zeros.bool()
         if culling:
             cd = coarse_lookup(table, p) * scale
             far = active & (cd >= threshold * t + 1e-5)
+            if relaxed:
+                far = far & ~(stepped > d_prev + cd)
+                d_prev = torch.where(far, zeros, d_prev)
             t = torch.where(far, t + cd, t)
             stepped = torch.where(far, zeros, stepped)
             fine = active & ~far
-            if steps is not None:
-                count["bound"] += int(far.sum())
-        if steps is not None:
-            count["fine"] += int(fine.sum())
-            idx, _ = trilinear_weights(p[fine], sdf.shape[0])
-            touched[idx.reshape(-1)] = True
+        if count:
+            count.add(fine, far, p)
         dist = sample_sdf(sdf, p) * scale
-        if adaptive:
+        if relaxed or adaptive:
             revert = fine & (stepped > d_prev + dist) & (stepped > 0.0)
             ok = fine & ~revert
             hit_now = ok & (dist < threshold * t)
             adv = ok & ~hit_now
-            step_len = omega * dist
+            step_len = (relaxation if relaxed else omega) * dist
             depth = torch.where(hit_now, -t * dz, depth)
             t = torch.where(
                 revert, t - stepped + d_prev, torch.where(adv, t + step_len, t)
@@ -184,10 +218,73 @@ def march_plain(
             depth = torch.where(hit_now, -t * dz, depth)
             t = torch.where(fine & ~hit_now, t + dist, t)
         active = active & ~hit_now & (t < t_max)
-    if steps is not None:
-        count["cells"] = int(touched.sum())
-        steps.update(count)
+    if count:
+        count.report(steps)
     return depth
+
+
+WARM_OUTPUTS = ("depth", "t", "v0", "min_dip", "v_last", "t_last")
+
+
+def march_warm_plain(
+    sdf: torch.Tensor,
+    dirs: torch.Tensor,
+    pose: torch.Tensor,
+    t_init: torch.Tensor,
+    skip: torch.Tensor,
+    threshold: float,
+    max_steps: int,
+    steps: Optional[Dict[str, int]] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The warm/aux corridor march of rays ``dirs (N, 3)`` (the twin of
+    ``march_warm_kernel`` in ``csrc/march.cu``, which documents it): culling
+    with relaxation 1, per-ray warm start ``t_init (N,)`` (used when >= 0)
+    and ``skip (N,)`` (> 0: not marched).
+
+    Returns the ``(N,)`` tensors named by :data:`WARM_OUTPUTS`: depth,
+    terminal ``t``, the corridor's first value ``v0``, ``min_dip``, last
+    value ``v_last`` (zeros for a ray that took no step) and ``t_last``.
+    ``steps`` as in :func:`march_plain`.
+    """
+    scale = pose[13]
+    dirs_o = object_rays(dirs, pose)
+    hit, t_min, t_max = obb_interval(dirs_o, -pose[9:12], scale)
+    dz = dirs[:, 2]
+    t0 = torch.where(t_init >= 0.0, torch.maximum(t_min, t_init), t_min)
+    active = hit & (t0 < t_max) & (skip <= 0.0)
+    zeros = torch.zeros_like(t0)
+    t, depth = t0, zeros
+    v_prev, t_prev, v0 = zeros, t0, zeros
+    min_dip = torch.full_like(t0, 1e9)
+    have = torch.zeros_like(active)
+    table = coarse_min_table(sdf)
+    count = _StepCount(active, sdf) if steps is not None else None
+    for _ in range(max_steps):
+        if not bool(torch.any(active)):
+            break
+        p = _point(pose, dirs_o, t)
+        cd = coarse_lookup(table, p) * scale
+        far = active & (cd >= threshold * t + 1e-5)
+        fine = active & ~far
+        if count:
+            count.add(fine, far, p)
+        v = torch.where(far, cd, sample_sdf(sdf, p) * scale)
+        dip = (v_prev + v - (t - t_prev)) * 0.5
+        min_dip = torch.where(active & have, torch.minimum(min_dip, dip),
+                              min_dip)
+        v0 = torch.where(active & ~have, v, v0)
+        v_prev = torch.where(active, v, v_prev)
+        t_prev = torch.where(active, t, t_prev)
+        have = have | active
+        hit_now = fine & (v < threshold * t)
+        depth = torch.where(hit_now, -t * dz, depth)
+        t = torch.where(active & ~hit_now, t + v, t)
+        active = active & ~hit_now & (t < t_max)
+    if count:
+        count.report(steps)
+    return (depth, t, torch.where(have, v0, zeros),
+            torch.where(have, min_dip, zeros),
+            torch.where(have, v_prev, zeros), t_prev)
 
 
 def depth_surrogate(

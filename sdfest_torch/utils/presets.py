@@ -5,8 +5,11 @@ updated by ``configs/estimation/default.yaml`` (both under
 ``sdfest_tpu/configs/estimation/``), merged as the README's quick start does:
 ``config = load(model); config.update(load(default))``.
 ``MUG_PROCEDURAL_FAST`` adds the production overlay
-``configs/estimation/fast.yaml`` (ROI crop + ``[4, 2]`` multires) on top.
-CPU tests hold the dicts against the YAML files.
+``configs/estimation/fast.yaml`` (ROI crop + ``[4, 2]`` multires) on top,
+``MUG_PROCEDURAL_FAST_ADAPTIVE`` the overlay ``fast_adaptive.yaml`` (fast +
+early stop); ``MUG_PROCEDURAL_TEMPORAL`` is ``MUG_PROCEDURAL`` with
+``temporal_coherence: true`` (warm-started refinement renders).  CPU tests
+hold the dicts against the YAML files.
 """
 from __future__ import annotations
 
@@ -127,8 +130,22 @@ MUG_PROCEDURAL_FAST: Dict[str, Any] = {
     "multires_iterations": "auto",
 }
 
+MUG_PROCEDURAL_FAST_ADAPTIVE: Dict[str, Any] = {
+    **copy.deepcopy(MUG_PROCEDURAL_FAST),
+    # fast_adaptive.yaml
+    "early_stop_delta": 0.01,
+    "early_stop_interval": 10,
+}
+
+MUG_PROCEDURAL_TEMPORAL: Dict[str, Any] = {
+    **copy.deepcopy(MUG_PROCEDURAL),
+    "temporal_coherence": True,
+}
+
 PRESETS = {"mug_procedural": MUG_PROCEDURAL,
-           "mug_procedural_fast": MUG_PROCEDURAL_FAST}
+           "mug_procedural_fast": MUG_PROCEDURAL_FAST,
+           "mug_procedural_fast_adaptive": MUG_PROCEDURAL_FAST_ADAPTIVE,
+           "mug_procedural_temporal": MUG_PROCEDURAL_TEMPORAL}
 
 
 def preset(name: str) -> Dict[str, Any]:

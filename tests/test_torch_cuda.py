@@ -83,7 +83,8 @@ def test_fused_op_launches_each_kernel_once(dev):
     )
     (depth.sum() + values.sum()).backward()
     torch.cuda.synchronize()
-    assert kernels.launches() == {k: 1 for k in kernels.KERNELS}
+    assert kernels.launches() == {k: int(k != "march_warm")
+                                  for k in kernels.KERNELS}
     for t in (sdf, pos, q, scale):
         assert bool(torch.isfinite(t.grad).all())
 
@@ -112,3 +113,83 @@ def test_roi_march_equals_crop_of_full_march(dev, flags):
         assert kernels.march.rasters == {roi: 1}
         assert torch.equal(got, full[off[0]:off[0] + roi[0],
                                      off[1]:off[1] + roi[1]])
+
+
+@pytest.fixture
+def mug(dev):
+    """A mug decoded from a seeded latent with the committed weights, and
+    the 640x480 camera of the main path."""
+    from sdfest_torch.pipeline.pipeline import SDFPipeline
+    from sdfest_torch.utils.presets import preset
+
+    pipe = SDFPipeline(preset("mug_procedural"), device=dev)
+    latent = 0.5 * torch.randn(1, 8, generator=torch.Generator(
+        ).manual_seed(0))
+    with torch.no_grad():
+        sdf = pipe._decode(latent.to(dev))[0, 0].contiguous()
+    return sdf, pipe.camera
+
+
+def _mug_pose(dev, dp=(0.0, 0.0, 0.0), scale=0.1):
+    q = torch.tensor([0.25, 0.35, 0.1, 0.895], device=dev)
+    return kernels.pose_params(
+        torch.tensor([0.02, -0.01, -0.5], device=dev) + torch.tensor(
+            dp, device=dev), q / q.norm(), torch.tensor(1.0 / scale,
+                                                        device=dev))
+
+
+def _depth_bar(got, want):
+    assert int((want > 0).sum()) > 3000
+    assert float(((got > 0) == (want > 0)).float().mean()) > 0.995
+    both = (got > 0) & (want > 0)
+    assert float((got - want)[both].abs().max()) < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm_start", [False, True])
+def test_march_warm_matches_plain_twin(dev, mug, warm_start):
+    """At 640x480 on a decoded mug, cold and with the t_init/skip of a real
+    warm step (a full render, then a small move)."""
+    from sdfest_torch.render import warm
+
+    sdf, cam = mug
+    rays = api.ray_set(cam, dev).march
+    shape = rays.shape[:2]
+    t_init = torch.full(shape, -1.0, device=dev)
+    skip = torch.zeros(shape, device=dev)
+    pose = _mug_pose(dev)
+    if warm_start:
+        outs = kernels.march_warm(sdf, rays, pose, t_init, skip, 0.005, 500)
+        hit = (outs[0] > 0).float()
+        _, t_min, _ = (x.reshape(shape) for x in plain.ray_interval(
+            rays.reshape(-1, 3), pose))
+        state = dict(zip(plain.WARM_OUTPUTS[1:], outs[1:]), hit=hit,
+                     t0=t_min, macc=torch.zeros(shape, device=dev))
+        pose = _mug_pose(dev, dp=(1e-3, -6e-4, 8e-4))
+        t_init, skip, _ = warm.warm_inputs(
+            state, rays, pose, torch.tensor(3e-3, device=dev), False, 0.005)
+        assert int(skip.sum()) > 1000 and int((t_init >= 0).sum()) > 1000
+    kernels.reset_launches()
+    got = kernels.march_warm(sdf, rays, pose, t_init, skip, 0.005, 500)
+    torch.cuda.synchronize()
+    assert kernels.march_warm.launches == 1
+    want = [x.reshape(shape) for x in plain.march_warm_plain(
+        sdf, rays.reshape(-1, 3), pose, t_init.reshape(-1),
+        skip.reshape(-1), 0.005, 500)]
+    _depth_bar(got[0], want[0])
+    agree = (got[0] > 0) == (want[0] > 0)
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w)[agree].abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("culling", [True, False])
+def test_relaxed_march_matches_plain_twin(dev, mug, culling):
+    sdf, cam = mug
+    rays = api.ray_set(cam, dev).march
+    pose = _mug_pose(dev)
+    got = kernels.march(sdf, rays, pose, 0.005, 500, culling, True,
+                        relaxation=1.5)
+    want = plain.march_plain(sdf, rays.reshape(-1, 3), pose, 0.005, 500,
+                             culling, True, relaxation=1.5)
+    _depth_bar(got, want.reshape(rays.shape[:2]))

@@ -178,6 +178,10 @@ def test_losses_match_jax():
     pairs = [
         (tlosses.masked_mean_abs(values, t(pmask)),
          jlosses.masked_mean_abs(want, pmask)),
+        (tlosses.masked_pc_loss(t(pts), t(pmask), t(GT_POSITION), t(GT_QUAT),
+                                t(GT_HALF), t(sdf)),
+         jlosses.masked_pc_loss(pts, pmask, GT_POSITION, GT_QUAT, GT_HALF,
+                                sdf)),
         (tlosses.depth_l1_loss(t(a), t(b)), jlosses.depth_l1_loss(a, b)),
         (tlosses.inlier_ratio(t(a), t(b)), jlosses.inlier_ratio(a, b)),
     ]
@@ -196,10 +200,7 @@ def test_empty_observation_raises():
 
 @pytest.mark.parametrize("option,value", [
     ("reuse_plan", True),
-    ("early_stop_delta", 0.01),
-    ("temporal_coherence", True),
     ("init_view", "best"),
-    ("relaxation", 1.5),
     ("bf16_march", True),
 ])
 def test_unported_options_raise(option, value):
@@ -294,6 +295,20 @@ PLAN_CASES = {
     "neither": ({}, [(90, 77)]),
     "small_camera": (dict(FAST, camera=SMALL_CAMERA, max_iterations=5,
                           roi_margin=16), [(60, 50)]),
+    # temporal coherence rules out ROI and multires: one full-frame phase
+    # (on the JAX package's pallas backend, whose counterpart the port's
+    # kernels are; its xla backend turns the warm path off)
+    "temporal_fast": (dict(FAST, temporal_coherence=True,
+                           renderer_backend="pallas"), [(90, 77)]),
+    "temporal_single_level": (dict(roi_size="auto", multires_factor=2,
+                                   multires_iterations="auto",
+                                   temporal_coherence=True,
+                                   renderer_backend="pallas"), [(90, 77)]),
+    "temporal_xla_backend": (dict(FAST, temporal_coherence=True,
+                                  renderer_backend="xla"), [(90, 77)]),
+    "temporal_relaxed": (dict(FAST, temporal_coherence=True,
+                              renderer_backend="pallas", relaxation=1.5),
+                         [(90, 77)]),
 }
 
 
@@ -306,6 +321,24 @@ def test_planner_matches_jax(planners, case):
         assert pipe._roi_from_spans(spans, factor) == jpipe._roi_from_spans(
             spans, factor)
     assert pipe._plan_for(spans) == jpipe._plan_for(spans)
+
+
+def test_temporal_gate_matches_jax(planners):
+    """The warm path's gate equals the JAX package's on its pallas backend,
+    and the temporal plan is one full-frame phase."""
+    for overrides, on in ((dict(temporal_coherence=True,
+                                renderer_backend="pallas"), True),
+                          (dict(temporal_coherence=True,
+                                renderer_backend="xla"), False),
+                          (dict(temporal_coherence=True, coarse_culling=False,
+                                renderer_backend="pallas"), False),
+                          (dict(temporal_coherence=False,
+                                renderer_backend="pallas"), False)):
+        jpipe, pipe = planners(**FAST, **overrides)
+        assert pipe._use_temporal_coherence() is on
+        assert jpipe._use_temporal_coherence() is on
+    _, pipe = planners(**FAST, temporal_coherence=True)  # "auto": the kernels
+    assert pipe._plan_for([(90, 77)]) == ((), None, None)
 
 
 def test_plan_of_chip_smoke_poses(planners):
@@ -425,6 +458,27 @@ def test_fast_preset_matches_merged_yaml():
         merged = jconfig._deep_merge(
             merged, jconfig.load_config_from_file(os.path.join(base, name)))
     assert preset("mug_procedural_fast") == merged
+
+
+@pytest.mark.parametrize("name,overlay,extra", [
+    ("mug_procedural_fast_adaptive", "fast_adaptive.yaml", {}),
+    ("mug_procedural_temporal", None, {"temporal_coherence": True}),
+])
+def test_temporal_and_adaptive_presets_match_merged_yaml(name, overlay,
+                                                         extra):
+    """mug_procedural_fast_adaptive is the JAX package's merge of the model
+    config, default.yaml and fast_adaptive.yaml (which includes fast.yaml);
+    mug_procedural_temporal is default.yaml with temporal_coherence on."""
+    from sdfest_tpu.utils import config as jconfig
+
+    base = os.path.join(ROOT, "sdfest_tpu", "configs", "estimation")
+    merged = {}
+    for f in ("models/mug_procedural.yaml", "default.yaml", overlay):
+        if f is not None:
+            merged = jconfig._deep_merge(
+                merged, jconfig.load_config_from_file(os.path.join(base, f)))
+    merged.update(extra)
+    assert preset(name) == merged
 
 
 # the JAX init's orientation error on chip_smoke's four poses (degrees)
