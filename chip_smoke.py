@@ -8,6 +8,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check   # build and check kernels only
     python3 chip_smoke.py --phases build,check,fast   # the fast.yaml path
     python3 chip_smoke.py --phases build,check,temporal   # warm refinement
+    python3 chip_smoke.py --phases build,check,bf16,multiview   # slice 4
 
 Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
@@ -16,7 +17,9 @@ Phases:
             ROI marches against the crop of the full march (bit for bit)
             and against the plain ROI march, at strides 1, 2 and 4; the
             warm/aux march cold and with a real warm step's inputs, and
-            all rays skipped; the relaxed march with and without culling
+            all rays skipped; the relaxed march with and without culling;
+            the bf16 marches (culling, relaxed, warm), bf16 without culling
+            equal to the fp32 march, and the bf16 sample's error bound
   pipeline  SDFPipeline.__call__ of the mug_procedural preset with the
             committed weights on a self-rendered observation, 50 full-frame
             iterations; counts kernel launches per call and times 3 calls
@@ -30,10 +33,19 @@ Phases:
             cold _refine from a perturbed ground-truth state
   relaxed   mug_procedural with relaxation 1.5, culling on and off:
             launches and one timed call each
+  bf16      mug_procedural_bf16 (bf16_march): 50 bf16 marches and 0 fp32
+            ones per call, 3 timed calls with their final losses beside the
+            full frame's; one fast.yaml + bf16 call (bf16 ROI marches)
+  multiview 3 views (640x480, camera poses around the mug) with init_view
+            best: 150 launches of each fused kernel per call, 3 timed
+            calls; the init's orientation error without and with a prior
+            near the truth; one call each with a point constraint, under
+            fast.yaml and under temporal coherence
   time      each kernel and its plain twin over 30 distinct inputs (CUDA
             events), with the least time the card could take (bound); the
             march also at the three ROI shapes of the fast plan, plain,
-            relaxed, and the warm march cold and mid-refinement
+            relaxed, the warm march cold and mid-refinement, the fp32
+            culling march without adaptive, and the bf16 marches
   profile   torch.profiler over one full-frame, fast and temporal call:
             device busy share and the ops that take the time
 
@@ -53,7 +65,7 @@ import sys
 import time
 
 PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
-          "time", "profile")
+          "bf16", "multiview", "time", "profile")
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
 SPIN_CYCLES = 100_000_000
@@ -75,6 +87,11 @@ OPS_MARCH_FINE, OPS_MARCH_BOUND, OPS_MARCH_RAY = 66, 25, 45
 # warm march: + the corridor update per step (dip, min, 2 selects: ~6),
 # + the warm start per ray (compare, max: 2) and 3 output selects
 OPS_WARM_FINE, OPS_WARM_BOUND, OPS_WARM_RAY = 72, 31, 50
+# bf16 march: a fast step = position (6) + coarse lookup (15) + locate (27)
+# + 8 widenings and the lerp (21) + scale and error (3) + test/step (4); a
+# verified step adds the fp32 lerp (21), its scale (1) and the fp32 test
+# and update (9); the warm march adds the corridor update (6) to each
+OPS_BF16_FAST, OPS_BF16_VERIFIED = 76, 107
 RELAXATION = 1.5  # the relaxed paths' over-relaxation factor
 # an Adam-sized step between two refinement iterations, from which the
 # warm march's mid-refinement inputs are made: positions ~1e-3, the
@@ -166,6 +183,17 @@ class Smoke:
             config = preset("mug_procedural")
             config.update(relaxation=RELAXATION, coarse_culling=culling)
             self.relaxed_pipes[culling] = SDFPipeline(config, device=self.dev)
+        self.bf16_pipe = SDFPipeline(preset("mug_procedural_bf16"),
+                                     device=self.dev)
+        self.bf16_fast_pipe = SDFPipeline(
+            dict(preset("mug_procedural_fast"), bf16_march=True),
+            device=self.dev)
+        # multi-view: init_view best on the full-frame, fast and temporal
+        # presets
+        self.mv_pipe, self.mv_fast_pipe, self.mv_temporal_pipe = (
+            SDFPipeline(dict(preset(name), init_view="best"), device=self.dev)
+            for name in ("mug_procedural", "mug_procedural_fast",
+                         "mug_procedural_temporal"))
         self.camera = self.pipe.camera
         gen = torch.Generator(device="cpu").manual_seed(0)
         self.latent = (0.5 * torch.randn(1, 8, generator=gen)).to(self.dev)
@@ -435,6 +463,102 @@ class Smoke:
         self.check_roi()
         self.check_warm()
         self.check_relaxed()
+        self.check_bf16()
+
+    def check_bf16(self):
+        """The bf16-verified marches against their twins at every pose: the
+        culling march (relaxation 1) and the relaxed culling march (1.5),
+        and the warm march cold and with a real warm step's inputs; with
+        culling off, bf16 is the fp32 march bit for bit.  Then the bf16
+        sample's error bound over 1 M points of the decoded mug."""
+        import torch
+
+        from sdfest_torch.ops.interpolation import sample_sdf
+        from sdfest_torch.render import api, kernels as k, plain
+
+        thr = self.pipe.config["threshold"]
+        rays = api.ray_set(self.camera, self.dev).march
+        flat = rays.reshape(-1, 3)
+        shape = rays.shape[:2]
+        r = self.report["march_bf16"] = dict(
+            max_err=0.0, agreement=1.0,
+            tol="hit agreement > 0.995, |ddepth| < 5e-3; warm corridor "
+                "fields |d| < 1e-4 where the hit status agrees; culling off: "
+                "equal to the fp32 march; sample error <= BF16_ERR * amax",
+            culling={}, relaxed={}, warm={})
+
+        def bar(entry, got, want, label):
+            hit_g, hit_w = got > 0, want > 0
+            agree = float((hit_g == hit_w).float().mean())
+            both = hit_g & hit_w
+            dd = float((got - want)[both].abs().max())
+            print(f"check march_bf16 {label}: hits {int(hit_w.sum())} "
+                  f"agreement {agree:.6f} max|ddepth| {dd:.3e}")
+            assert int(hit_w.sum()) > 3000, "too few hits"
+            assert agree > 0.995 and dd < 5e-3, "bf16 march disagrees"
+            for e in (entry, r):
+                e["max_err"] = max(e.get("max_err", 0.0), dd)
+                e["agreement"] = min(e.get("agreement", 1.0), agree)
+            return hit_g == hit_w
+
+        for key, relaxation in (("culling", 1.0), ("relaxed", RELAXATION)):
+            equal = True
+            for i, (pos, half, q) in enumerate(GT_POSES):
+                pose = self.pose(pos, q, half)
+                got = k.march(self.sdf, rays, pose, thr, 500, True, True,
+                              relaxation=relaxation, bf16=True)
+                steps = {}
+                want = plain.march_plain(
+                    self.sdf, flat, pose, thr, 500, True, True, steps=steps,
+                    relaxation=relaxation, bf16=True).reshape(shape)
+                bar(r[key], got, want, f"{key} pose {i} steps {steps}")
+                no_cull = [k.march(self.sdf, rays, pose, thr, 500, False,
+                                   False, relaxation=relaxation, bf16=b)
+                           for b in (True, False)]
+                equal = equal and torch.equal(*no_cull)
+            print(f"check march_bf16 {key} without culling equals the fp32 "
+                  f"march: {equal}")
+            assert equal, "bf16 without culling differs from the fp32 march"
+            r[key]["no_culling_equals_fp32"] = equal
+        cold = (torch.full(shape, -1.0, device=self.dev),
+                torch.zeros(shape, device=self.dev))
+        w = r["warm"]
+        w["corridor_max_err"], w["corridor_share_within_1e-4"] = 0.0, 1.0
+        for i, gt in enumerate(GT_POSES):
+            pos, half, q = gt
+            for label, (pose, t_init, skip) in (
+                    ("cold", (self.pose(pos, q, half), *cold)),
+                    ("warm", self.warm_step(gt, 10 + i))):
+                got = k.march_warm(self.sdf, rays, pose, t_init, skip, thr,
+                                   500, bf16=True)
+                want = [x.reshape(shape) for x in plain.march_warm_plain(
+                    self.sdf, flat, pose, t_init.reshape(-1),
+                    skip.reshape(-1), thr, 500, bf16=True)]
+                same = bar(w, got[0], want[0], f"warm pose {i} {label}")
+                de = torch.stack([(g - x).abs() for g, x in
+                                  zip(got[1:], want[1:])]).amax(0)[same]
+                share = float((de < 1e-4).float().mean())
+                print(f"check march_bf16 warm pose {i} {label}: corridor "
+                      f"max|d| {float(de.max()):.3e}, share within 1e-4 "
+                      f"{share:.6f}")
+                assert float(de.max()) < 1e-4, "bf16 warm corridor disagrees"
+                w["corridor_max_err"] = max(w["corridor_max_err"],
+                                            float(de.max()))
+                w["corridor_share_within_1e-4"] = min(
+                    w["corridor_share_within_1e-4"], share)
+        # the error bound of a bf16 sample, 1 M points in the box
+        gen = torch.Generator(device="cpu").manual_seed(6)
+        pts = (torch.rand(1_000_000, 3, generator=gen) * 2.0 - 1.0).to(
+            self.dev)
+        err = (sample_sdf(plain.bf16_corners(self.sdf), pts)
+               - sample_sdf(self.sdf, pts)).abs()
+        amax = plain.coarse_lookup(plain.coarse_max_table(self.sdf), pts)
+        ratio = float((err / amax).max())
+        print(f"check bf16 sample error over 1M points: max |bf16 - fp32| / "
+              f"amax {ratio:.4e} (constant {plain.BF16_ERR}, derived 2^-8 = "
+              f"{2.0 ** -8:.4e})")
+        assert ratio <= plain.BF16_ERR, "bf16 sample error above its bound"
+        r["sample_error_over_amax"] = ratio
 
     def check_warm(self):
         """The warm/aux march against its twin at every pose, cold and with
@@ -605,7 +729,7 @@ class Smoke:
         assert math.isfinite(l0) and math.isfinite(l_last) and l_last < l0
         for t in (pos, orient, scale, latent):
             assert bool(torch.isfinite(t).all()), "non-finite estimate"
-        walls, witnesses = [], []
+        walls, witnesses, finals = [], [], []
         for gt in GT_POSES[1:]:
             depth = self.observe(gt)
             torch.cuda.synchronize()
@@ -626,12 +750,14 @@ class Smoke:
                   f" mm orientation error {e_rot:.2f} deg loss "
                   f"{float(loss[0]):.5f} -> {float(loss[-1]):.5f}")
             assert math.isfinite(e_pos + e_scale + e_rot)
+            finals.append(float(loss[-1]))
             witnesses.append(self.witness(gt, (pos, orient, scale, latent)))
         mean = sum(walls) / len(walls)
         print(f"pipeline mean {mean * 1e3:.3f} ms/call, "
               f"{n_iter / mean:.1f} iterations/s")
         self.report["_pipeline"] = dict(ms_per_call=mean * 1e3,
                                         it_per_s=n_iter / mean,
+                                        final_loss=finals,
                                         witness=witnesses)
 
     def fast(self):
@@ -880,6 +1006,204 @@ class Smoke:
                                          ms_per_call=walls[-1] * 1e3)
         r["launches"] = r["culling"]["launches"]
 
+    def _call(self, pipe, depth, mask, **kwargs):
+        """One ``pipe(depth, mask, **kwargs)`` with the launch counts set to
+        0 just before it: ``(estimate, wall s, launches, bf16 march
+        launches, march rasters)``."""
+        import torch
+
+        from sdfest_torch.render import kernels
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = pipe(depth, mask, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for t in out:
+            assert bool(torch.isfinite(t).all()), "non-finite estimate"
+        loss = pipe.last_log["loss"]
+        assert math.isfinite(float(loss[-1])) and float(loss[-1]) < float(
+            loss[0]), "the loss did not fall"
+        return (out, wall, kernels.launches(), kernels.march.bf16_launches,
+                dict(kernels.march.rasters))
+
+    def orientation_error(self, q_est, q_true) -> float:
+        from sdfest_torch.ops import quaternion
+
+        return math.degrees(float(quaternion.geodesic_distance(
+            q_est, unit_quat(q_true, self.dev))))
+
+    def bf16(self):
+        """SDFPipeline.__call__ under mug_procedural_bf16 (bf16_march):
+        every march of a call goes through the bf16 instance (50 bf16, 0
+        fp32 marches, 50 of each sampler); 3 timed calls whose final losses
+        print beside the full-frame call's on the same poses; then one call
+        under fast.yaml + bf16, whose ROI marches are bf16 too."""
+        pipe = self.bf16_pipe
+        n_iter = pipe.config["max_iterations"]
+        want = {"march": n_iter, "march_warm": 0, "sample": n_iter,
+                "sample_grad": n_iter, "scatter": n_iter}
+        walls, finals = [], []
+        for i, gt in enumerate(GT_POSES):
+            depth = self.observe(gt)
+            out, wall, counts, n_bf16, _ = self._call(pipe, depth, depth > 0)
+            loss = pipe.last_log["loss"]
+            print(f"bf16 call {i}: {wall * 1e3:.3f} ms ("
+                  f"{'counted' if i == 0 else 'timed'}) launches {counts} of "
+                  f"which bf16 marches {n_bf16}; loss {float(loss[0]):.6f} -> "
+                  f"{float(loss[-1]):.6f}; orientation error "
+                  f"{self.orientation_error(out[1][0], gt[2]):.2f} deg")
+            assert counts == want and n_bf16 == n_iter, (
+                f"launches {counts} (bf16 {n_bf16}), expected {want}, all bf16")
+            if i == 0:
+                self.report.setdefault("march_bf16", {})["launches"] = n_bf16
+            else:
+                walls.append(wall)
+                finals.append(float(loss[-1]))
+        mean = sum(walls) / len(walls)
+        full = self.report.get("_pipeline", {})
+        print(f"bf16 mean {mean * 1e3:.3f} ms/call; final losses {finals} "
+              f"(full frame on the same poses: "
+              f"{full.get('final_loss', 'not run')}, "
+              f"{full.get('ms_per_call', float('nan')):.3f} ms/call)")
+        # fast.yaml + bf16: the ROI marches of every level are bf16
+        depth = self.observe(GT_POSES[0])
+        _, wall, counts, n_bf16, rasters = self._call(self.bf16_fast_pipe,
+                                                      depth, depth > 0)
+        print(f"bf16 fast call: {wall * 1e3:.3f} ms plan "
+              f"{self.bf16_fast_pipe.last_plan} launches {counts} bf16 "
+              f"marches {n_bf16} rasters {rasters}")
+        assert counts == want and n_bf16 == n_iter
+        assert len(rasters) == 3, "the fast plan's three ROI shapes"
+        self.report["_bf16"] = dict(
+            ms_per_call=mean * 1e3, it_per_s=n_iter / mean, final_loss=finals,
+            launches=dict(want, march_bf16=n_iter),
+            fast=dict(ms=wall * 1e3, launches=counts, march_bf16=n_bf16,
+                      rasters={f"{h}x{w}": c for (h, w), c in
+                               rasters.items()}))
+
+    def multiview_inputs(self):
+        """V = 3 views (640x480 each) of the mug at GT pose 0, whose frame is
+        the world: camera 0 at the origin, cameras 1 and 2 turned by -35 and
+        +35 deg about the vertical axis through the mug's center.  Returns
+        the depths (3, H, W), the cameras' world poses (3, 3)/(3, 4) and
+        the mug's orientation in each camera's frame (3, 4)."""
+        import torch
+
+        from sdfest_torch.ops import quaternion
+
+        pos, half, q = GT_POSES[0]
+        p_obj = torch.tensor(pos, device=self.dev)
+        q_obj = unit_quat(q, self.dev)
+        depths, cam_pos, cam_q, q_in_cam = [], [], [], []
+        for deg in (0.0, -35.0, 35.0):
+            a = math.radians(deg) / 2
+            q_cam = torch.tensor([0.0, math.sin(a), 0.0, math.cos(a)],
+                                 device=self.dev)
+            c = quaternion.apply(q_cam, -p_obj) + p_obj
+            inv = quaternion.invert(q_cam)
+            pos_c = quaternion.apply(inv, p_obj - c)
+            quat_c = quaternion.multiply(inv, q_obj)
+            depths.append(self.render(self.sdf, pos_c.tolist(),
+                                      quat_c.tolist(), half))
+            cam_pos.append(c)
+            cam_q.append(q_cam)
+            q_in_cam.append(quat_c)
+        for d in depths:
+            assert int((d > 0).sum()) > 3000, "a view shows too few pixels"
+        return (torch.stack(depths), torch.stack(cam_pos),
+                torch.stack(cam_q), torch.stack(q_in_cam))
+
+    def multiview(self):
+        """SDFPipeline.__call__ with V = 3 views and init_view: best: 150 of
+        each fused kernel per call (one render per view per iteration), 3
+        timed calls; the init's orientation error without and with a prior
+        concentrated near the true orientation (a witness, not a gate); one
+        call with a point constraint, one fast multi-view call (an ROI per
+        view) and one temporal multi-view call (150 warm marches)."""
+        import torch
+
+        from sdfest_torch.ops import quaternion
+
+        depth, cam_pos, cam_q, q_in_cam = self.multiview_inputs()
+        mask = depth > 0
+        cams = dict(camera_positions=cam_pos, camera_orientations=cam_q)
+        q_true = GT_POSES[0][2]
+        pipe = self.mv_pipe
+        n_iter = pipe.config["max_iterations"]
+        n_views = depth.shape[0]
+        fused = n_views * n_iter
+        want = {"march": fused, "march_warm": 0, "sample": fused,
+                "sample_grad": fused, "scatter": fused}
+        walls = []
+        for i in range(4):
+            out, wall, counts, _, _ = self._call(pipe, depth, mask, **cams)
+            loss = pipe.last_log["loss"]
+            print(f"multiview call {i}: {wall * 1e3:.3f} ms ("
+                  f"{'counted' if i == 0 else 'timed'}) launches {counts}; "
+                  f"loss {float(loss[0]):.6f} -> {float(loss[-1]):.6f}; "
+                  f"orientation error "
+                  f"{self.orientation_error(out[1][0], q_true):.2f} deg")
+            assert counts == want, f"launches {counts}, expected {want}"
+            if i:
+                walls.append(wall)
+        mean = sum(walls) / len(walls)
+        full = self.report.get("_pipeline", {}).get("ms_per_call")
+        print(f"multiview mean {mean * 1e3:.3f} ms/call for {n_views} views "
+              f"(single-view full frame this run: "
+              f"{'not run' if full is None else f'{full:.3f} ms/call'})")
+        # the init's start, without and with a prior near the truth
+        pre = pipe._preprocess_depth(depth, mask)
+        sigma = math.radians(30.0)
+        grid = pipe._grid_quats
+        prior = torch.stack([
+            torch.exp(-0.5 * (quaternion.geodesic_distance(grid, qc[None])
+                              / sigma) ** 2) + 1e-6 for qc in q_in_cam])
+        init = {}
+        for label, pr in (("no_prior", None), ("prior", prior)):
+            start = pipe._nn_init(pre, cam_pos, cam_q, torch.Generator(
+                device=self.dev).manual_seed(0), pr)
+            init[label] = self.orientation_error(start[3][0], q_true)
+        print(f"multiview init orientation error (deg): {init}")
+        out, wall, _, _, _ = self._call(
+            pipe, depth, mask, prior_orientation_distribution=prior, **cams)
+        prior_err = self.orientation_error(out[1][0], q_true)
+        # a point constraint toward the true orientation
+        source = torch.tensor([0.0, 0.0, 0.1], device=self.dev)
+        target = quaternion.apply(unit_quat(q_true, self.dev), source)
+        out, wall_pc, counts, _, _ = self._call(
+            pipe, depth, mask, point_constraint=(source, target, 1.0), **cams)
+        pc_err = self.orientation_error(out[1][0], q_true)
+        print(f"multiview call with the prior: orientation error "
+              f"{prior_err:.2f} deg; with a point constraint: {wall_pc * 1e3:.3f}"
+              f" ms, orientation error {pc_err:.2f} deg, launches {counts}")
+        assert counts == want
+        # fast.yaml over views: an ROI per view at every level
+        _, wall_fast, counts, _, rasters = self._call(self.mv_fast_pipe, depth,
+                                                      mask, **cams)
+        print(f"multiview fast call: {wall_fast * 1e3:.3f} ms plan "
+              f"{self.mv_fast_pipe.last_plan} launches {counts} rasters "
+              f"{rasters}")
+        assert counts == want and sum(rasters.values()) == fused
+        # temporal coherence over views: a warm state per view
+        _, wall_warm, counts, _, _ = self._call(self.mv_temporal_pipe, depth,
+                                                mask, **cams)
+        want_warm = {"march": 0, "march_warm": fused, "sample": 0,
+                     "sample_grad": 2 * fused, "scatter": 2 * fused}
+        print(f"multiview temporal call: {wall_warm * 1e3:.3f} ms launches "
+              f"{counts}")
+        assert counts == want_warm, f"launches {counts}, expected {want_warm}"
+        self.report["_multiview"] = dict(
+            views=n_views, ms_per_call=mean * 1e3, launches=want,
+            init_orientation_error_deg=init,
+            prior_call_orientation_error_deg=prior_err,
+            point_constraint=dict(ms=wall_pc * 1e3,
+                                  orientation_error_deg=pc_err),
+            fast=dict(ms=wall_fast * 1e3, rasters={
+                f"{h}x{w}": c for (h, w), c in rasters.items()}),
+            temporal=dict(ms=wall_warm * 1e3, launches=counts))
+
     def time(self):
         import torch
 
@@ -1086,6 +1410,108 @@ class Smoke:
                   f"{entry['warm_started']:.0f}")
         for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
             w[key] = w["mid_refinement"][key]
+        self.time_bf16(poses, dirs, coarse)
+
+    def time_bf16(self, poses, dirs, coarse):
+        """The fp32 culling march without adaptive over-relaxation (the
+        branch bf16 replaces) and the bf16 marches (culling, relaxed; warm
+        cold and mid-refinement) at the same 30 poses.  The bf16 grid and
+        the paired table are made once per grid, outside the timed kernel,
+        as the min table is."""
+        import torch
+
+        from sdfest_torch.render import kernels as k
+        from sdfest_torch.render import plain
+
+        thr = self.pipe.config["threshold"]
+        n = dirs.shape[0]
+        reps = len(poses)
+        pair = plain.coarse_pair_table(self.sdf)
+        grid_b = self.sdf.to(torch.bfloat16)
+
+        def mean_steps(runs):
+            out = {}
+            for st in runs:
+                for key, v in st.items():
+                    out[key] = out.get(key, 0.0) + v / reps
+            return out
+
+        def entry(e, ms, pms, steps, n_bytes, ops_ray, ops_bound, warm):
+            corridor = 6 if warm else 0
+            ops = (steps["rays"] * ops_ray + steps["bound"] * ops_bound
+                   + steps["fine"] * ((OPS_BF16_VERIFIED + corridor)
+                                      if "fast" in steps else OPS_MARCH_FINE)
+                   + steps.get("fast", 0) * (OPS_BF16_FAST + corridor))
+            # the grid cells read: float32 by the fp32 samples, bf16 by the
+            # bf16 samples
+            nbytes = (n_bytes + steps["cells"] * 4
+                      + steps.get("cells_bf16", 0) * 2)
+            b_ms, by = bound(nbytes, ops)
+            e.update(ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                     bytes=nbytes, ops=ops, steps=steps)
+            return (f"kernel {ms:.4f} ms plain {pms:.4f} ms bound {b_ms:.5f} "
+                    f"ms ({by}: {nbytes / 1e6:.3f} MB, {ops / 1e6:.3f} Mop) "
+                    f"steps {steps}")
+
+        # fp32 culling march without adaptive over-relaxation
+        ms = cuda_ms(lambda pose: k.march(self.sdf, dirs, pose, thr, 500,
+                                          True, False, coarse=coarse), poses)
+        pms = cuda_ms(lambda pose: plain.march_plain(
+            self.sdf, dirs, pose, thr, 500, True, False), poses, warmup=1)
+        runs = []
+        for pose in poses:
+            st = {}
+            plain.march_plain(self.sdf, dirs, pose, thr, 500, True, False,
+                              steps=st)
+            runs.append(st)
+        e = self.report["march"].setdefault("no_adaptive", {})
+        print("time march culling without adaptive " + entry(
+            e, ms, pms, mean_steps(runs), n * 16 + 16 ** 3 * 4 + 14 * 4,
+            OPS_MARCH_RAY, OPS_MARCH_BOUND, False))
+        # bf16 marches: directions in, depth out, the 32 KB paired table
+        r = self.report["march_bf16"]
+        table = 2 * 16 ** 3 * 4 + 14 * 4
+        for key, relaxation in (("culling", 1.0), ("relaxed", RELAXATION)):
+            ms = cuda_ms(lambda pose: k.march(
+                self.sdf, dirs, pose, thr, 500, True, True, coarse=pair,
+                relaxation=relaxation, bf16=True, sdf_bf16=grid_b), poses)
+            pms = cuda_ms(lambda pose: plain.march_plain(
+                self.sdf, dirs, pose, thr, 500, True, True,
+                relaxation=relaxation, bf16=True), poses, warmup=1)
+            runs = []
+            for pose in poses:
+                st = {}
+                plain.march_plain(self.sdf, dirs, pose, thr, 500, True, True,
+                                  steps=st, relaxation=relaxation, bf16=True)
+                runs.append(st)
+            print(f"time march_bf16 {key} " + entry(
+                r[key], ms, pms, mean_steps(runs), n * 16 + table,
+                OPS_MARCH_RAY, OPS_MARCH_BOUND, False))
+        shape = (self.camera.height, self.camera.width)
+        rays = dirs.reshape(*shape, 3)
+        cold = [(pose, torch.full(shape, -1.0, device=self.dev),
+                 torch.zeros(shape, device=self.dev)) for pose in poses]
+        mid = [self.warm_step(GT_POSES[i % len(GT_POSES)], 200 + i)
+               for i in range(reps)]
+        for label, inp in (("cold", cold), ("mid_refinement", mid)):
+            ms = cuda_ms(lambda x: k.march_warm(
+                self.sdf, rays, *x, thr, 500, coarse=pair, bf16=True,
+                sdf_bf16=grid_b), inp)
+            pms = cuda_ms(lambda x: plain.march_warm_plain(
+                self.sdf, dirs, x[0], x[1].reshape(-1), x[2].reshape(-1),
+                thr, 500, bf16=True), inp, warmup=1)
+            runs = []
+            for pose, t_init, skip in inp:
+                st = {}
+                plain.march_warm_plain(self.sdf, dirs, pose,
+                                       t_init.reshape(-1), skip.reshape(-1),
+                                       thr, 500, steps=st, bf16=True)
+                runs.append(st)
+            print(f"time march_bf16 warm {label} " + entry(
+                r["warm"].setdefault(label, {}), ms, pms, mean_steps(runs),
+                n * 44 + table, OPS_WARM_RAY, OPS_WARM_BOUND, True))
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            r[key] = r["culling"][key]
 
     def profile(self):
         """torch.profiler over one full-frame, fast and temporal call:
@@ -1168,6 +1594,8 @@ SOURCES = {
                    "sdfest_tpu/render/pallas_kernel.py:657"),
     "march_relaxed": ("sdfest_torch/csrc/march.cu",
                       "sdfest_tpu/render/pallas_kernel.py:1398, :1502"),
+    "march_bf16": ("sdfest_torch/csrc/march.cu",
+                   "sdfest_tpu/render/pallas_kernel.py:1296, :1445, :777"),
     "sample": ("sdfest_torch/csrc/sample.cu",
                "sdfest_tpu/render/pallas_kernel.py:1899"),
     "sample_grad": ("sdfest_torch/csrc/sample_grad.cu",
@@ -1190,8 +1618,8 @@ def kernels_line(report) -> str:
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
             "library_ms": None,
         })
-        for sub in ("roi", "plain", "cold", "mid_refinement", "culling",
-                    "no_culling"):
+        for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
+                    "culling", "no_culling", "relaxed", "warm"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -1215,9 +1643,10 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("tf32: off for matmul and cuDNN (the decoder's Conv3d runs in full "
-          "fp32, as the CPU twin does)")
+    print(f"tf32: off for matmul; cuDNN allow_tf32 left at "
+          f"{torch.backends.cudnn.allow_tf32}: the decoder's Conv3d runs in "
+          "full fp32 by itself (sdfest_torch/models/vae.py: "
+          "fp32_convolutions), as the CPU twin does")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
@@ -1234,7 +1663,8 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     smoke = Smoke()
-    if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "time"}:
+    if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "bf16",
+                      "multiview", "time"}:
         phases = ["check"] + [p for p in phases if p != "check"]
     for phase in PHASES[1:]:
         if phase in phases:
@@ -1246,6 +1676,8 @@ def main(argv=None) -> int:
         "fast": smoke.report.get("_fast"),
         "fast_adaptive": smoke.report.get("_fast_adaptive"),
         "temporal": smoke.report.get("_temporal"),
+        "bf16": smoke.report.get("_bf16"),
+        "multiview": smoke.report.get("_multiview"),
         "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
                     if k.startswith("_profile_")},
         "card": card}))

@@ -9,7 +9,12 @@
 //    :1398-1501 and without :1502-1548) and the ROI crop branch
 //    (pallas_kernel.py:1708-1760, :1660-1667);
 //  - march_warm_kernel: the warm/aux corridor march of temporal coherence
-//    (t_init/skip in, aux=True, :636-650, :657-776), described above it.
+//    (t_init/skip in, aux=True, :636-650, :657-776), described above it;
+//  - the bf16-verified branches, as the kBf16 instances of both kernels:
+//    the culling march (bf16=True, :1296-1376), the relaxed culling march
+//    (:1445-1472) and the warm/aux march (:777-881), described at
+//    kBf16Err below.
+// Every TPU branch of the march has its counterpart here.
 //
 // ROI renders: the kernel marches whatever n rays it is given.  An ROI
 // render passes the (Hr, Wr) crop of the camera's direction field at the
@@ -55,6 +60,10 @@
 // each ray's step chain and the divergence of trip counts within a warp.
 // The design keeps the hot table in shared memory and lets rays retire
 // independently; grouping rays by expected trip count is left for later.
+// The bf16 branch halves the bytes of a fast sample (a 512 KiB bf16 grid)
+// but doubles the table copy to 32 KB and gathers twice on a verified
+// step, and gives up the adaptive over-relaxation: it is not expected to
+// be faster than the fp32 culling march on this card.
 #include <cuda_runtime.h>
 
 #include "trilinear.cuh"
@@ -62,9 +71,40 @@
 namespace {
 
 constexpr int kNC = 16;  // coarse culling grid per axis
+constexpr int kCells = kNC * kNC * kNC;
 constexpr float kOmegaInit = 1.4f;
 constexpr float kOmegaGrow = 0.2f;
 constexpr float kOmegaMax = 1.9f;
+
+// bf16-verified sampling (bf16_march).  A fine step first takes a sample
+// d_fast on a bf16 copy of the grid (the wrapper rounds it once per grid,
+// round to nearest even); only the 8 corners are rounded, the weights, the
+// lerps and the sums stay float32 in the order of sdfest::lerp.  Its error
+// is bounded by err = kBf16Err * amax * scale, amax the max |value| over
+// the coarse cell's window (the second column of the interleaved table).
+// If d_fast < threshold*t + err the ray may be within reach of a hit: the
+// step is verified with the exact fp32 sample and runs as the fp32 march
+// would.  Otherwise the fp32 value d >= d_fast - err >= threshold*t, so no
+// hit is possible and the ray takes a certified fast step:
+//  - culling march: t += d_fast - err (:1351-1353), with relaxation 1 and
+//    no adaptive over-relaxation (the TPU takes v2 only without bf16);
+//  - relaxed culling march: Keinert's update with the certified radius
+//    d_fast - err and the step relaxation * d_fast, no hit (:1462-1467);
+//  - warm/aux march: the corridor takes the lower bound d_fast - err, and
+//    t += d_fast - err (:839-845).
+// The TPU verified a whole 16x16 tile when any of its rays was a
+// candidate; here each ray decides for itself, which changes only the
+// stepping noise, inside the march's bar.
+//
+// The bound.  bf16 keeps 8 significant bits, so rounding to nearest moves
+// a corner c by at most 2^-8 |c|.  Inside the box the trilinear weights w_i
+// lie in [0, 1] and sum to 1, so |d_fast - d| <= sum_i w_i 2^-8 |c_i| <=
+// 2^-8 amax = 3.9e-3 amax, plus the float32 rounding of the two lerps, of
+// order 1e-7 amax.  6e-3 (the TPU's _BF16_ERR) keeps a 1.5x margin.
+// Rounding the weights as well would double the worst case to ~7.8e-3
+// amax; they are not rounded.  (The TPU's 1-pass bf16 matmul rounds both
+// operands, and its comment takes bf16's rounding as 2^-9.)
+constexpr float kBf16Err = 6e-3f;
 
 // A ray in the object frame and its slab test against the scaled box
 // (sdfest_tpu/render/xla.py:50-72): every product and sum in the order of
@@ -119,36 +159,87 @@ __device__ __forceinline__ Ray setup_ray(const float* __restrict__ dirs,
   return r;
 }
 
-// The coarse table's certified lower bound (times scale) at a point.
-__device__ __forceinline__ float coarse_bound(const float* coarse_s, float px,
-                                              float py, float pz,
-                                              float scale) {
+// The coarse cell of a point, as the lookup of pallas_kernel.py:524.
+__device__ __forceinline__ int coarse_cell(float px, float py, float pz) {
   const float h = kNC * 0.5f;
   const int cx = (int)fminf(fmaxf(floorf((px + 1.0f) * h), 0.0f), kNC - 1);
   const int cy = (int)fminf(fmaxf(floorf((py + 1.0f) * h), 0.0f), kNC - 1);
   const int cz = (int)fminf(fmaxf(floorf((pz + 1.0f) * h), 0.0f), kNC - 1);
-  return coarse_s[(cx * kNC + cy) * kNC + cz] * scale;
+  return (cx * kNC + cy) * kNC + cz;
 }
 
-__device__ __forceinline__ void load_coarse(float* coarse_s,
-                                            const float* __restrict__ coarse) {
-  for (int k = threadIdx.x; k < kNC * kNC * kNC; k += blockDim.x)
-    coarse_s[k] = coarse[k];
-  __syncthreads();
+// The coarse table in shared memory.  kPairs (the bf16 marches): one float2
+// (min bound, max |value|) per cell, 32 KB, copied in one pass; otherwise
+// the min bounds alone, 16 KB.
+template <bool kPairs>
+struct CoarseTable {
+  __device__ __forceinline__ void load(const float* __restrict__ coarse) {
+    if constexpr (kPairs) {
+      const float2* src = reinterpret_cast<const float2*>(coarse);
+      float2* dst = reinterpret_cast<float2*>(s);
+      for (int k = threadIdx.x; k < kCells; k += blockDim.x)
+        dst[k] = __ldg(src + k);
+    } else {
+      for (int k = threadIdx.x; k < kCells; k += blockDim.x)
+        s[k] = coarse[k];
+    }
+    __syncthreads();
+  }
+  // the certified lower bound at a point (times scale) and, with kPairs,
+  // the max |value| of its window in *amax
+  __device__ __forceinline__ float bound(float px, float py, float pz,
+                                         float scale, float* amax) const {
+    const int c = coarse_cell(px, py, pz);
+    if constexpr (kPairs) {
+      const float2 b = reinterpret_cast<const float2*>(s)[c];
+      *amax = b.y;
+      return b.x * scale;
+    } else {
+      return s[c] * scale;
+    }
+  }
+  alignas(8) float s[kPairs ? 2 * kCells : kCells];
+};
+
+// The bf16 gate of a fine step at a located cell: d_fast and its error.
+struct Bf16Sample {
+  float d_fast, err;
+};
+
+__device__ __forceinline__ Bf16Sample bf16_sample(
+    const __nv_bfloat16* __restrict__ sdf_b, const sdfest::Cell& cell,
+    int res, float amax, float scale) {
+  float c[2][2][2];
+  sdfest::gather_bf16(sdf_b, cell, res, c);
+  return {sdfest::lerp(c, cell) * scale, kBf16Err * amax * scale};
 }
 
-// kRelaxed: relaxation > 1, a template parameter so that the default
-// branch's step loop carries no test of it.
-template <bool kRelaxed>
+__device__ __forceinline__ float fp32_sample(const float* __restrict__ sdf,
+                                             const sdfest::Cell& cell,
+                                             int res, float scale) {
+  float c[2][2][2];
+  sdfest::gather(sdf, cell, res, c);
+  return sdfest::lerp(c, cell) * scale;
+}
+
+// kRelaxed: relaxation > 1; kBf16: the bf16-verified branch, always with
+// culling, where `culling` and `adaptive` are not read (the wrapper
+// dispatches: bf16 without culling is the fp32 plain march).  Template
+// parameters, so that the default branch's step loop carries no test of
+// either.
+template <bool kRelaxed, bool kBf16>
 __global__ void march_kernel(const float* __restrict__ sdf,
+                             const __nv_bfloat16* __restrict__ sdf_b,
                              const float* __restrict__ coarse,
                              const float* __restrict__ dirs,
                              const float* __restrict__ pose,
                              float* __restrict__ depth, int n, int res,
                              float threshold, int max_steps, int culling,
                              int adaptive, float relaxation) {
-  __shared__ float coarse_s[kNC * kNC * kNC];
-  if (culling) load_coarse(coarse_s, coarse);
+  __shared__ CoarseTable<kBf16> table;
+  const bool cull = kBf16 || culling;
+  const bool adapt = !kBf16 && adaptive;
+  if (cull) table.load(coarse);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -157,13 +248,14 @@ __global__ void march_kernel(const float* __restrict__ sdf,
   float result = 0.0f;
   if (r.hit && t < r.t_max) {
     float stepped = 0.0f, d_prev = 0.0f;
-    float omega = adaptive ? kOmegaInit : 1.0f;
+    float omega = adapt ? kOmegaInit : 1.0f;
     for (int step = 0; step < max_steps; ++step) {
       const float px = (r.ox + t * r.d[0]) * r.inv_scale;
       const float py = (r.oy + t * r.d[1]) * r.inv_scale;
       const float pz = (r.oz + t * r.d[2]) * r.inv_scale;
-      if (culling) {
-        const float cd = coarse_bound(coarse_s, px, py, pz, r.scale);
+      float amax = 0.0f;
+      if (cull) {
+        const float cd = table.bound(px, py, pz, r.scale, &amax);
         if (cd >= threshold * t + 1e-5f &&
             !(kRelaxed && stepped > d_prev + cd)) {
           t = t + cd;
@@ -173,8 +265,30 @@ __global__ void march_kernel(const float* __restrict__ sdf,
           continue;
         }
       }
-      const float dist = sdfest::sample(sdf, px, py, pz, res) * r.scale;
-      if (kRelaxed || adaptive) {
+      const sdfest::Cell cell = sdfest::locate(px, py, pz, res);
+      if constexpr (kBf16) {
+        const Bf16Sample b = bf16_sample(sdf_b, cell, res, amax, r.scale);
+        if (!(b.d_fast < threshold * t + b.err)) {  // certified fast step
+          if constexpr (kRelaxed) {
+            const float d_cert = b.d_fast - b.err;
+            if (stepped > d_prev + d_cert && stepped > 0.0f) {
+              t = t - stepped + d_prev;
+              stepped = 0.0f;
+            } else {
+              const float step_len = relaxation * b.d_fast;
+              t = t + step_len;
+              stepped = step_len;
+              d_prev = d_cert;
+            }
+          } else {
+            t = t + b.d_fast - b.err;
+          }
+          if (!(t < r.t_max)) break;
+          continue;
+        }
+      }
+      const float dist = fp32_sample(sdf, cell, res, r.scale);
+      if (kRelaxed || adapt) {
         if (stepped > d_prev + dist && stepped > 0.0f) {
           // uncertified overstep: back to the last certified point
           t = t - stepped + d_prev;
@@ -231,19 +345,25 @@ __global__ void march_kernel(const float* __restrict__ sdf,
 // while-iterations of up to _UNROLL_AUX sub-steps); at 500, the default of
 // warm_render_step, it rarely binds.
 //
+// With kBf16 (pallas_kernel.py:777-881) a fine step is gated by a bf16
+// sample (kBf16Err above); a fast step feeds the corridor its certified
+// lower bound d_fast - err and takes no hit.
+//
 // What bounds it on the H100: as march_kernel, the dependent gathers along
 // each ray's step chain; it moves 2 more inputs and 5 more outputs per ray
 // (~13.5 MB at 640x480 against ~5 MB), still far from the bytes bound.
+template <bool kBf16>
 __global__ void march_warm_kernel(
-    const float* __restrict__ sdf, const float* __restrict__ coarse,
-    const float* __restrict__ dirs, const float* __restrict__ pose,
-    const float* __restrict__ t_init, const float* __restrict__ skip,
-    float* __restrict__ depth, float* __restrict__ t_out,
-    float* __restrict__ v0_out, float* __restrict__ min_dip_out,
-    float* __restrict__ v_last_out, float* __restrict__ t_last_out, int n,
-    int res, float threshold, int max_steps) {
-  __shared__ float coarse_s[kNC * kNC * kNC];
-  load_coarse(coarse_s, coarse);
+    const float* __restrict__ sdf, const __nv_bfloat16* __restrict__ sdf_b,
+    const float* __restrict__ coarse, const float* __restrict__ dirs,
+    const float* __restrict__ pose, const float* __restrict__ t_init,
+    const float* __restrict__ skip, float* __restrict__ depth,
+    float* __restrict__ t_out, float* __restrict__ v0_out,
+    float* __restrict__ min_dip_out, float* __restrict__ v_last_out,
+    float* __restrict__ t_last_out, int n, int res, float threshold,
+    int max_steps) {
+  __shared__ CoarseTable<kBf16> table;
+  table.load(coarse);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
 
@@ -259,10 +379,23 @@ __global__ void march_warm_kernel(
       const float px = (r.ox + t * r.d[0]) * r.inv_scale;
       const float py = (r.oy + t * r.d[1]) * r.inv_scale;
       const float pz = (r.oz + t * r.d[2]) * r.inv_scale;
-      const float cd = coarse_bound(coarse_s, px, py, pz, r.scale);
-      const bool bound_step = cd >= threshold * t + 1e-5f;
-      const float v = bound_step
-          ? cd : sdfest::sample(sdf, px, py, pz, res) * r.scale;
+      float amax = 0.0f;
+      const float cd = table.bound(px, py, pz, r.scale, &amax);
+      // v: a lower bound of the field at t; may_hit: v is the exact sample
+      float v = cd;
+      bool may_hit = false;
+      if (!(cd >= threshold * t + 1e-5f)) {
+        const sdfest::Cell cell = sdfest::locate(px, py, pz, res);
+        may_hit = true;
+        if constexpr (kBf16) {
+          const Bf16Sample b = bf16_sample(sdf_b, cell, res, amax, r.scale);
+          if (!(b.d_fast < threshold * t + b.err)) {  // certified fast step
+            v = b.d_fast - b.err;
+            may_hit = false;
+          }
+        }
+        if (may_hit) v = fp32_sample(sdf, cell, res, r.scale);
+      }
       if (have) {
         const float dip = (v_prev + v - (t - t_prev)) * 0.5f;
         min_dip = fminf(min_dip, dip);
@@ -272,7 +405,7 @@ __global__ void march_warm_kernel(
       v_prev = v;
       t_prev = t;
       have = true;
-      if (!bound_step && v < threshold * t) {
+      if (may_hit && v < threshold * t) {
         result = -t * r.dz;
         break;
       }
@@ -290,31 +423,43 @@ __global__ void march_warm_kernel(
 
 }  // namespace
 
-extern "C" int sdfest_march(const float* sdf, const float* coarse,
-                            const float* dirs, const float* pose,
-                            float* depth, int n, int res, float threshold,
-                            int max_steps, int culling, int adaptive,
-                            float relaxation, void* stream) {
+// sdf_b: the bf16 copy of the grid and coarse: the interleaved (min, max
+// |value|) table when bf16 is set (the bf16 instance, culling implied);
+// otherwise sdf_b is not read and coarse is the min table (read when
+// culling).
+extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
+                            const float* coarse, const float* dirs,
+                            const float* pose, float* depth, int n, int res,
+                            float threshold, int max_steps, int culling,
+                            int adaptive, float relaxation, int bf16,
+                            void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
-  auto kernel = relaxation > 1.0f ? march_kernel<true> : march_kernel<false>;
+  const bool relaxed = relaxation > 1.0f;
+  auto kernel = bf16 ? (relaxed ? march_kernel<true, true>
+                                : march_kernel<false, true>)
+                     : (relaxed ? march_kernel<true, false>
+                                : march_kernel<false, false>);
   kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-      sdf, coarse, dirs, pose, depth, n, res, threshold, max_steps, culling,
-      adaptive, relaxation);
+      sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
+      depth, n, res, threshold, max_steps, culling, adaptive, relaxation);
   return (int)cudaGetLastError();
 }
 
-extern "C" int sdfest_march_warm(const float* sdf, const float* coarse,
-                                 const float* dirs, const float* pose,
-                                 const float* t_init, const float* skip,
-                                 float* depth, float* t, float* v0,
-                                 float* min_dip, float* v_last, float* t_last,
-                                 int n, int res, float threshold,
-                                 int max_steps, void* stream) {
+extern "C" int sdfest_march_warm(const float* sdf, const void* sdf_b,
+                                 const float* coarse, const float* dirs,
+                                 const float* pose, const float* t_init,
+                                 const float* skip, float* depth, float* t,
+                                 float* v0, float* min_dip, float* v_last,
+                                 float* t_last, int n, int res,
+                                 float threshold, int max_steps, int bf16,
+                                 void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
-  march_warm_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-      sdf, coarse, dirs, pose, t_init, skip, depth, t, v0, min_dip, v_last,
-      t_last, n, res, threshold, max_steps);
+  auto kernel = bf16 ? march_warm_kernel<true> : march_warm_kernel<false>;
+  kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+      sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
+      t_init, skip, depth, t, v0, min_dip, v_last, t_last, n, res,
+      threshold, max_steps);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,7 @@
 // the sampling error the JAX package already rejected near the surface.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace sdfest {
@@ -59,6 +60,22 @@ __device__ __forceinline__ void gather(const float* __restrict__ sdf,
 #pragma unroll
       for (int dz = 0; dz < 2; ++dz)
         c[dx][dy][dz] = __ldg(sdf + cell.idx + dx * rr + dy * res + dz);
+}
+
+// The 8 corners of a bf16 copy of the grid, widened to float32 (exact),
+// for the bf16-gated march: the weights and lerps then run in float32.
+__device__ __forceinline__ void gather_bf16(
+    const __nv_bfloat16* __restrict__ sdf, const Cell& cell, int res,
+    float c[2][2][2]) {
+  const int rr = res * res;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz)
+        c[dx][dy][dz] = __bfloat162float(
+            __ldg(sdf + cell.idx + dx * rr + dy * res + dz));
 }
 
 // Value of the interpolant (the order of _lerp_corners).

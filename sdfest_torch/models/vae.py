@@ -3,7 +3,8 @@
 
 FC stack -> reshape to ``(N, C, D, D, D)`` -> before each Conv3d a trilinear
 resize to the layer's ``in_size`` when needed -> VALID (unpadded) Conv3d ->
-ReLU where configured.  Submodule names follow flax (``fc_i``, ``conv_i``)
+ReLU where configured.  The convolutions run in full fp32 on any device
+(:func:`fp32_convolutions`).  Submodule names follow flax (``fc_i``, ``conv_i``)
 so :func:`sdfest_torch.utils.weights.flax_to_torch` maps the committed
 weights directly.  The encoder is not ported yet.
 """
@@ -15,6 +16,25 @@ import torch
 from torch import nn
 
 from sdfest_torch.ops.interpolation import resize_trilinear
+
+
+def fp32_convolutions():
+    """A context in which cuDNN convolutions run in full fp32.
+
+    By PyTorch's default a float32 cuDNN convolution may run in TF32, which
+    keeps about three significant digits (on an H100 with PyTorch 2.11 the
+    mug decoder then differs from the CPU's by 2.6e-4).  This sets cuDNN's
+    legacy ``allow_tf32`` switch off for the block, which PyTorch 2.11
+    honours for convolutions; the ``fp32_precision`` argument of
+    ``cudnn.flags`` sets the generic CUDA precision, which the convolutions
+    do not read.  Every other cuDNN flag
+    keeps its value, and all are restored on exit: no global flag changes
+    for the rest of the process.
+    """
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       benchmark_limit=cudnn.benchmark_limit,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
 
 
 class SDFDecoder(nn.Module):
@@ -60,12 +80,13 @@ class SDFDecoder(nn.Module):
         c0 = self.conv_layers[0]
         out = out.reshape(-1, c0["in_channels"], c0["in_size"], c0["in_size"],
                           c0["in_size"])
-        for i, info in enumerate(self.conv_layers):
-            if out.shape[2] != info["in_size"]:
-                out = resize_trilinear(out, info["in_size"])
-            out = getattr(self, f"conv_{i}")(out)
-            if info["relu"]:
-                out = torch.relu(out)
+        with fp32_convolutions():
+            for i, info in enumerate(self.conv_layers):
+                if out.shape[2] != info["in_size"]:
+                    out = resize_trilinear(out, info["in_size"])
+                out = getattr(self, f"conv_{i}")(out)
+                if info["relu"]:
+                    out = torch.relu(out)
         if out.shape[2] != self.volume_size:
             out = resize_trilinear(out, self.volume_size)
         if self.tsdf is not False and enforce_tsdf:

@@ -12,10 +12,21 @@ These gathers are the plain versions the CUDA samplers are held against.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=8)
+def _divisor(value: float, device: torch.device, dtype: torch.dtype
+             ) -> torch.Tensor:
+    """``value`` as a tensor on ``device``, made once.  PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal, one
+    rounding off the true quotient that the CUDA kernels (and PyTorch on
+    the CPU) compute; a tensor divisor keeps the true division."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def _base_and_frac(
@@ -30,7 +41,8 @@ def _base_and_frac(
     )
     base = torch.clamp(c_unclamped, 0, res - 2)
     cell_origin = base * grid_size - 1.0
-    frac = (points - cell_origin) / grid_size
+    frac = (points - cell_origin) / _divisor(grid_size, points.device,
+                                              points.dtype)
     return base.long(), frac, inside
 
 

@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from sdfest_torch.ops import quaternion
 from sdfest_torch.render.api import (
     _pc_object_points,
     sample_sdf_masked_extrapolating,
@@ -59,6 +60,16 @@ def depth_l1_loss(depth_input: torch.Tensor, depth_estimate: torch.Tensor
     err = torch.abs(depth_estimate - depth_input)
     w = overlap.to(err.dtype)
     return torch.sum(err * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def point_constraint_loss(
+    orientation_q: torch.Tensor, source: torch.Tensor, target: torch.Tensor
+) -> torch.Tensor:
+    """``|| R(orientation_q) source - target ||_2`` (scalar): the distance
+    between the rotated object-frame point ``source (3,)`` and ``target
+    (3,)``; the quaternion ``(4,)`` is applied as given (not normalized)."""
+    rotated = quaternion.apply(orientation_q, source)
+    return torch.linalg.norm(rotated - target)
 
 
 def inlier_ratio(

@@ -1,14 +1,20 @@
-"""SDF pose, scale and shape estimation from one depth view (counterpart of
-``SDFPipeline`` in ``sdfest_tpu/pipeline/pipeline.py``).
+"""SDF pose, scale and shape estimation from one or more depth views
+(counterpart of ``SDFPipeline`` in ``sdfest_tpu/pipeline/pipeline.py``).
 
 ``__call__`` runs: mask + far-field cut of the depth -> the probe (empty
-check and the object's bbox spans) -> the plan -> dense point cloud ->
-PointNet init network with the discretized SO(3) head -> refinement phases.
-Each iteration decodes the latent to a 64^3 SDF, renders it fused with the
-pc values (:func:`render_depth_with_pc_values`: march and sample kernels
-forward, sample-grad and scatter kernels backward), adds the depth-L1 and
-pc losses, takes an Adam step with per-variable learning rates,
-renormalizes the quaternion and tracks the best inlier ratio.
+check and the object's bbox spans, per view) -> the plan -> dense point
+clouds -> PointNet init network with the discretized SO(3) head on every
+view (``init_view`` "first" or "best", optional prior orientation
+distributions) -> refinement phases.  Each iteration decodes the latent to a
+64^3 SDF and, for each view in its own camera frame, renders it fused with
+the pc values (:func:`render_depth_with_pc_values`: march and sample kernels
+forward, sample-grad and scatter kernels backward); the depth-L1 and pc
+losses are summed over the views (plus an optional point constraint on the
+orientation), followed by an Adam step with per-variable learning rates,
+renormalization of the quaternion and tracking of the best inlier ratio
+(of the last view).  ``bf16_march`` gates the march's fine steps with bf16
+samples (``csrc/march.cu``).  ``reuse_plan`` keeps the plan of the previous
+call and skips the probe.
 
 The plan is the JAX package's fused one (``_plan_for``): the coarse levels
 of ``multires_factor`` (each against the exactly-strided sub-observation of
@@ -30,9 +36,10 @@ reads the probe (:class:`NoDepthError` and the plan).  Early stop
 one host read per check of each phase: every ``early_stop_interval``
 iterations, at most 5 per 50-iteration call at the default interval of 10.
 
-Out of this slice, and raising ``NotImplementedError``: the bf16 march,
-``reuse_plan``, multi-view and ``init_view: best``, priors and the point
-constraint, ``refine_batch``, ``generate_mesh`` and ``generate_depth``.
+Not ported, and raising ``NotImplementedError``: ``refine_batch``,
+``generate_mesh`` and ``generate_depth``; ``__call__`` has no ``log_path``,
+``animation_path`` or ``visualize`` outputs (they need the evaluation
+modules).
 """
 from __future__ import annotations
 
@@ -67,6 +74,21 @@ class NoDepthError(ValueError):
     """Raised when no valid depth data remains after preprocessing."""
 
 
+def _adjust_categorical_posterior(
+    posterior: torch.Tensor,
+    prior: Optional[torch.Tensor],
+    train_prior: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Re-weight a categorical posterior computed under a different prior
+    (``pipeline.py:43-54``)."""
+    if prior is None:
+        return posterior
+    adjusted = posterior * prior
+    if train_prior is not None:
+        adjusted = adjusted / train_prior
+    return adjusted / torch.sum(adjusted, dim=-1, keepdim=True)
+
+
 def _roi_offset_for(depth: torch.Tensor, roi: Tuple[int, int]
                     ) -> torch.Tensor:
     """Top-left ``[row, col]`` (int32, on the depth's device) of an ``(Hr,
@@ -87,19 +109,22 @@ def _roi_offset_for(depth: torch.Tensor, roi: Tuple[int, int]
 
 
 def _probe(depth: torch.Tensor) -> torch.Tensor:
-    """``[valid, span_rows, span_cols]`` (int64, on the device) of a
-    preprocessed view: whether any pixel is observed and the bbox spans of
-    the observed pixels (``_probe``, ``pipeline.py:952-976``)."""
+    """``[valid, span_rows, span_cols]`` (int64, on the device) of each
+    preprocessed view ``(..., H, W)``: whether any pixel is observed and the
+    bbox spans of the observed pixels (``_probe``, ``pipeline.py:952-976``);
+    shape ``(..., 3)``."""
     seen = depth > 0
+    rows, cols = torch.any(seen, dim=-1), torch.any(seen, dim=-2)
 
     def span(b):
-        idx = torch.arange(b.shape[0], device=b.device)
-        mx = torch.amax(torch.where(b, idx, -1))
-        mn = torch.amin(torch.where(b, idx, b.shape[0]))
+        n = b.shape[-1]
+        idx = torch.arange(n, device=b.device)
+        mx = torch.amax(torch.where(b, idx, -1), dim=-1)
+        mn = torch.amin(torch.where(b, idx, n), dim=-1)
         return torch.clamp(mx - mn + 1, min=0)
 
-    return torch.stack([torch.any(seen).long(), span(torch.any(seen, dim=1)),
-                        span(torch.any(seen, dim=0))])
+    return torch.stack([torch.any(rows, dim=-1).long(), span(rows),
+                        span(cols)], dim=-1)
 
 
 def _normalize_multires(multires) -> List[Tuple[int, int]]:
@@ -115,20 +140,12 @@ def _normalize_multires(multires) -> List[Tuple[int, int]]:
 
 
 def _check_slice(config: dict) -> None:
-    """Reject the options this port does not implement yet.
+    """Reject the options the JAX package rejects when it builds or
+    refines (``init_view`` is checked per call, as there).
 
     ``fused_call`` is accepted and ignored: the port has one path, whose
     plan is the JAX package's fused one.
     """
-    unported = {
-        "reuse_plan": bool(config.get("reuse_plan", False)),
-        "bf16_march": bool(config.get("bf16_march", False)),
-        "init_view": config.get("init_view", "first") != "first",
-    }
-    for key, hit in unported.items():
-        if hit:
-            raise NotImplementedError(f"config option {key}={config[key]!r} "
-                                      "is not ported yet")
     if config.get("nn_weight", 0.0) != 0.0:
         raise ValueError(
             "nn_weight != 0 is unsupported: the reference's nn loss is "
@@ -191,6 +208,8 @@ class SDFPipeline:
         # iterations, all phases) and its plan, read after the call returns
         self.last_log: Optional[Dict[str, torch.Tensor]] = None
         self.last_plan: Optional[Tuple] = None
+        # the plan of the last probed call, which reuse_plan: true reuses
+        self._cached_plan: Optional[Tuple] = None
 
     # ------------------------------------------------------------------
     # building blocks
@@ -209,35 +228,85 @@ class SDFPipeline:
                                 torch.zeros_like(depth), depth)
         return depth
 
-    def _nn_init(self, depth: torch.Tensor, camera_position: torch.Tensor,
-                 camera_orientation: torch.Tensor,
-                 generator: Optional[torch.Generator]
-                 ) -> Tuple[torch.Tensor, ...]:
-        """Init network on one view (``_nn_init_views`` with ``init_view:
-        first``): returns ``(latent (1, L), position (1, 3), scale (1,),
-        orientation (1, 4))`` in the world frame."""
-        points, valid = pointset.depth_to_pointcloud_dense(depth, self.camera)
-        centroid = torch.zeros(3, dtype=points.dtype, device=points.device)
-        if self.init_config.get("normalize_pose", True):
-            points, centroid = pointset.normalize_points_masked(points, valid)
-        sampled, _ = pointset.subsample_masked(
-            points, valid, self._num_input_points, generator
-        )
+    def _nn_init(
+        self,
+        depth: torch.Tensor,
+        camera_positions: torch.Tensor,
+        camera_orientations: torch.Tensor,
+        generator: Optional[torch.Generator],
+        prior: Optional[torch.Tensor] = None,
+        training_prior: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, ...]:
+        """Init network over views with the ``init_view`` strategy
+        (``_nn_init_views``, ``pipeline.py:210-287``).
+
+        ``depth`` is ``(V, H, W)`` (or one view ``(H, W)``), the cameras'
+        world poses ``(V, 3)``/``(V, 4)`` (or ``(3,)``/``(4,)``), ``prior``
+        a ``(V, C)`` prior over the SO(3) grid cells and ``training_prior``
+        the ``(C,)`` prior the network was trained under.  Each view lifts
+        and subsamples its own cloud (draws from ``generator`` view by view,
+        in order); the networks run as one batch.  "first" takes view 0,
+        "best" the view whose adjusted posterior peaks highest.  Returns
+        ``(latent (1, L), position (1, 3), scale (1,), orientation (1, 4))``
+        in the world frame.
+        """
+        self._validate_init_options(prior)
+        depth = depth.reshape(-1, *depth.shape[-2:])
+        camera_positions = camera_positions.reshape(-1, 3)
+        camera_orientations = camera_orientations.reshape(-1, 4)
+        best = self.config.get("init_view", "first") == "best"
+        n_views = depth.shape[0] if best else 1  # "first" needs view 0 only
+        sampled, centroids = [], []
+        for v in range(n_views):
+            points, valid = pointset.depth_to_pointcloud_dense(depth[v],
+                                                               self.camera)
+            centroid = torch.zeros(3, dtype=points.dtype, device=points.device)
+            if self.init_config.get("normalize_pose", True):
+                points, centroid = pointset.normalize_points_masked(points,
+                                                                    valid)
+            sampled.append(pointset.subsample_masked(
+                points, valid, self._num_input_points, generator)[0])
+            centroids.append(centroid)
         with torch.no_grad():
             latent, position, scale, orientation = self.init_network(
-                sampled[None]
-            )
+                torch.stack(sampled))
         if self.config.get("mean_shape", False):
             latent = torch.zeros_like(latent)
-        position = position + centroid[None]
+        position = position + torch.stack(centroids)
         if self.orientation_repr == "discretized":
-            posterior = torch.softmax(orientation, dim=-1)
+            posterior = _adjust_categorical_posterior(
+                torch.softmax(orientation, dim=-1),
+                None if prior is None else prior[:n_views], training_prior)
             orientation = self._grid_quats[torch.argmax(posterior, dim=-1)]
-        position = quaternion.apply(camera_orientation, position) + (
-            camera_position
-        )
-        orientation = quaternion.multiply(camera_orientation, orientation)
-        return latent, position, scale, orientation
+            maxima = torch.amax(posterior, dim=-1)
+        position = quaternion.apply(camera_orientations[:n_views], position) + (
+            camera_positions[:n_views])
+        orientation = quaternion.multiply(camera_orientations[:n_views],
+                                          orientation)
+        # "best": the argmax stays on the device (no host read)
+        idx = torch.argmax(maxima).reshape(1) if best else slice(0, 1)
+        return latent[idx], position[idx], scale[idx], orientation[idx]
+
+    def _validate_init_options(self, prior) -> None:
+        """The init options the JAX package checks per call
+        (``pipeline.py:317-342``)."""
+        if prior is not None and self.orientation_repr != "discretized":
+            raise ValueError(
+                "prior_orientation_distribution only supported for "
+                "discretized orientation representation."
+            )
+        if self.orientation_repr not in ("discretized", "quaternion"):
+            raise NotImplementedError(
+                f"Orientation representation {self.orientation_repr} "
+                "unsupported.")
+        init_view = self.config.get("init_view", "first")
+        if init_view == "best":
+            if self.orientation_repr != "discretized":
+                raise NotImplementedError(
+                    '"best" init strategy requires discretized orientations')
+        elif init_view != "first":
+            raise NotImplementedError(
+                'Only "first" and "best" init strategies are supported')
 
     def _make_adam(self):
         """Adam (b1 0.9, b2 0.999, eps 1e-8) with per-variable learning
@@ -398,9 +467,15 @@ class SDFPipeline:
         return tuple(levels), fine_roi, fine_iters
 
     def _lift(self, depth: torch.Tensor, factor: int):
-        """Tile-order cloud of a (strided) full-raster depth image."""
+        """Tile-order cloud of a (strided) full-raster depth image ``(H,
+        W)``, or the stacked clouds of views ``(V, H, W)``."""
         camera = self.camera if factor == 1 else self.camera.strided(factor)
-        return pointset.depth_to_pointcloud_dense(depth, camera, order="tile")
+        if depth.ndim == 2:
+            return pointset.depth_to_pointcloud_dense(depth, camera,
+                                                      order="tile")
+        clouds = [self._lift(d, factor) for d in depth]
+        return (torch.stack([c[0] for c in clouds]),
+                torch.stack([c[1] for c in clouds]))
 
     # ------------------------------------------------------------------
     # refinement
@@ -418,34 +493,45 @@ class SDFPipeline:
         num_iterations: Optional[int] = None,
         roi: Optional[Tuple[int, int]] = None,
         ds_factor: int = 1,
+        point_constraint: Optional[Tuple] = None,
     ):
-        """One refinement phase of one view.
+        """One refinement phase over one or more views.
 
         ``state`` holds ``position (1, 3)``, ``orientation (1, 4)``, ``scale
-        (1,)`` and ``latent (1, L)`` in the world frame; ``points``/
-        ``point_mask`` are the view's lifted cloud ``(H*W, 3)``/``(H*W,)``.
-        With ``ds_factor=f > 1`` the phase runs against the strided
-        sub-observation: ``depth_image`` and the cloud are the ``[::f,
-        ::f]`` slice lifted with ``camera.strided(f)``.  With ``roi=(Hr,
-        Wr)`` each render is the crop around the observed pixels (offset
-        from this phase's depth) and the cloud is re-lifted from the crop,
-        so ``points``/``point_mask`` are ignored and may be None
-        (``pipeline.py:445-474``).  Adam starts afresh (zero moments, step
-        1).  Under temporal coherence (full frame only) each render takes
-        the warm march and the pc loss is sampled apart from it.  With
-        ``early_stop_delta > 0`` the phase stops once an interval of
-        ``early_stop_interval`` iterations improves the loss by less than
-        that share (one host read per check); the remaining log rows repeat
-        the last one with ``active`` 0, and state and best stay as they
-        were.  Returns ``(state, best, log)``: the final state, the state
-        with the best inlier ratio of its pre-step render, and the
-        per-iteration log (each entry stacked over iterations, ``active``
-        1 on the iterations that ran).
+        (1,)`` and ``latent (1, L)`` in the world frame.  ``depth_image`` is
+        ``(V, H, W)`` (or one view ``(H, W)``), ``points``/``point_mask``
+        the views' lifted clouds ``(V, H*W, 3)``/``(V, H*W)`` (or ``(H*W,
+        3)``/``(H*W,)``) and the cameras' world poses ``(V, 3)``/``(V, 4)``
+        (or ``(3,)``/``(4,)``; identity when None).  Each view renders in its
+        own camera frame and the losses are summed over the views
+        (``pipeline.py:476-593``).  With ``ds_factor=f > 1`` the phase runs
+        against the strided sub-observation: ``depth_image`` and the clouds
+        are the ``[::f, ::f]`` slices lifted with ``camera.strided(f)``.
+        With ``roi=(Hr, Wr)`` each render is the crop around the view's
+        observed pixels (one size for all views, an offset per view, from
+        this phase's depth) and the clouds are re-lifted from the crops, so
+        ``points``/``point_mask`` are ignored and may be None
+        (``pipeline.py:445-474``).  ``point_constraint=(source, target,
+        weight)`` adds ``weight * point_constraint_loss`` of the raw
+        orientation parameter.  Adam starts afresh (zero moments, step 1).
+        Under temporal coherence (full frame only) each view renders through
+        the warm march with its own warm state, the motion bound shared, and
+        the pc loss is sampled apart from it.  With ``early_stop_delta > 0``
+        the phase stops once an interval of ``early_stop_interval``
+        iterations improves the loss by less than that share (one host read
+        per check); the remaining log rows repeat the last one with
+        ``active`` 0, and state and best stay as they were.  Returns
+        ``(state, best, log)``: the final state, the state with the best
+        inlier ratio of the last view's pre-step render, and the
+        per-iteration log (each entry stacked over iterations, ``active`` 1
+        on the iterations that ran).
         """
         dev = self.device
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
         state = {k: f32(state[k]).detach().clone() for k in _STATE_KEYS}
         depth_image = f32(depth_image)
+        depth_image = depth_image.reshape(-1, *depth_image.shape[-2:])
+        n_views = depth_image.shape[0]
         camera = (self.camera if ds_factor == 1
                   else self.camera.strided(ds_factor))
         use_warm = self._use_temporal_coherence()
@@ -464,24 +550,32 @@ class SDFPipeline:
         if early_delta > 0.0 and early_interval < 1:
             raise ValueError(
                 f"early_stop_interval must be >= 1, got {early_interval}")
+        if camera_position is None:
+            camera_position = torch.zeros(n_views, 3, device=dev)
+        if camera_orientation is None:
+            camera_orientation = f32([0.0, 0.0, 0.0, 1.0]).expand(n_views, 4)
+        camera_position = f32(camera_position).reshape(n_views, 3)
+        q_w2c = quaternion.invert(f32(camera_orientation).reshape(n_views, 4))
+        # per view: (observed depth, cloud, cloud mask, rays)
+        views = []
         if roi is None:
-            points = f32(points)
-            point_mask = torch.as_tensor(point_mask, device=dev)
+            points = f32(points).reshape(n_views, -1, 3)
+            point_mask = torch.as_tensor(point_mask, device=dev).reshape(
+                n_views, -1)
             rays = ray_set(camera, dev)
+            views = [(depth_image[v], points[v], point_mask[v], rays)
+                     for v in range(n_views)]
         else:
             roi = (int(roi[0]), int(roi[1]))
-            offset = _roi_offset_for(depth_image, roi)
-            depth_image = crop(depth_image, roi, offset)
-            points, point_mask = pointset.depth_to_pointcloud_dense(
-                depth_image, camera, order="tile", pixel_offset=offset
-            )
-            rays = ray_set(camera, dev, roi, offset)
-        if camera_position is None:
-            camera_position = torch.zeros(3, device=dev)
-        if camera_orientation is None:
-            camera_orientation = f32([0.0, 0.0, 0.0, 1.0])
-        q_w2c = quaternion.invert(f32(camera_orientation))
-        camera_position = f32(camera_position)
+            for d in depth_image:
+                offset = _roi_offset_for(d, roi)
+                d = crop(d, roi, offset)
+                views.append((d, *pointset.depth_to_pointcloud_dense(
+                    d, camera, order="tile", pixel_offset=offset),
+                    ray_set(camera, dev, roi, offset)))
+        if point_constraint is not None:
+            source, target, pc_w = point_constraint
+            source, target, pc_w = f32(source), f32(target), float(pc_w)
         n_iter = (num_iterations if num_iterations is not None
                   else int(self.config["max_iterations"]))
         depth_weight = self.config.get("depth_weight", 1.0)
@@ -489,11 +583,11 @@ class SDFPipeline:
         threshold = self.config["threshold"]
         render_kwargs = dict(
             camera=camera,
-            rays=rays,
             threshold=threshold,
             culling=bool(self.config.get("coarse_culling", True)),
             adaptive=bool(self.config.get("adaptive_relaxation", True)),
             relaxation=float(self.config.get("relaxation", 1.0)),
+            bf16=bool(self.config.get("bf16_march", False)),
             device=dev,
         )
         adam = self._make_adam()
@@ -502,8 +596,9 @@ class SDFPipeline:
         best = {"inlier_ratio": f32(-1.0),
                 **{k: state[k].clone() for k in _STATE_KEYS}}
         if use_warm:
-            view_warm = {k: v[0] for k, v in init_warm_views(
-                1, camera.height, camera.width, dev).items()}
+            warm0 = init_warm_views(n_views, camera.height, camera.width, dev)
+            view_warms = [{k: x[v] for k, x in warm0.items()}
+                          for v in range(n_views)]
             shared = {
                 "position": state["position"][0],
                 "orientation": state["orientation"][0] / torch.sqrt(
@@ -523,34 +618,45 @@ class SDFPipeline:
             if not shape_optimization:
                 latent = latent.detach()
             sdf = self._decode(latent)[0, 0]
-            position_c = quaternion.apply(
-                q_w2c, params["position"][0] - camera_position
-            )
-            orientation_c = quaternion.multiply(q_w2c, norm_q[0])
             if use_warm:
                 motion = motion_bound(params["position"][0], norm_q[0],
                                       params["scale"][0], sdf, shared)
-                depth_estimate, view_warm = warm_render_step(
-                    sdf, position_c, orientation_c, params["scale"][0],
-                    view_warm, motion, it % refresh_k == 0, camera,
-                    threshold, device=dev,
-                )
-                loss_pc = losses.masked_pc_loss(
-                    points, point_mask, position_c, orientation_c,
-                    params["scale"][0], sdf,
-                )
+            view_losses = []
+            for v, (depth_v, points_v, mask_v, rays_v) in enumerate(views):
+                position_c = quaternion.apply(
+                    q_w2c[v], params["position"][0] - camera_position[v])
+                orientation_c = quaternion.multiply(q_w2c[v], norm_q[0])
+                if use_warm:
+                    depth_estimate, view_warms[v] = warm_render_step(
+                        sdf, position_c, orientation_c, params["scale"][0],
+                        view_warms[v], motion, it % refresh_k == 0, camera,
+                        threshold, device=dev,
+                    )
+                    loss_pc = losses.masked_pc_loss(
+                        points_v, mask_v, position_c, orientation_c,
+                        params["scale"][0], sdf,
+                    )
+                else:
+                    depth_estimate, pc_values = render_depth_with_pc_values(
+                        sdf, position_c, orientation_c, params["scale"][0],
+                        points_v, mask_v, rays=rays_v, **render_kwargs,
+                    )
+                    loss_pc = losses.masked_mean_abs(pc_values, mask_v)
+                view_losses.append((losses.depth_l1_loss(
+                    depth_v, depth_estimate), loss_pc))
+            # summed in view order, as the JAX package's scan over views
+            loss_depth, loss_pc = view_losses[0]
+            for ld, lp in view_losses[1:]:
+                loss_depth, loss_pc = loss_depth + ld, loss_pc + lp
+            loss = depth_weight * loss_depth + pc_weight * loss_pc
+            if point_constraint is not None:
+                loss = loss + pc_w * losses.point_constraint_loss(
+                    params["orientation"][0], source, target)
+            if use_warm:
                 shared = {"position": params["position"][0].detach(),
                           "orientation": norm_q[0].detach(),
                           "scale": params["scale"][0].detach(),
                           "sdf": sdf.detach()}
-            else:
-                depth_estimate, pc_values = render_depth_with_pc_values(
-                    sdf, position_c, orientation_c, params["scale"][0],
-                    points, point_mask, **render_kwargs,
-                )
-                loss_pc = losses.masked_mean_abs(pc_values, point_mask)
-            loss_depth = losses.depth_l1_loss(depth_image, depth_estimate)
-            loss = depth_weight * loss_depth + pc_weight * loss_pc
             wanted = [k for k in _STATE_KEYS
                       if k != "latent" or shape_optimization]
             got = torch.autograd.grad(loss, [params[k] for k in wanted])
@@ -561,8 +667,9 @@ class SDFPipeline:
                 state["orientation"] = state["orientation"] / torch.sqrt(
                     torch.sum(state["orientation"] ** 2)
                 )
+                # the last view's observation and pre-step render
                 ratio = losses.inlier_ratio(
-                    depth_image, depth_estimate,
+                    views[-1][0], depth_estimate,
                     self._relative_inlier_threshold,
                 )
                 is_better = ratio > best["inlier_ratio"]
@@ -610,72 +717,96 @@ class SDFPipeline:
         training_orientation_distribution=None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Infer pose, scale and latent shape from one depth view.
+        """Infer pose, scale and latent shape from depth views
+        (``pipeline.py:1136-1236``).
 
         Args:
-            depth_images: Depth along the camera z-axis, ``(H, W)`` or
-                ``(1, H, W)``; masked and far-field-cut internally.
-            masks: Binary object mask of the same shape.
-            camera_positions / camera_orientations: The camera's world pose
-                (``(3,)``/``(4,)``, or with a leading view axis of 1);
+            depth_images: Depth along the camera z-axis, ``(V, H, W)`` or
+                one view ``(H, W)``; masked and far-field-cut internally.
+            masks: Binary object masks of the same shape.
+            camera_positions / camera_orientations: The cameras' world poses
+                ``(V, 3)``/``(V, 4)`` (``(3,)``/``(4,)`` with one view);
                 identity when None.
             shape_optimization: Optimize the latent during refinement.
+            point_constraint: Optional ``(source, target, weight)``: adds
+                ``weight * |R(q) source - target|`` of the orientation
+                parameter ``q`` to every iteration's loss.
+            prior_orientation_distribution: Optional ``(V, C)`` prior over
+                the SO(3) grid cells (``(C,)`` with one view); discretized
+                heads only.
+            training_orientation_distribution: The ``(C,)`` prior the init
+                network was trained under.
             generator: ``torch.Generator`` on the pipeline's device for the
                 init's point subsampling; a fresh one seeded 0 when None.
         Returns:
             ``(position (1, 3), orientation (1, 4), scale (1,), latent
             (1, L))`` in the world frame.
+
+        The probe (one host read) raises :class:`NoDepthError` when view 0
+        ("first") or any view ("best") has no valid depth, and gives the
+        plan.  With ``reuse_plan: true`` a call after the first reuses the
+        previous call's plan and runs no probe, so it cannot raise
+        :class:`NoDepthError` up front (``pipeline.py:1208-1216``).
         """
-        if point_constraint is not None:
-            raise NotImplementedError("the point constraint is not ported yet")
-        if (prior_orientation_distribution is not None
-                or training_orientation_distribution is not None):
-            raise NotImplementedError("orientation priors are not ported yet")
         dev = self.device
         depth = torch.as_tensor(depth_images, dtype=torch.float32, device=dev)
         mask = torch.as_tensor(masks, device=dev)
-        if depth.ndim == 3:
-            if depth.shape[0] != 1:
-                raise NotImplementedError("multi-view is not ported yet")
-            depth, mask = depth[0], mask[0]
-        camera_position = torch.zeros(3, device=dev) if (
+        prior = prior_orientation_distribution
+        if depth.ndim == 2:
+            depth, mask = depth[None], mask[None]
+            if prior is not None:
+                prior = torch.as_tensor(prior)[None]
+        n_views = depth.shape[0]
+        camera_positions = torch.zeros(n_views, 3, device=dev) if (
             camera_positions is None) else torch.as_tensor(
                 camera_positions, dtype=torch.float32, device=dev
-            ).reshape(3)
-        camera_orientation = torch.tensor(
-            [0.0, 0.0, 0.0, 1.0], device=dev
+            ).reshape(n_views, 3)
+        camera_orientations = torch.tensor(
+            [[0.0, 0.0, 0.0, 1.0]] * n_views, device=dev
         ) if camera_orientations is None else torch.as_tensor(
             camera_orientations, dtype=torch.float32, device=dev
-        ).reshape(4)
+        ).reshape(n_views, 4)
+        f32 = lambda x: None if x is None else torch.as_tensor(
+            x, dtype=torch.float32, device=dev)
+        prior = f32(prior)
+        training_prior = f32(training_orientation_distribution)
+        self._validate_init_options(prior)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
 
         depth = self._preprocess_depth(depth, mask)
-        valid, span_rows, span_cols = _probe(depth).tolist()  # the one sync
-        if not valid:
-            raise NoDepthError
-        levels, fine_roi, fine_iters = self.last_plan = self._plan_for(
-            [(span_rows, span_cols)])
+        plan = self._cached_plan if bool(
+            self.config.get("reuse_plan", False)) else None
+        if plan is None:
+            probe = _probe(depth).tolist()  # the one sync
+            first = self.config.get("init_view", "first") == "first"
+            if not (probe[0][0] if first else all(p[0] for p in probe)):
+                raise NoDepthError
+            plan = self._cached_plan = self._plan_for(
+                [(sy, sx) for valid, sy, sx in probe if valid])
+        levels, fine_roi, fine_iters = self.last_plan = plan
         latent, position, scale, orientation = self._nn_init(
-            depth, camera_position, camera_orientation, generator
+            depth, camera_positions, camera_orientations, generator, prior,
+            training_prior,
         )
         state = {"position": position, "orientation": orientation,
                  "scale": scale, "latent": latent}
+        cameras = (camera_positions, camera_orientations)
         logs = []
         # coarse levels hand over their final state; their best is dropped
         # (coarse inlier ratios do not compare with full-raster ones)
         for factor, n_iters, roi in levels:
-            depth_c = depth[::factor, ::factor].contiguous()
+            depth_c = depth[:, ::factor, ::factor].contiguous()
             cloud = (None, None) if roi else self._lift(depth_c, factor)
             state, _, log = self._refine(
-                state, depth_c, *cloud, camera_position, camera_orientation,
-                shape_optimization, n_iters, roi, factor,
+                state, depth_c, *cloud, *cameras, shape_optimization, n_iters,
+                roi, factor, point_constraint,
             )
             logs.append(log)
         cloud = (None, None) if fine_roi else self._lift(depth, 1)
         state, best, log = self._refine(
-            state, depth, *cloud, camera_position, camera_orientation,
-            shape_optimization, fine_iters, fine_roi,
+            state, depth, *cloud, *cameras, shape_optimization, fine_iters,
+            fine_roi, 1, point_constraint,
         )
         logs.append(log)
         self.last_log = {k: torch.cat([lg[k] for lg in logs]) for k in log}

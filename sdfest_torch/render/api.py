@@ -184,10 +184,11 @@ def _surrogate_queries(position, orientation, inv_scale, depth, rays):
 
 
 def _render_forward(sdf, position, orientation, inv_scale, static):
-    rays, threshold, max_steps, culling, adaptive, relaxation = static
+    rays, threshold, max_steps, culling, adaptive, relaxation, bf16 = static
     pose = kernels.pose_params(position, orientation, inv_scale)
     return kernels.march(sdf.contiguous(), rays.march, pose, threshold,
-                         max_steps, culling, adaptive, relaxation=relaxation)
+                         max_steps, culling, adaptive, relaxation=relaxation,
+                         bf16=bf16)
 
 
 def _leaf(x: torch.Tensor, needs: bool) -> torch.Tensor:
@@ -252,6 +253,7 @@ def render_depth(
     roi: Optional[Tuple[int, int]] = None,
     roi_offset=None,
     relaxation: float = 1.0,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """Render the depth image ``(H, W)`` of a posed, scaled, voxelized SDF.
 
@@ -263,20 +265,23 @@ def render_depth(
     steps and per-ray over-relaxation; with both off it is the plain march
     of the JAX package's XLA backend.  ``relaxation > 1`` takes the relaxed
     march (Keinert's over-stepping with revert, ``adaptive`` ignored).
+    ``bf16`` gates every fine step with a bf16 sample and its certified
+    error (``csrc/march.cu``); it acts only with culling, and there turns
+    ``adaptive`` off, as ``bf16`` does in the JAX package.
     Runs on ``device`` ("cuda" unless the caller asks for "cpu"); CUDA
     requested and absent raises.
 
     ``roi=(Hr, Wr)`` + ``roi_offset`` (an integer ``[row, col]``, zeros
     when None) render only that crop of the frame: the march runs on the
     crop's rays, so the ``(Hr, Wr)`` result equals the same crop of the
-    full render bit for bit.  bf16 marching is not ported yet.
+    full render bit for bit.
     """
     device = resolve_device(device)
     if roi_offset is not None:
         roi_offset = torch.as_tensor(roi_offset, device=device)
     static = (ray_set(camera, device, roi, roi_offset), float(threshold),
               int(max_steps), bool(culling), bool(adaptive),
-              float(relaxation))
+              float(relaxation), bool(bf16))
     return _RenderDepth.apply(
         _f32(sdf, device), _f32(position, device), _f32(orientation, device),
         _f32(inv_scale, device), static,
@@ -362,6 +367,7 @@ def render_depth_with_pc_values(
     roi_offset=None,
     rays: Optional[Rays] = None,
     relaxation: float = 1.0,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Render a depth image AND sample the SDF at observed points, fused.
 
@@ -374,8 +380,8 @@ def render_depth_with_pc_values(
     ``(Hr, Wr)``, the same crop of the full render bit for bit); the pc
     values do not change (``api.py:416-420``).  ``rays`` passes the
     :func:`ray_set` of ``(camera, roi, roi_offset)`` instead, built once by
-    a caller that renders the same crop many times.  ``relaxation`` as in
-    :func:`render_depth`.
+    a caller that renders the same crop many times.  ``relaxation`` and
+    ``bf16`` as in :func:`render_depth`.
     """
     device = resolve_device(device)
     scale = _f32(scale, device)
@@ -387,7 +393,7 @@ def render_depth_with_pc_values(
     elif roi is not None or roi_offset is not None:
         raise ValueError("pass either roi/roi_offset or a prebuilt ray set")
     static = (rays, float(threshold), int(max_steps), bool(culling),
-              bool(adaptive), float(relaxation))
+              bool(adaptive), float(relaxation), bool(bf16))
     depth, values = _RenderPC.apply(
         _f32(sdf, device), _f32(position, device), _f32(orientation, device),
         inv_scale, _f32(points, device),

@@ -9,17 +9,21 @@ launches (a plain integer, reset by assigning 0).
 | wrapper         | CUDA source             | replaces (pallas_kernel.py)    |
 |-----------------|-------------------------|--------------------------------|
 | ``march``       | ``csrc/march.cu``       | ``render_depth_pallas_fwd``    |
-|                 |                         | (:1607): v2, plain, relaxed    |
-|                 |                         | and ROI branches               |
+|                 |                         | (:1607): v2, plain, relaxed,   |
+|                 |                         | ROI and bf16-verified          |
+|                 |                         | (:1296, :1445) branches        |
 | ``march_warm``  | ``csrc/march.cu``       | the same, warm/aux branch      |
-|                 |                         | (:657)                         |
+|                 |                         | (:657) and its bf16 branch     |
+|                 |                         | (:777)                         |
 | ``sample``      | ``csrc/sample.cu``      | ``sample_sdf_pallas`` (:2104)  |
 | ``sample_grad`` | ``csrc/sample_grad.cu`` | ``sample_sdf_grad_pallas``     |
 |                 |                         | (:2168)                        |
 | ``scatter``     | ``csrc/scatter.cu``     | ``scatter_sdf_grad_pallas``    |
 |                 |                         | (:2304)                        |
 
-The bf16-verified march branch (:777-881, :1296-1376) is not ported yet.
+Every branch of the TPU kernels has its counterpart.  The bf16 branches are
+template instances of the march kernels; ``march.bf16_launches`` and
+``march_warm.bf16_launches`` count their launches.
 
 What bounds each kernel on the H100 and what its design does about it is
 noted at the top of its source.
@@ -41,6 +45,7 @@ from sdfest_torch.render import _build
 from sdfest_torch.render.plain import (
     NC,
     coarse_min_table,
+    coarse_pair_table,
     march_plain,
     march_warm_plain,
 )
@@ -53,9 +58,9 @@ _F = ctypes.c_float
 # wrapper -> (library, C entry, argument types)
 _SIGNATURES = {
     "march": ("march", "sdfest_march",
-              [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _F, _P]),
+              [_P] * 6 + [_I, _I, _F, _I, _I, _I, _F, _I, _P]),
     "march_warm": ("march", "sdfest_march_warm",
-                   [_P] * 12 + [_I, _I, _F, _I, _P]),
+                   [_P] * 13 + [_I, _I, _F, _I, _I, _P]),
     "sample": ("sample", "sdfest_sample", [_P, _P, _P, _P, _I, _I, _P]),
     "sample_grad": ("sample_grad", "sdfest_sample_grad",
                     [_P, _P, _P, _P, _P, _I, _I, _P]),
@@ -163,15 +168,31 @@ def _check_pose(pose: torch.Tensor) -> None:
         raise ValueError("pose must be [rot (9), origin_o (3), inv_s, s]")
 
 
-def _coarse_for(sdf: torch.Tensor, coarse: Optional[torch.Tensor]
-                ) -> torch.Tensor:
+def _coarse_for(sdf: torch.Tensor, coarse: Optional[torch.Tensor],
+                bf16: bool = False) -> torch.Tensor:
+    """The march's coarse table: :func:`coarse_min_table`, or with ``bf16``
+    :func:`coarse_pair_table` (built here when not given)."""
     if coarse is None:
-        coarse = coarse_min_table(sdf)
-    if (coarse.shape != (NC, NC, NC) or not coarse.is_contiguous()
+        coarse = coarse_pair_table(sdf) if bf16 else coarse_min_table(sdf)
+    shape = (NC, NC, NC, 2) if bf16 else (NC, NC, NC)
+    if (coarse.shape != shape or not coarse.is_contiguous()
             or coarse.device != sdf.device):
-        raise ValueError("coarse table must be a contiguous (16, 16, 16) "
-                         "tensor on the grid's device")
+        raise ValueError(f"coarse table must be a contiguous {shape} tensor "
+                         "on the grid's device")
     return coarse
+
+
+def _bf16_grid(sdf: torch.Tensor, sdf_bf16: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """The bf16 copy of the grid (rounded to nearest even, as
+    ``__float2bfloat16_rn``), made here when not given."""
+    if sdf_bf16 is None:
+        return sdf.to(torch.bfloat16)
+    if (sdf_bf16.dtype != torch.bfloat16 or sdf_bf16.shape != sdf.shape
+            or not sdf_bf16.is_contiguous() or sdf_bf16.device != sdf.device):
+        raise ValueError("sdf_bf16 must be a contiguous bfloat16 copy of the "
+                         "grid on its device")
+    return sdf_bf16
 
 
 def march(
@@ -184,6 +205,8 @@ def march(
     adaptive: bool = True,
     coarse: Optional[torch.Tensor] = None,
     relaxation: float = 1.0,
+    bf16: bool = False,
+    sdf_bf16: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sphere-trace the depth of rays ``dirs (..., 3)``, shaped like their
     leading dims (``csrc/march.cu``; plain version
@@ -193,34 +216,44 @@ def march(
     render (:func:`sdfest_torch.render.api.ray_set`); each ray depends on
     nothing but its own direction, so an ROI render equals the crop of the
     full render bit for bit.  ``relaxation > 1`` selects the relaxed march
-    (``adaptive`` is then ignored).  ``march.rasters`` counts the launches
-    per leading shape of ``dirs``.  ``coarse`` may pass a precomputed
-    :func:`coarse_min_table` of ``sdf`` (built here when culling and not
-    given)."""
+    (``adaptive`` is then ignored).  ``bf16`` gates the fine steps with a
+    bf16 sample; as in the JAX package it acts only with culling and there
+    turns ``adaptive`` off, so bf16 without culling is the fp32 march.
+    ``march.rasters`` counts the launches per leading shape of ``dirs``,
+    ``march.bf16_launches`` those of the bf16 instances (included in
+    ``march.launches``).  ``coarse`` may pass the precomputed table of
+    :func:`_coarse_for` and ``sdf_bf16`` the bf16 grid (built here when
+    needed and not given)."""
     res = _check_grid(sdf)
     raster, flat = _rays(dirs)
     _check_pose(pose)
+    bf16 = bool(bf16 and culling)
     if _on_cpu(sdf, dirs, pose):
         return march_plain(sdf, flat, pose, threshold, max_steps, culling,
-                           adaptive, relaxation=relaxation).reshape(raster)
+                           adaptive, relaxation=relaxation,
+                           bf16=bf16).reshape(raster)
     if culling:
-        coarse = _coarse_for(sdf, coarse)
+        coarse = _coarse_for(sdf, coarse, bf16)
+    grid_b = _bf16_grid(sdf, sdf_bf16) if bf16 else None
     depth = torch.empty(raster, dtype=torch.float32, device=sdf.device)
     n = flat.shape[0]
     if n:
         _launch(
             "march", sdf.device, sdf.data_ptr(),
+            grid_b.data_ptr() if bf16 else None,
             coarse.data_ptr() if culling else None, flat.data_ptr(),
             pose.data_ptr(), depth.data_ptr(), n, res, float(threshold),
-            int(max_steps), int(bool(culling)), int(bool(adaptive)),
-            float(relaxation),
+            int(max_steps), int(bool(culling)),
+            int(bool(adaptive) and not bf16), float(relaxation), int(bf16),
         )
         march.launches += 1
+        march.bf16_launches += bf16
         march.rasters[raster] = march.rasters.get(raster, 0) + 1
     return depth
 
 
 march.launches = 0
+march.bf16_launches = 0
 march.rasters = {}
 
 
@@ -233,6 +266,8 @@ def march_warm(
     threshold: float,
     max_steps: int,
     coarse: Optional[torch.Tensor] = None,
+    bf16: bool = False,
+    sdf_bf16: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The warm/aux corridor march of rays ``dirs (..., 3)`` with per-ray
     ``t_init`` and ``skip`` shaped like the rays' leading dims
@@ -240,31 +275,40 @@ def march_warm(
     :func:`sdfest_torch.render.plain.march_warm_plain`).
 
     Returns ``(depth, t, v0, min_dip, v_last, t_last)``, each shaped like
-    ``t_init``.  ``coarse`` as in :func:`march`."""
+    ``t_init``.  ``bf16`` gates the fine steps with a bf16 sample (the
+    branch of ``render_depth_pallas_fwd(aux=True, bf16=True)``; no pipeline
+    path takes it, as the JAX package's ``render_depth_warm`` passes no
+    bf16); ``march_warm.bf16_launches`` counts its launches.  ``coarse``
+    and ``sdf_bf16`` as in :func:`march`."""
     res = _check_grid(sdf)
     raster, flat = _rays(dirs)
     _check_pose(pose)
     if t_init.shape != raster or skip.shape != raster:
         raise ValueError("t_init and skip must be shaped like the rays")
+    bf16 = bool(bf16)
     if _on_cpu(sdf, dirs, pose, t_init, skip):
         return tuple(x.reshape(raster) for x in march_warm_plain(
             sdf, flat, pose, t_init.reshape(-1), skip.reshape(-1), threshold,
-            max_steps))
-    coarse = _coarse_for(sdf, coarse)
+            max_steps, bf16=bf16))
+    coarse = _coarse_for(sdf, coarse, bf16)
+    grid_b = _bf16_grid(sdf, sdf_bf16) if bf16 else None
     outs = torch.empty((6, *raster), dtype=torch.float32, device=sdf.device)
     n = flat.shape[0]
     if n:
         _launch(
-            "march_warm", sdf.device, sdf.data_ptr(), coarse.data_ptr(),
+            "march_warm", sdf.device, sdf.data_ptr(),
+            grid_b.data_ptr() if bf16 else None, coarse.data_ptr(),
             flat.data_ptr(), pose.data_ptr(), t_init.data_ptr(),
             skip.data_ptr(), *(o.data_ptr() for o in outs), n, res,
-            float(threshold), int(max_steps),
+            float(threshold), int(max_steps), int(bf16),
         )
         march_warm.launches += 1
+        march_warm.bf16_launches += bf16
     return tuple(outs)
 
 
 march_warm.launches = 0
+march_warm.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -375,10 +419,11 @@ KERNELS = {"march": march, "march_warm": march_warm, "sample": sample,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (and clear the march's launch
-    count per raster)."""
+    """Set every kernel's launch count to 0 (and the marches' counts of
+    bf16 launches and the march's launch count per raster)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    march.bf16_launches = march_warm.bf16_launches = 0
     march.rasters = {}
 
 

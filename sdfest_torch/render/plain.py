@@ -4,9 +4,12 @@ and the depth surrogate.
 
 :func:`march_plain` is the twin the CUDA march is held against.  With
 ``culling`` and ``adaptive`` off it is ``xla._render_forward`` step for step;
-with them on, or with ``relaxation > 1``, it runs the CUDA kernel's per-ray
-algorithm, vectorized over all rays as one masked while-loop.
-:func:`march_warm_plain` is the same for the warm/aux corridor march.
+with them on, with ``relaxation > 1`` or with ``bf16``, it runs the CUDA
+kernel's per-ray algorithm, vectorized over all rays as one masked
+while-loop.  :func:`march_warm_plain` is the same for the warm/aux corridor
+march.  A bf16 sample rounds the grid's values to bf16 and interpolates them
+in float32 (:func:`bf16_corners`), as the kernel does, so the two agree to
+the bit.
 """
 from __future__ import annotations
 
@@ -23,6 +26,9 @@ from sdfest_torch.ops.interpolation import sample_sdf, trilinear_weights
 NC = 16  # coarse culling grid per axis
 COARSE_MARGIN = 1e-4  # slack below the coarse min-pool (fp noise)
 OMEGA_INIT, OMEGA_GROW, OMEGA_MAX = 1.4, 0.2, 1.9  # adaptive over-relaxation
+# error bound of a bf16 sample relative to the max |corner|: kBf16Err of
+# csrc/march.cu, which derives it (2^-8 * amax, with a 1.5x margin)
+BF16_ERR = 6e-3
 
 
 def pixel_directions_np(camera: Camera) -> np.ndarray:
@@ -72,32 +78,83 @@ def obb_interval(
     return hit, torch.clamp(t_min, min=0.0), t_max
 
 
-def coarse_min_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
-    """Conservative ``(nc, nc, nc)`` lower bound of the interpolant per
-    coarse cell (``pallas_kernel.coarse_min_table``, min block only).
+def _coarse_pool(vol: torch.Tensor, nc: int, reduce: str, fill: float
+                 ) -> torch.Tensor:
+    """``(nc, nc, nc)`` reduction of ``vol`` over the fine vertices that the
+    interpolation of any point of each coarse cell can touch.
 
     Coarse cell ``i`` covers fine coordinates ``u in [i, i+1] * (res-1)/nc``;
-    the trilinear corners of such ``u`` are ``floor(u)`` and ``floor(u)+1``,
-    and an interpolant is bounded below by its corners' minimum.
+    the trilinear corners of such ``u`` are ``floor(u)`` and ``floor(u)+1``.
     """
-    res = sdf.shape[0]
-    i = torch.arange(nc, device=sdf.device)
+    res = vol.shape[0]
+    i = torch.arange(nc, device=vol.device)
     lo = (i * (res - 1)) // nc
     hi = torch.clamp(((i + 1) * (res - 1)) // nc + 1, max=res - 1)
-    v = torch.arange(res, device=sdf.device)
+    v = torch.arange(res, device=vol.device)
     m = (v[None, :] >= lo[:, None]) & (v[None, :] <= hi[:, None])  # (nc, res)
-    inf = sdf.new_full((), float("inf"))
-    t1 = torch.where(m[:, :, None, None], sdf[None], inf).amin(1)
-    t2 = torch.where(m[None, :, :, None], t1[:, None], inf).amin(2)
-    t3 = torch.where(m[None, None, :, :], t2[:, :, None, :], inf).amin(3)
-    return (t3 - COARSE_MARGIN).contiguous()
+    big = vol.new_full((), fill)
+    red = getattr(torch, reduce)
+    t1 = red(torch.where(m[:, :, None, None], vol[None], big), 1)
+    t2 = red(torch.where(m[None, :, :, None], t1[:, None], big), 2)
+    return red(torch.where(m[None, None, :, :], t2[:, :, None, :], big), 3)
+
+
+def coarse_min_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
+    """Conservative ``(nc, nc, nc)`` lower bound of the interpolant per
+    coarse cell (``pallas_kernel.coarse_min_table``, min block): an
+    interpolant is bounded below by its corners' minimum."""
+    return (_coarse_pool(sdf, nc, "amin", float("inf"))
+            - COARSE_MARGIN).contiguous()
+
+
+def coarse_max_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
+    """``(nc, nc, nc)`` maximum ``|value|`` over the same window per coarse
+    cell, without margin (``pallas_kernel.coarse_min_table``, second block):
+    the scale of the bf16 sample's error."""
+    return _coarse_pool(torch.abs(sdf), nc, "amax", 0.0).contiguous()
+
+
+def coarse_pair_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
+    """``(nc, nc, nc, 2)``: the min and max-|value| tables interleaved per
+    coarse cell, the table of the bf16 marches (one ``float2`` per cell)."""
+    return torch.stack([coarse_min_table(sdf, nc), coarse_max_table(sdf, nc)],
+                       dim=-1).contiguous()
 
 
 def coarse_lookup(table: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Piecewise-constant lookup of the coarse table at points ``(N, 3)``."""
+    """Piecewise-constant lookup of a coarse table at points ``(N, 3)``."""
     nc = table.shape[0]
     ci = torch.clamp(torch.floor((p + 1.0) * (nc * 0.5)), 0, nc - 1).long()
     return table.reshape(-1)[(ci[:, 0] * nc + ci[:, 1]) * nc + ci[:, 2]]
+
+
+def bf16_corners(sdf: torch.Tensor) -> torch.Tensor:
+    """The grid with every value rounded to bf16 (round to nearest even)
+    and widened back to float32: what a bf16 sample interpolates, with the
+    weights, lerps and sums in float32."""
+    return sdf.to(torch.bfloat16).to(torch.float32)
+
+
+class _Bf16Step:
+    """The bf16 gate of a fine step (``pallas_kernel.py:1327-1357``): a
+    sample on the bf16-rounded corners, ``d_fast``, and its certified error
+    ``err = BF16_ERR * amax * scale``; a ray whose ``d_fast`` is not within
+    ``err`` of its termination band (``d_fast >= threshold*t + err``) takes
+    a fast step, the others verify with the fp32 sample."""
+
+    def __init__(self, sdf: torch.Tensor, scale: torch.Tensor):
+        self.corners = bf16_corners(sdf)
+        self.amax = coarse_max_table(sdf)
+        self.err_c = torch.tensor(BF16_ERR, dtype=torch.float32,
+                                  device=sdf.device)
+        self.scale = scale
+
+    def __call__(self, p, t, threshold, fine):
+        """``(fast, d_fast, err)`` at points ``p``: ``fast`` marks the rays
+        of ``fine`` that step without verification."""
+        err = self.err_c * coarse_lookup(self.amax, p) * self.scale
+        d_fast = sample_sdf(self.corners, p) * self.scale
+        return fine & ~(d_fast < threshold * t + err), d_fast, err
 
 
 def object_rays(dirs: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
@@ -122,23 +179,38 @@ def _point(pose, dirs_o, t):
 
 class _StepCount:
     """The ``steps`` report of the plain marches: rays that entered the box,
-    fine and bound ray-steps, distinct grid cells the fine steps read."""
+    fine (fp32-sampled) and bound ray-steps, distinct grid cells the fine
+    steps read; for a bf16 march also its ``fast`` steps and the distinct
+    cells of the bf16 grid that its bf16 samples (fast and verified) read."""
 
-    def __init__(self, active: torch.Tensor, sdf: torch.Tensor):
+    def __init__(self, active: torch.Tensor, sdf: torch.Tensor, bf16: bool):
         self.rays, self.fine, self.bound = int(active.sum()), 0, 0
         self.res = sdf.shape[0]
         self.touched = torch.zeros(sdf.numel(), dtype=torch.bool,
                                    device=sdf.device)
+        self.bf16 = bf16
+        self.fast = 0
+        self.touched_bf16 = torch.zeros_like(self.touched)
 
-    def add(self, fine: torch.Tensor, far: torch.Tensor, p: torch.Tensor):
+    def _touch(self, touched, rows, p):
+        idx, _ = trilinear_weights(p[rows], self.res)
+        touched[idx.reshape(-1)] = True
+
+    def add(self, fine: torch.Tensor, far: torch.Tensor, p: torch.Tensor,
+            fast: Optional[torch.Tensor] = None):
         self.fine += int(fine.sum())
         self.bound += int(far.sum())
-        idx, _ = trilinear_weights(p[fine], self.res)
-        self.touched[idx.reshape(-1)] = True
+        self._touch(self.touched, fine, p)
+        if fast is not None:
+            self.fast += int(fast.sum())
+            self._touch(self.touched_bf16, fine | fast, p)
 
     def report(self, steps: Dict[str, int]) -> None:
         steps.update(rays=self.rays, fine=self.fine, bound=self.bound,
                      cells=int(self.touched.sum()))
+        if self.bf16:
+            steps.update(fast=self.fast,
+                         cells_bf16=int(self.touched_bf16.sum()))
 
 
 def march_plain(
@@ -151,6 +223,7 @@ def march_plain(
     adaptive: bool,
     steps: Optional[Dict[str, int]] = None,
     relaxation: float = 1.0,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """Depth ``(N,)`` of rays ``dirs (N, 3)`` against the posed SDF.
 
@@ -158,10 +231,13 @@ def march_plain(
     (:func:`sdfest_torch.render.kernels.pose_params`).  One step is one
     sample or one coarse bound lookup, for every active ray at once.  With
     ``relaxation > 1`` the march over-steps by that factor with Keinert's
-    revert, and ``adaptive`` is ignored (``march.cu``).  When ``steps`` is
-    given, it receives the number of ``rays`` that entered the box, of
-    ``fine`` and ``bound`` ray-steps taken and of distinct grid ``cells``
-    the fine steps read (the work the march does on these inputs).
+    revert, and ``adaptive`` is ignored (``march.cu``).  ``bf16`` gates each
+    fine step with a bf16 sample (``march.cu``); it acts only with culling,
+    and there it turns ``adaptive`` off, as the JAX package dispatches.
+    When ``steps`` is given, it receives the number of ``rays`` that entered
+    the box, of ``fine`` and ``bound`` ray-steps taken and of distinct grid
+    ``cells`` the fine steps read (the work the march does on these
+    inputs); with bf16 also the ``fast`` steps and ``cells_bf16``.
     """
     scale = pose[13]
     dirs_o = object_rays(dirs, pose)
@@ -172,14 +248,17 @@ def march_plain(
     zeros = torch.zeros_like(t)
     stepped, d_prev = zeros, zeros
     relaxed = relaxation > 1.0
+    bf16 = bf16 and culling
+    adaptive = adaptive and not bf16
     omega = torch.full_like(t, OMEGA_INIT if adaptive else 1.0)
     table = coarse_min_table(sdf) if culling else None
-    count = _StepCount(active, sdf) if steps is not None else None
+    gate = _Bf16Step(sdf, scale) if bf16 else None
+    count = _StepCount(active, sdf, bf16) if steps is not None else None
     for _ in range(max_steps):
         if not bool(torch.any(active)):
             break
         p = _point(pose, dirs_o, t)
-        fine, far = active, zeros.bool()
+        fine, far, fast = active, zeros.bool(), None
         if culling:
             cd = coarse_lookup(table, p) * scale
             far = active & (cd >= threshold * t + 1e-5)
@@ -189,8 +268,23 @@ def march_plain(
             t = torch.where(far, t + cd, t)
             stepped = torch.where(far, zeros, stepped)
             fine = active & ~far
+        if gate:
+            fast, d_fast, err = gate(p, t, threshold, fine)
+            fine = fine & ~fast
+            if relaxed:  # relaxed_update(d_fast - err, d_fast, no hit)
+                d_cert = d_fast - err
+                revert = fast & (stepped > d_prev + d_cert) & (stepped > 0.0)
+                adv = fast & ~revert
+                step_len = relaxation * d_fast
+                t = torch.where(revert, t - stepped + d_prev,
+                                torch.where(adv, t + step_len, t))
+                stepped = torch.where(revert, zeros,
+                                      torch.where(adv, step_len, stepped))
+                d_prev = torch.where(adv, d_cert, d_prev)
+            else:
+                t = torch.where(fast, t + d_fast - err, t)
         if count:
-            count.add(fine, far, p)
+            count.add(fine, far, p, fast)
         dist = sample_sdf(sdf, p) * scale
         if relaxed or adaptive:
             revert = fine & (stepped > d_prev + dist) & (stepped > 0.0)
@@ -235,11 +329,14 @@ def march_warm_plain(
     threshold: float,
     max_steps: int,
     steps: Optional[Dict[str, int]] = None,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """The warm/aux corridor march of rays ``dirs (N, 3)`` (the twin of
     ``march_warm_kernel`` in ``csrc/march.cu``, which documents it): culling
     with relaxation 1, per-ray warm start ``t_init (N,)`` (used when >= 0)
-    and ``skip (N,)`` (> 0: not marched).
+    and ``skip (N,)`` (> 0: not marched).  With ``bf16`` a fine step is
+    gated by a bf16 sample as in :func:`march_plain`; a fast step feeds the
+    corridor its certified lower bound ``d_fast - err``.
 
     Returns the ``(N,)`` tensors named by :data:`WARM_OUTPUTS`: depth,
     terminal ``t``, the corridor's first value ``v0``, ``min_dip``, last
@@ -258,7 +355,8 @@ def march_warm_plain(
     min_dip = torch.full_like(t0, 1e9)
     have = torch.zeros_like(active)
     table = coarse_min_table(sdf)
-    count = _StepCount(active, sdf) if steps is not None else None
+    gate = _Bf16Step(sdf, scale) if bf16 else None
+    count = _StepCount(active, sdf, bf16) if steps is not None else None
     for _ in range(max_steps):
         if not bool(torch.any(active)):
             break
@@ -266,9 +364,14 @@ def march_warm_plain(
         cd = coarse_lookup(table, p) * scale
         far = active & (cd >= threshold * t + 1e-5)
         fine = active & ~far
-        if count:
-            count.add(fine, far, p)
         v = torch.where(far, cd, sample_sdf(sdf, p) * scale)
+        fast = None
+        if gate:
+            fast, d_fast, err = gate(p, t, threshold, fine)
+            fine = fine & ~fast
+            v = torch.where(fast, d_fast - err, v)
+        if count:
+            count.add(fine, far, p, fast)
         dip = (v_prev + v - (t - t_prev)) * 0.5
         min_dip = torch.where(active & have, torch.minimum(min_dip, dip),
                               min_dip)

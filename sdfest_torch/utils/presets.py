@@ -8,8 +8,10 @@ updated by ``configs/estimation/default.yaml`` (both under
 ``configs/estimation/fast.yaml`` (ROI crop + ``[4, 2]`` multires) on top,
 ``MUG_PROCEDURAL_FAST_ADAPTIVE`` the overlay ``fast_adaptive.yaml`` (fast +
 early stop); ``MUG_PROCEDURAL_TEMPORAL`` is ``MUG_PROCEDURAL`` with
-``temporal_coherence: true`` (warm-started refinement renders).  CPU tests
-hold the dicts against the YAML files.
+``temporal_coherence: true`` (warm-started refinement renders), and
+``MUG_PROCEDURAL_BF16`` is ``MUG_PROCEDURAL`` with ``bf16_march: true``
+(default.yaml's switch: bf16-verified march samples).  CPU tests hold the
+dicts against the YAML files.
 """
 from __future__ import annotations
 
@@ -142,7 +144,13 @@ MUG_PROCEDURAL_TEMPORAL: Dict[str, Any] = {
     "temporal_coherence": True,
 }
 
+MUG_PROCEDURAL_BF16: Dict[str, Any] = {
+    **copy.deepcopy(MUG_PROCEDURAL),
+    "bf16_march": True,
+}
+
 PRESETS = {"mug_procedural": MUG_PROCEDURAL,
+           "mug_procedural_bf16": MUG_PROCEDURAL_BF16,
            "mug_procedural_fast": MUG_PROCEDURAL_FAST,
            "mug_procedural_fast_adaptive": MUG_PROCEDURAL_FAST_ADAPTIVE,
            "mug_procedural_temporal": MUG_PROCEDURAL_TEMPORAL}

@@ -130,6 +130,31 @@ def mug(dev):
     return sdf, pipe.camera
 
 
+@pytest.mark.cuda
+def test_decoder_runs_in_fp32_with_tf32_allowed(dev):
+    """With cuDNN's TF32 switch at PyTorch's default (allowed), the decoder
+    on the card equals the CPU decoder within 1e-5: the package runs its
+    convolutions in full fp32 by itself."""
+    from sdfest_torch.pipeline.pipeline import SDFPipeline
+    from sdfest_torch.utils.presets import preset
+
+    latent = 0.5 * torch.randn(1, 8, generator=torch.Generator(
+        ).manual_seed(0))
+    with torch.no_grad():
+        want = SDFPipeline(preset("mug_procedural"), device="cpu")._decode(
+            latent)
+    pipe = SDFPipeline(preset("mug_procedural"), device=dev)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got = pipe._decode(latent.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    err = float((got - want).abs().max())
+    assert err <= 1e-5, f"decoder on the card: max|d| {err:.3e} (tol 1e-5)"
+
+
 def _mug_pose(dev, dp=(0.0, 0.0, 0.0), scale=0.1):
     q = torch.tensor([0.25, 0.35, 0.1, 0.895], device=dev)
     return kernels.pose_params(
@@ -193,3 +218,51 @@ def test_relaxed_march_matches_plain_twin(dev, mug, culling):
     want = plain.march_plain(sdf, rays.reshape(-1, 3), pose, 0.005, 500,
                              culling, True, relaxation=1.5)
     _depth_bar(got, want.reshape(rays.shape[:2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relaxation", [1.0, 1.5])
+def test_bf16_march_matches_plain_twin(dev, mug, relaxation):
+    """The bf16-verified march (culling; relaxation 1 and 1.5) at 640x480
+    on the decoded mug: the march's bar against its twin, one launch of a
+    bf16 instance; with culling off bf16 is the fp32 march bit for bit."""
+    sdf, cam = mug
+    rays = api.ray_set(cam, dev).march
+    pose = _mug_pose(dev)
+    kernels.reset_launches()
+    got = kernels.march(sdf, rays, pose, 0.005, 500, True, True,
+                        relaxation=relaxation, bf16=True)
+    torch.cuda.synchronize()
+    assert kernels.march.bf16_launches == 1 == kernels.march.launches
+    want = plain.march_plain(sdf, rays.reshape(-1, 3), pose, 0.005, 500, True,
+                             True, relaxation=relaxation, bf16=True)
+    _depth_bar(got, want.reshape(rays.shape[:2]))
+    no_cull = kernels.march(sdf, rays, pose, 0.005, 500, False, False,
+                            relaxation=relaxation, bf16=True)
+    assert kernels.march.bf16_launches == 1
+    assert torch.equal(no_cull, kernels.march(sdf, rays, pose, 0.005, 500,
+                                              False, False,
+                                              relaxation=relaxation))
+
+
+@pytest.mark.cuda
+def test_bf16_warm_march_matches_plain_twin(dev, mug):
+    """The bf16 warm/aux march, cold, at 640x480 on the decoded mug."""
+    sdf, cam = mug
+    rays = api.ray_set(cam, dev).march
+    shape = rays.shape[:2]
+    t_init = torch.full(shape, -1.0, device=dev)
+    skip = torch.zeros(shape, device=dev)
+    pose = _mug_pose(dev)
+    kernels.reset_launches()
+    got = kernels.march_warm(sdf, rays, pose, t_init, skip, 0.005, 500,
+                             bf16=True)
+    torch.cuda.synchronize()
+    assert kernels.march_warm.bf16_launches == 1
+    want = [x.reshape(shape) for x in plain.march_warm_plain(
+        sdf, rays.reshape(-1, 3), pose, t_init.reshape(-1), skip.reshape(-1),
+        0.005, 500, bf16=True)]
+    _depth_bar(got[0], want[0])
+    agree = (got[0] > 0) == (want[0] > 0)
+    for g, w in zip(got[1:], want[1:]):
+        assert float((g - w)[agree].abs().max()) < 1e-4

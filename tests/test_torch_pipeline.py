@@ -198,26 +198,8 @@ def test_empty_observation_raises():
         pipe(depth * 3.0, torch.ones(96, 128))
 
 
-@pytest.mark.parametrize("option,value", [
-    ("reuse_plan", True),
-    ("init_view", "best"),
-    ("bf16_march", True),
-])
-def test_unported_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match=option):
-        SDFPipeline(_config(**{option: value}), device="cpu")
-
-
 def test_unported_call_paths_raise():
     pipe = SDFPipeline(_config(), device="cpu")
-    depth = torch.full((96, 128), 0.5)
-    with pytest.raises(NotImplementedError):
-        pipe(depth[None].expand(2, -1, -1), torch.ones(2, 96, 128))
-    with pytest.raises(NotImplementedError):
-        pipe(depth, torch.ones(96, 128), point_constraint=(0, 0, 1.0))
-    with pytest.raises(NotImplementedError):
-        pipe(depth, torch.ones(96, 128),
-             prior_orientation_distribution=torch.ones(576))
     for method in (pipe.refine_batch, pipe.generate_mesh, pipe.generate_depth):
         with pytest.raises(NotImplementedError):
             method()
@@ -463,12 +445,14 @@ def test_fast_preset_matches_merged_yaml():
 @pytest.mark.parametrize("name,overlay,extra", [
     ("mug_procedural_fast_adaptive", "fast_adaptive.yaml", {}),
     ("mug_procedural_temporal", None, {"temporal_coherence": True}),
+    ("mug_procedural_bf16", None, {"bf16_march": True}),
 ])
 def test_temporal_and_adaptive_presets_match_merged_yaml(name, overlay,
                                                          extra):
     """mug_procedural_fast_adaptive is the JAX package's merge of the model
     config, default.yaml and fast_adaptive.yaml (which includes fast.yaml);
-    mug_procedural_temporal is default.yaml with temporal_coherence on."""
+    mug_procedural_temporal and mug_procedural_bf16 are default.yaml with
+    temporal_coherence or bf16_march on."""
     from sdfest_tpu.utils import config as jconfig
 
     base = os.path.join(ROOT, "sdfest_tpu", "configs", "estimation")
