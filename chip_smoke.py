@@ -19,7 +19,9 @@ Phases:
             warm/aux march cold and with a real warm step's inputs, and
             all rays skipped; the relaxed march with and without culling;
             the bf16 marches (culling, relaxed, warm), bf16 without culling
-            equal to the fp32 march, and the bf16 sample's error bound
+            equal to the fp32 march, and the bf16 sample's error bound; the
+            tiled march: every table copy and the flat launch bit for bit
+            equal, zeros on an all-miss pose
   pipeline  SDFPipeline.__call__ of the mug_procedural preset with the
             committed weights on a self-rendered observation, 50 full-frame
             iterations; counts kernel launches per call and times 3 calls
@@ -45,7 +47,10 @@ Phases:
             events), with the least time the card could take (bound); the
             march also at the three ROI shapes of the fast plan, plain,
             relaxed, the warm march cold and mid-refinement, the fp32
-            culling march without adaptive, and the bf16 marches
+            culling march without adaptive, and the bf16 marches; active
+            16x16 tiles per render, each table copy of the default and
+            bf16 marches, the flat launch, all-miss poses; the scatter with
+            zero cotangents and with float2 pair atomics
   profile   torch.profiler over one full-frame, fast and temporal call:
             device busy share and the ops that take the time
 
@@ -430,7 +435,13 @@ class Smoke:
         print(f"check scatter     N={pts.shape[0]} max|d|={es:.3e} "
               f"(tol {tol:.3e})")
         assert es <= tol, "scatter kernel disagrees with its plain twin"
-        self.report["scatter"] = dict(max_err=es, tol=tol, n=pts.shape[0],
+        # the scalar atomics, which chip_smoke times against the pairs
+        e = float((k.scatter(pts, cot.contiguous(), res, pairs=False)
+                   - want).abs().max())
+        print(f"check scatter     scalar atomics max|d|={e:.3e}")
+        assert e <= tol, "scatter with scalar atomics disagrees"
+        self.report["scatter"] = dict(max_err=max(es, e), tol=tol,
+                                      n=pts.shape[0],
                                       active=int((cot != 0).sum()))
         # march, at every ground-truth pose, with and without culling +
         # adaptive relaxation
@@ -464,6 +475,48 @@ class Smoke:
         self.check_warm()
         self.check_relaxed()
         self.check_bf16()
+        self.check_tiles()
+
+    def check_tiles(self):
+        """The tiled march at every pose: each table copy and the flat
+        (N, 3) launch give the default launch's depth bit for bit, for the
+        culling + adaptive, no-adaptive, relaxed culling and bf16 marches;
+        with the object behind the camera every copy gives zeros."""
+        import torch
+
+        from sdfest_torch.render import api, kernels as k
+
+        thr = self.pipe.config["threshold"]
+        rays = api.ray_set(self.camera, self.dev).march
+        flat = rays.reshape(-1, 3)
+        marches = {"culling_adaptive": (True, 1.0, False),
+                   "no_adaptive": (False, 1.0, False),
+                   "relaxed_culling": (True, RELAXATION, False),
+                   "bf16": (True, 1.0, True)}
+        for i, (pos, half, q) in enumerate(GT_POSES):
+            pose = self.pose(pos, q, half)
+            behind = self.pose((pos[0], pos[1], -pos[2]), q, half)
+            for name, (adaptive, relaxation, bf16) in marches.items():
+                kw = dict(relaxation=relaxation, bf16=bf16)
+                want = k.march(self.sdf, rays, pose, thr, 500, True, adaptive,
+                               **kw)
+                same = torch.equal(want.reshape(-1), k.march(
+                    self.sdf, flat, pose, thr, 500, True, adaptive, **kw))
+                zeros = True
+                for copy in k.TABLE_COPIES:
+                    same = same and torch.equal(want, k.march(
+                        self.sdf, rays, pose, thr, 500, True, adaptive,
+                        table_copy=copy, **kw))
+                    zeros = zeros and not bool(k.march(
+                        self.sdf, rays, behind, thr, 500, True, adaptive,
+                        table_copy=copy, **kw).any())
+                assert int((want > 0).sum()) > 3000, "too few hits"
+                assert same, f"{name}: table copies or flat launch differ"
+                assert zeros, f"{name}: all-miss pose not all zeros"
+            print(f"check march tiles pose {i}: every table copy "
+                  f"{list(k.TABLE_COPIES)} and the flat launch equal the "
+                  f"default bit for bit ({', '.join(marches)}); all-miss "
+                  f"zeros")
 
     def check_bf16(self):
         """The bf16-verified marches against their twins at every pose: the
@@ -1257,7 +1310,10 @@ class Smoke:
                 torch.tensor(pos, device=self.dev) + torch.tensor(
                     jitter, device=self.dev), q, half))
         thr = self.pipe.config["threshold"]
-        ms = cuda_ms(lambda pose: k.march(self.sdf, dirs, pose, thr, 500,
+        # the kernel takes the frame's rays as the main path gives them,
+        # (H, W, 3), launched as 16x16 tiles; the twin the flat rays
+        rays = dirs.reshape(self.camera.height, self.camera.width, 3)
+        ms = cuda_ms(lambda pose: k.march(self.sdf, rays, pose, thr, 500,
                                           True, True, coarse=coarse), poses)
         pms = cuda_ms(lambda pose: plain.march_plain(
             self.sdf, dirs, pose, thr, 500, True, True), poses, warmup=1)
@@ -1307,6 +1363,125 @@ class Smoke:
                               plain_ms=pms, bound_ms=b_ms, bound_by=by,
                               bytes=nbytes, ops=ops, steps=steps))
         self.time_march_variants(poses, dirs, coarse)
+        self.time_tiles(poses, dirs, coarse)
+        self.time_scatter_variants(sets)
+
+    def time_tiles(self, poses, dirs, coarse):
+        """The march's per-tile culling at the 30 timed poses: active 16x16
+        tiles per render (from the twin's slab test, no kernel change); the
+        default and the bf16 march with each table copy, the flat (N, 3)
+        launch of 1-D blocks, and both marches at 30 all-miss poses (the
+        same poses with the object behind the camera)."""
+        import torch
+
+        from sdfest_torch.render import kernels as k
+        from sdfest_torch.render import plain
+
+        thr = self.pipe.config["threshold"]
+        h, w = self.camera.height, self.camera.width
+        rays = dirs.reshape(h, w, 3)
+        tile = k.TILE
+        tiles, active_rays = [], []
+        for pose in poses:
+            hit, t_min, t_max = plain.ray_interval(dirs, pose)
+            marches = (hit & (t_min < t_max)).reshape(h, w)
+            active_rays.append(int(marches.sum()))
+            padded = torch.zeros(-(-h // tile) * tile, -(-w // tile) * tile,
+                                 dtype=torch.bool, device=self.dev)
+            padded[:h, :w] = marches
+            tiles.append(int(padded.reshape(
+                padded.shape[0] // tile, tile, padded.shape[1] // tile,
+                tile).any(3).any(1).sum()))
+        n_tiles = -(-h // tile) * -(-w // tile)
+        mean = lambda xs: sum(xs) / len(xs)
+        t = self.report["march"]["active_tiles"] = dict(
+            tiles=n_tiles, mean=mean(tiles), min=min(tiles), max=max(tiles),
+            rays_in_box_mean=mean(active_rays), rays=h * w)
+        print(f"time march active 16x16 tiles per render over "
+              f"{len(poses)} poses: mean {t['mean']:.2f} min {t['min']} max "
+              f"{t['max']} of {n_tiles} ({t['mean'] / n_tiles:.4f}); rays in "
+              f"the box {t['rays_in_box_mean']:.1f} of {h * w}")
+        # the same poses with the object behind the camera: origin_o is
+        # R^T (-position), so flipping the position's z moves it behind
+        behind = []
+        for pose in poses:
+            rot = pose[:9].reshape(3, 3)
+            pos = -(rot @ pose[9:12])
+            pos[2] = -pos[2]
+            b = pose.clone()
+            b[9:12] = rot.T @ (-pos)
+            behind.append(b.contiguous())
+        hit, t_min, t_max = plain.ray_interval(dirs, behind[0])
+        assert not bool((hit & (t_min < t_max)).any()), "all-miss pose hits"
+        pair = plain.coarse_pair_table(self.sdf)
+        grid_b = self.sdf.to(torch.bfloat16)
+        table = 16 ** 3 * 4 + 14 * 4
+        # bound of an all-miss render: directions in, zeros out, the table
+        b_miss = {False: bound(h * w * 16 + table, 0.0),
+                  True: bound(h * w * 16 + 2 * 16 ** 3 * 4 + 14 * 4, 0.0)}
+        copies = self.report["march"]["table_copy"] = {}
+        miss = self.report["march"]["all_miss"] = {}
+        for copy in k.TABLE_COPIES:
+            row = copies[copy] = {}
+            for bf16 in (False, True):
+                kw = dict(coarse=pair, bf16=True, sdf_bf16=grid_b) if bf16 \
+                    else dict(coarse=coarse)
+                name = "bf16" if bf16 else "default"
+                row[name] = cuda_ms(lambda pose: k.march(
+                    self.sdf, rays, pose, thr, 500, True, True,
+                    table_copy=copy, **kw), poses)
+                row[f"all_miss_{name}"] = cuda_ms(lambda pose: k.march(
+                    self.sdf, rays, pose, thr, 500, True, True,
+                    table_copy=copy, **kw), behind)
+            print(f"time march table copy {copy}: default {row['default']:.4f}"
+                  f" ms, bf16 {row['bf16']:.4f} ms; all-miss default "
+                  f"{row['all_miss_default']:.4f} ms, bf16 "
+                  f"{row['all_miss_bf16']:.4f} ms")
+        for bf16, name in ((False, "default"), (True, "bf16")):
+            ms = copies[k.TABLE_COPY][f"all_miss_{name}"]
+            b_ms, by = b_miss[bf16]
+            miss[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by,
+                              by_copy={c: copies[c][f"all_miss_{name}"]
+                                       for c in copies})
+            print(f"time march all-miss {name} kernel {ms:.4f} ms bound "
+                  f"{b_ms:.5f} ms ({by})")
+        # the flat (N, 3) launch: 1-D blocks of 256 consecutive raster rays
+        ms = cuda_ms(lambda pose: k.march(self.sdf, dirs, pose, thr, 500,
+                                          True, True, coarse=coarse), poses)
+        self.report["march"]["flat"] = dict(ms=ms)
+        print(f"time march flat (N, 3) launch, 256-ray row blocks: {ms:.4f} "
+              f"ms (16x16 tiles: {self.report['march']['ms']:.4f} ms)")
+
+    def time_scatter_variants(self, sets):
+        """The scatter with all-zero cotangents (the floor of launch, read
+        and fill), and with scalar against float2 pair atomics, on the time
+        phase's 30 backward query sets."""
+        import torch
+
+        from sdfest_torch.render import kernels as k
+
+        res = self.sdf.shape[0]
+        pts = [torch.cat([s, o]).contiguous() for s, _, o, _ in sets]
+        n = pts[0].shape[0]
+        zeros = torch.zeros(n, device=self.dev)
+        ms = cuda_ms(lambda p: k.scatter(p, zeros, res), pts)
+        b_ms, by = bound(n * 4 + res ** 3 * 4, 0.0)
+        self.report["scatter"]["zero_cotangents"] = dict(
+            ms=ms, bound_ms=b_ms, bound_by=by)
+        print(f"time scatter zero cotangents kernel {ms:.4f} ms bound "
+              f"{b_ms:.5f} ms ({by})")
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        inp = [(p, (torch.randn(n, generator=gen).to(self.dev)
+                    * torch.cat([sm, m])).contiguous())
+               for p, (_, sm, _, m) in zip(pts, sets)]
+        # scalar against float2 pair atomics, in turns, twice
+        r = self.report["scatter"]["variants"] = {}
+        for _ in range(2):
+            for pairs in (False, True):
+                ms = cuda_ms(lambda x: k.scatter(*x, res, pairs=pairs), inp)
+                r.setdefault("pairs" if pairs else "scalar", []).append(ms)
+        print(f"time scatter scalar atomics {r['scalar']} ms, float2 pair "
+              f"atomics {r['pairs']} ms (two turns)")
 
     def time_march_variants(self, poses, dirs, coarse):
         """The plain branch, the relaxed march (culling on and off) and the
@@ -1350,8 +1525,11 @@ class Smoke:
                     f"{ops / 1e6:.3f} Mop) steps {steps}")
 
         table = 16 ** 3 * 4 + 14 * 4
+        # the kernels take the (H, W, 3) frame, as the main path gives it
+        shape = (self.camera.height, self.camera.width)
+        rays = dirs.reshape(*shape, 3)
         # plain branch: directions in, depth out, grid cells, no table
-        ms = cuda_ms(lambda pose: k.march(self.sdf, dirs, pose, thr, 500,
+        ms = cuda_ms(lambda pose: k.march(self.sdf, rays, pose, thr, 500,
                                           False, False), poses)
         pms = cuda_ms(lambda pose: plain.march_plain(
             self.sdf, dirs, pose, thr, 500, False, False), poses, warmup=1)
@@ -1363,7 +1541,7 @@ class Smoke:
         r = self.report.setdefault("march_relaxed", {})
         for culling in (True, False):
             ms = cuda_ms(lambda pose: k.march(
-                self.sdf, dirs, pose, thr, 500, culling, True,
+                self.sdf, rays, pose, thr, 500, culling, True,
                 coarse=coarse if culling else None,
                 relaxation=RELAXATION), poses)
             pms = cuda_ms(lambda pose: plain.march_plain(
@@ -1379,8 +1557,6 @@ class Smoke:
             r[key] = r["culling"][key]
         # warm march: directions, t_init and skip in; depth and the five
         # corridor fields out
-        shape = (self.camera.height, self.camera.width)
-        rays = dirs.reshape(*shape, 3)
         cold = [(pose, torch.full(shape, -1.0, device=self.dev),
                  torch.zeros(shape, device=self.dev)) for pose in poses]
         mid = [self.warm_step(GT_POSES[i % len(GT_POSES)], 200 + i)
@@ -1453,8 +1629,11 @@ class Smoke:
                     f"ms ({by}: {nbytes / 1e6:.3f} MB, {ops / 1e6:.3f} Mop) "
                     f"steps {steps}")
 
+        # the kernels take the (H, W, 3) frame, as the main path gives it
+        shape = (self.camera.height, self.camera.width)
+        rays = dirs.reshape(*shape, 3)
         # fp32 culling march without adaptive over-relaxation
-        ms = cuda_ms(lambda pose: k.march(self.sdf, dirs, pose, thr, 500,
+        ms = cuda_ms(lambda pose: k.march(self.sdf, rays, pose, thr, 500,
                                           True, False, coarse=coarse), poses)
         pms = cuda_ms(lambda pose: plain.march_plain(
             self.sdf, dirs, pose, thr, 500, True, False), poses, warmup=1)
@@ -1473,7 +1652,7 @@ class Smoke:
         table = 2 * 16 ** 3 * 4 + 14 * 4
         for key, relaxation in (("culling", 1.0), ("relaxed", RELAXATION)):
             ms = cuda_ms(lambda pose: k.march(
-                self.sdf, dirs, pose, thr, 500, True, True, coarse=pair,
+                self.sdf, rays, pose, thr, 500, True, True, coarse=pair,
                 relaxation=relaxation, bf16=True, sdf_bf16=grid_b), poses)
             pms = cuda_ms(lambda pose: plain.march_plain(
                 self.sdf, dirs, pose, thr, 500, True, True,
@@ -1487,8 +1666,6 @@ class Smoke:
             print(f"time march_bf16 {key} " + entry(
                 r[key], ms, pms, mean_steps(runs), n * 16 + table,
                 OPS_MARCH_RAY, OPS_MARCH_BOUND, False))
-        shape = (self.camera.height, self.camera.width)
-        rays = dirs.reshape(*shape, 3)
         cold = [(pose, torch.full(shape, -1.0, device=self.dev),
                  torch.zeros(shape, device=self.dev)) for pose in poses]
         mid = [self.warm_step(GT_POSES[i % len(GT_POSES)], 200 + i)
@@ -1619,7 +1796,9 @@ def kernels_line(report) -> str:
             "library_ms": None,
         })
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
-                    "culling", "no_culling", "relaxed", "warm"):
+                    "culling", "no_culling", "relaxed", "warm",
+                    "active_tiles", "table_copy", "all_miss", "flat",
+                    "zero_cotangents", "variants"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})

@@ -23,11 +23,31 @@
 // so the ROI render equals the crop of the full render bit for bit and no
 // tile alignment is needed.
 //
-// Design.  One thread per pixel, 256 threads per block.  The TPU kernel
-// marched 16x16-pixel tiles in lock-step with one-hot MXU matmuls standing
-// in for gathers; on Hopper a ray reads its 8 trilinear corners directly
-// (__ldg through L1/L2: the 1 MiB grid stays resident in the 50 MB L2), and
-// every ray runs its own trip count.
+// Design.  One thread per pixel; in a culling march a block of 256 threads
+// is one 16x16 tile of the (H, W) raster (a flat (N, 3) ray set, or a
+// march without culling: 256 consecutive rays; without a table to skip,
+// tiles only cost time: 15.0 against 14.3 us for the plain march).  The
+// TPU kernel marched 16x16-pixel tiles in lock-step with one-hot MXU
+// matmuls standing in for gathers; on Hopper a ray reads its 8 trilinear
+// corners directly (__ldg through L1/L2: the 1 MiB grid stays resident in
+// the 50 MB L2), and every ray runs its own trip count.  Rays are read and
+// written in raster order; a thread outside a ragged raster's edge takes
+// part in the block's barriers and writes nothing.
+//
+// Per-tile culling (the TPU kernel's compaction to active tiles,
+// pallas_kernel.py:546-561 with _obb_interval_tile :564, done per block
+// without a prefetch pass): every thread first runs its ray's slab test,
+// then the block votes (__syncthreads_or).  A tile where no ray meets the
+// box writes its zeros and leaves without the coarse table; only the
+// others copy it into shared memory.  How (TableCopy below): by default
+// thread 0 issues one TMA bulk copy after the vote and the tile waits on
+// its mbarrier; or a float4 copy by the whole block after the vote; or one
+// TMA bulk copy issued before the slab test, so that it overlaps the rays'
+// setup (an empty tile then still waits for it: its shared memory must not
+// be released under a copy in flight).  The table lives in dynamic shared
+// memory, at its 128-byte aligned base (a TMA copy into a merely 16-byte
+// aligned destination measured several times slower), so a launch without
+// culling holds none and the SM's L1 stays with the grid's gathers.
 //
 // Per ray:
 //  1. rotate the host-constant f32 camera ray into the object frame;
@@ -55,15 +75,27 @@
 // That changes only the stepping noise, inside the JAX package's own parity
 // bar (hit agreement > 0.995, |ddepth| < 5e-3 where both hit).
 //
-// What bounds it on the H100: neither bytes (about 6 MB in and out at
+// What bounds it on the H100: neither bytes (about 5 MB in and out at
 // 640x480) nor arithmetic, but the latency of dependent L2 gathers along
 // each ray's step chain and the divergence of trip counts within a warp.
-// The design keeps the hot table in shared memory and lets rays retire
-// independently; grouping rays by expected trip count is left for later.
+// A design that copies the table (16 KB, 32 KB for bf16) into every block
+// before its first ray starts moves 19.7 MB (39.3 MB) from L2 per 640x480
+// launch of 1,200 blocks, where only ~8% of the rays meet the box; here the
+// copy happens only in tiles with a ray in the box (124 of 1,200 on
+// average at the timed poses).  Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W, mean of 30 launches at 640x480, two runs (PERF.md section 6):
+// with the TMA copy after the vote the default march takes 16.2 / 16.1 us
+// and the bf16 march 18.6 / 18.4 us, against 18.8 and 21.9 us with the
+// copy in every block; float4 loads after the vote 16.4 / 19.4 us; the
+// TMA copy before the slab test 16.2 / 19.1 us, but 5.0 / 6.0 us on an
+// all-miss frame, where every empty tile waits for its copy.
+// What remains: a frame where every ray misses the box still takes 4.7 us
+// (1,200 blocks of 48 registers, 5 per SM: two waves of slab tests), and
+// the longest per-ray step chains of the active tiles, with trip-count
+// divergence; grouping rays by expected trip count is left for later.
 // The bf16 branch halves the bytes of a fast sample (a 512 KiB bf16 grid)
-// but doubles the table copy to 32 KB and gathers twice on a verified
-// step, and gives up the adaptive over-relaxation: it is not expected to
-// be faster than the fp32 culling march on this card.
+// but gathers twice on a verified step and gives up the adaptive
+// over-relaxation.
 #include <cuda_runtime.h>
 
 #include "trilinear.cuh"
@@ -168,9 +200,72 @@ __device__ __forceinline__ int coarse_cell(float px, float py, float pz) {
   return (cx * kNC + cy) * kNC + cz;
 }
 
-// The coarse table in shared memory.  kPairs (the bf16 marches): one float2
-// (min bound, max |value|) per cell, 32 KB, copied in one pass; otherwise
-// the min bounds alone, 16 KB.
+// The pixel of this thread, -1 outside the rays.  h > 0: the block is the
+// 16x16 tile (blockIdx.x, blockIdx.y) of an (h, w) raster, thread k at
+// (row k / 16, column k % 16) of the tile; h == 0: a flat set of n rays in
+// 1-D blocks.  (kernels.march_pixels writes the same map for the tests.)
+constexpr int kTile = 16;
+static_assert(kTile * kTile == sdfest::kThreads, "a block is one tile");
+
+__device__ __forceinline__ int pixel_index(int n, int h, int w) {
+  if (h == 0) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    return i < n ? i : -1;
+  }
+  const int x = blockIdx.x * kTile + (int)threadIdx.x % kTile;
+  const int y = blockIdx.y * kTile + (int)threadIdx.x / kTile;
+  return x < w && y < h ? y * w + x : -1;
+}
+
+// How a culling march's tile copies the coarse table into shared memory
+// (the wrapper's table_copy; every mode gives the same result bit for bit).
+enum TableCopy : int {
+  kCopyTmaEarly = 0,  // TMA bulk copy issued before the slab test
+  kCopyFloat4 = 1,    // float4 loads by the block after the vote
+  kCopyTma = 2,       // TMA bulk copy issued after the vote (the default)
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread: arm the block's mbarrier for `bytes` and start one TMA bulk
+// copy of them from global (16-byte aligned) into shared memory.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Wait until the copy armed on `bar` has landed (phase 0 completed).
+__device__ __forceinline__ void bulk_wait(unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  }
+}
+
+// The coarse table of march_warm_kernel, in static shared memory.  kPairs
+// (the bf16 marches): one float2 (min bound, max |value|) per cell, 32 KB,
+// copied in one pass; otherwise the min bounds alone, 16 KB.
 template <bool kPairs>
 struct CoarseTable {
   __device__ __forceinline__ void load(const float* __restrict__ coarse) {
@@ -199,6 +294,36 @@ struct CoarseTable {
     }
   }
   alignas(8) float s[kPairs ? 2 * kCells : kCells];
+};
+
+// The coarse table of march_kernel, copied from `g` into the block's
+// dynamic shared memory `s` (sized by the launch: 0 bytes when the march
+// does not cull).  kPairs as CoarseTable.
+template <bool kPairs>
+struct TableView {
+  static constexpr int kFloats = kPairs ? 2 * kCells : kCells;
+  static constexpr unsigned kBytes = kFloats * sizeof(float);
+  const float* g;
+  float* s;
+
+  // float4 loads by the whole block; the caller synchronises
+  __device__ __forceinline__ void load_float4() const {
+    const float4* src = reinterpret_cast<const float4*>(g);
+    float4* dst = reinterpret_cast<float4*>(s);
+    for (int k = threadIdx.x; k < kFloats / 4; k += blockDim.x)
+      dst[k] = __ldg(src + k);
+  }
+  __device__ __forceinline__ float bound(float px, float py, float pz,
+                                         float scale, float* amax) const {
+    const int c = coarse_cell(px, py, pz);
+    if constexpr (kPairs) {
+      const float2 b = reinterpret_cast<const float2*>(s)[c];
+      *amax = b.y;
+      return b.x * scale;
+    } else {
+      return s[c] * scale;
+    }
+  }
 };
 
 // The bf16 gate of a fine step at a located cell: d_fast and its error.
@@ -233,20 +358,55 @@ __global__ void march_kernel(const float* __restrict__ sdf,
                              const float* __restrict__ coarse,
                              const float* __restrict__ dirs,
                              const float* __restrict__ pose,
-                             float* __restrict__ depth, int n, int res,
-                             float threshold, int max_steps, int culling,
-                             int adaptive, float relaxation) {
-  __shared__ CoarseTable<kBf16> table;
+                             float* __restrict__ depth, int n, int h, int w,
+                             int res, float threshold, int max_steps,
+                             int culling, int adaptive, float relaxation,
+                             int copy) {
+  // the table at the base of the dynamic shared memory (the launch has no
+  // static shared memory, so the TMA destination is 128-byte aligned),
+  // then the mbarrier of its bulk copy
+  extern __shared__ __align__(128) float4 dynamic_smem[];
+  const TableView<kBf16> table{coarse,
+                               reinterpret_cast<float*>(dynamic_smem)};
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(table.s + table.kFloats);
   const bool cull = kBf16 || culling;
   const bool adapt = !kBf16 && adaptive;
-  if (cull) table.load(coarse);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int i = pixel_index(n, h, w);
+  const bool lead = threadIdx.x == 0;
+  if (cull && copy == kCopyTmaEarly && lead)
+    bulk_copy(table.s, coarse, table.kBytes, bar);
 
-  const Ray r = setup_ray(dirs, pose, i);
+  Ray r;
+  bool marches = false;
+  if (i >= 0) {
+    r = setup_ray(dirs, pose, i);
+    marches = r.hit && r.t_min < r.t_max;
+  }
+  if (cull) {
+    // every thread of the block reaches the vote, ragged edge included
+    if (!__syncthreads_or(marches)) {  // no ray of the tile meets the box
+      if (i >= 0) depth[i] = 0.0f;
+      // the copy must land before the block's shared memory is released
+      if (copy == kCopyTmaEarly && lead) bulk_wait(bar);
+      return;
+    }
+    if (copy == kCopyFloat4) {
+      table.load_float4();
+      __syncthreads();
+    } else {
+      if (copy == kCopyTma) {
+        if (lead) bulk_copy(table.s, coarse, table.kBytes, bar);
+        __syncthreads();  // the barrier is armed before anyone waits on it
+      }
+      bulk_wait(bar);
+    }
+  }
+  if (i < 0) return;
+
   float t = r.t_min;
   float result = 0.0f;
-  if (r.hit && t < r.t_max) {
+  if (marches) {
     float stepped = 0.0f, d_prev = 0.0f;
     float omega = adapt ? kOmegaInit : 1.0f;
     for (int step = 0; step < max_steps; ++step) {
@@ -427,22 +587,35 @@ __global__ void march_warm_kernel(
 // |value|) table when bf16 is set (the bf16 instance, culling implied);
 // otherwise sdf_b is not read and coarse is the min table (read when
 // culling).
+// The rays: n = h * w in raster order when h > 0 (one block per 16x16
+// tile; the wrapper passes h > 0 only for a culling march), else a set of
+// n in 1-D blocks.  copy: a TableCopy, read when the march culls (coarse
+// 16-byte aligned).
 extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
                             const float* coarse, const float* dirs,
-                            const float* pose, float* depth, int n, int res,
-                            float threshold, int max_steps, int culling,
-                            int adaptive, float relaxation, int bf16,
-                            void* stream) {
+                            const float* pose, float* depth, int n, int h,
+                            int w, int res, float threshold, int max_steps,
+                            int culling, int adaptive, float relaxation,
+                            int bf16, int copy, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
+  const dim3 blocks =
+      h > 0 ? dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile)
+            : dim3((n + sdfest::kThreads - 1) / sdfest::kThreads);
   const bool relaxed = relaxation > 1.0f;
   auto kernel = bf16 ? (relaxed ? march_kernel<true, true>
                                 : march_kernel<false, true>)
                      : (relaxed ? march_kernel<true, false>
                                 : march_kernel<false, false>);
-  kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+  // shared memory only for a culling march: the table and its mbarrier
+  const size_t smem =
+      bf16 || culling ? (bf16 ? TableView<true>::kBytes
+                              : TableView<false>::kBytes) +
+                            sizeof(unsigned long long)
+                      : 0;
+  kernel<<<blocks, sdfest::kThreads, smem, (cudaStream_t)stream>>>(
       sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
-      depth, n, res, threshold, max_steps, culling, adaptive, relaxation);
+      depth, n, h, w, res, threshold, max_steps, culling, adaptive,
+      relaxation, copy);
   return (int)cudaGetLastError();
 }
 

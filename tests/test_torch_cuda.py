@@ -115,19 +115,24 @@ def test_roi_march_equals_crop_of_full_march(dev, flags):
                                      off[1]:off[1] + roi[1]])
 
 
+_MUGS = {}
+
+
 @pytest.fixture
 def mug(dev):
     """A mug decoded from a seeded latent with the committed weights, and
-    the 640x480 camera of the main path."""
+    the 640x480 camera of the main path (made once per device)."""
     from sdfest_torch.pipeline.pipeline import SDFPipeline
     from sdfest_torch.utils.presets import preset
 
-    pipe = SDFPipeline(preset("mug_procedural"), device=dev)
-    latent = 0.5 * torch.randn(1, 8, generator=torch.Generator(
-        ).manual_seed(0))
-    with torch.no_grad():
-        sdf = pipe._decode(latent.to(dev))[0, 0].contiguous()
-    return sdf, pipe.camera
+    if dev not in _MUGS:
+        pipe = SDFPipeline(preset("mug_procedural"), device=dev)
+        latent = 0.5 * torch.randn(1, 8, generator=torch.Generator(
+            ).manual_seed(0))
+        with torch.no_grad():
+            sdf = pipe._decode(latent.to(dev))[0, 0].contiguous()
+        _MUGS[dev] = sdf, pipe.camera
+    return _MUGS[dev]
 
 
 @pytest.mark.cuda
@@ -243,6 +248,127 @@ def test_bf16_march_matches_plain_twin(dev, mug, relaxation):
     assert torch.equal(no_cull, kernels.march(sdf, rays, pose, 0.005, 500,
                                               False, False,
                                               relaxation=relaxation))
+
+
+MARCHES = {  # instance: (culling, adaptive, relaxation, bf16)
+    "culling_adaptive": (True, True, 1.0, False),
+    "culling_no_adaptive": (True, False, 1.0, False),
+    "relaxed_culling": (True, True, 1.5, False),
+    "relaxed_no_culling": (False, True, 1.5, False),
+    "bf16_culling": (True, True, 1.0, True),
+    "bf16_relaxed": (True, True, 1.5, True),
+}
+
+
+def _march_case(dev, cam, case):
+    """Rays and pose of one launch shape: ragged crops of the 640x480 frame
+    around the mug, the flat (N, 3) frame, an all-miss pose (the mug behind
+    the camera) and a pose whose box fills the frame."""
+    full = api.ray_set(cam, dev).march
+    pose = _mug_pose(dev)
+    if case == "ragged_37x53":
+        return full[228:265, 306:359].contiguous(), pose
+    if case == "ragged_1x200":
+        return full[246:247, 233:433].contiguous(), pose
+    if case == "flat":
+        return full.reshape(-1, 3), pose
+    if case == "all_miss":
+        return full, _mug_pose(dev, dp=(0.0, 0.0, 1.0))
+    q = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)
+    return full, kernels.pose_params(torch.tensor([0.0, 0.0, -0.15], device=dev),
+                                     q, torch.tensor(10.0, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_37x53", "ragged_1x200", "flat",
+                                  "all_miss", "fills_frame"])
+@pytest.mark.parametrize("instance", list(MARCHES))
+def test_tiled_march_equals_its_twin_bit_for_bit(dev, mug, instance, case):
+    """Every instance of march_kernel, with every table copy, equals its
+    CUDA twin bit for bit on ragged rasters, a flat ray set, an all-miss
+    pose (zeros) and a pose where every tile meets the box."""
+    sdf, cam = mug
+    culling, adaptive, relaxation, bf16 = MARCHES[instance]
+    rays, pose = _march_case(dev, cam, case)
+    flat = rays.reshape(-1, 3)
+    hit, t_min, t_max = plain.ray_interval(flat, pose)
+    marches = hit & (t_min < t_max)
+    if case == "all_miss":
+        assert not bool(marches.any())
+    elif case == "fills_frame":
+        assert bool(marches.all())
+    else:
+        assert int(marches.sum()) > min(flat.shape[0] // 4, 1000)
+    want = plain.march_plain(sdf, flat, pose, 0.005, 500, culling, adaptive,
+                             relaxation=relaxation, bf16=bf16).reshape(
+                                 rays.shape[:-1])
+    if case != "all_miss":
+        assert int((want > 0).sum()) > 0
+    for copy in kernels.TABLE_COPIES:
+        kernels.reset_launches()
+        got = kernels.march(sdf, rays, pose, 0.005, 500, culling, adaptive,
+                            relaxation=relaxation, bf16=bf16,
+                            table_copy=copy)
+        torch.cuda.synchronize()
+        assert kernels.march.launches == 1
+        assert kernels.march.bf16_launches == int(bf16)
+        assert torch.equal(got, want), (copy, float((got - want).abs().max()))
+
+
+def _scatter_case(dev, mug, case):
+    """Points and cotangents of one scatter input."""
+    g = torch.Generator().manual_seed(7)
+    if case == "zeros":
+        pts = torch.rand(614_400, 3, generator=g) * 2.0 - 1.0
+        return pts.to(dev), torch.zeros(614_400, device=dev)
+    if case == "one_cell":  # 4,096 rows in base cell 40 of each axis
+        pts = -1.0 + (40.25 + 0.5 * torch.rand(4096, 3, generator=g)) * (
+            2.0 / 63.0)
+        return pts.to(dev), torch.randn(4096, generator=g).to(dev)
+    if case.startswith("ragged_"):  # n neither a multiple of 32 nor 256
+        n = int(case.split("_")[1])
+        pts = torch.rand(n, 3, generator=g) * 2.2 - 1.1
+        cot = torch.randn(n, generator=g) * (torch.rand(n, generator=g) < 0.5)
+        return pts.to(dev), cot.to(dev)
+    # the realistic set: the mug's observed cloud in 16x16 tile order, in
+    # the object frame of a slightly moved pose, cotangents on its rows
+    from sdfest_torch.ops import pointset
+
+    sdf, cam = mug
+    pose = _mug_pose(dev)
+    depth = kernels.march(sdf, api.ray_set(cam, dev).march, pose, 0.005, 500)
+    points, pmask = pointset.depth_to_pointcloud_dense(depth, cam,
+                                                       order="tile")
+    q = torch.tensor([0.25, 0.35, 0.1, 0.895], device=dev)
+    obj, valid = api._pc_object_points(
+        torch.tensor([0.021, -0.01, -0.5], device=dev), q / q.norm(),
+        torch.tensor(1.0 / 0.1, device=dev), points, pmask, sdf.shape[0])
+    cot = torch.randn(obj.shape[0], generator=g).to(dev) * valid
+    assert int(valid.sum()) > 3000
+    return obj.contiguous(), cot.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("case", ["zeros", "one_cell", "ragged_1000",
+                                  "ragged_4099", "tile_ordered"])
+def test_aggregated_scatter_matches_plain_twin(dev, mug, case, pairs):
+    """The warp-aggregated scatter, with scalar and with float2 pair
+    atomics, against scatter_plain (tolerance 1e-3 relative to max(1,
+    max|want|): float atomics in no fixed order); all-zero cotangents give
+    exact zeros."""
+    pts, cot = _scatter_case(dev, mug, case)
+    kernels.reset_launches()
+    got = kernels.scatter(pts, cot, 64, pairs=pairs)
+    torch.cuda.synchronize()
+    assert kernels.scatter.launches == 1
+    if case == "zeros":
+        assert torch.equal(got, torch.zeros_like(got))
+        return
+    want = kernels.scatter_plain(pts, cot, 64)
+    assert float(want.abs().max()) > 0
+    err = float((got - want).abs().max())
+    assert err <= 1e-3 * max(1.0, float(want.abs().max())), err
 
 
 @pytest.mark.cuda
