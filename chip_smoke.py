@@ -20,8 +20,8 @@ Phases:
             all rays skipped; the relaxed march with and without culling;
             the bf16 marches (culling, relaxed, warm), bf16 without culling
             equal to the fp32 march, and the bf16 sample's error bound; the
-            tiled march: every table copy and the flat launch bit for bit
-            equal, zeros on an all-miss pose
+            tiled march: the flat launch bit for bit equal to the 16x16
+            tiles, zeros on an all-miss pose
   pipeline  SDFPipeline.__call__ of the mug_procedural preset with the
             committed weights on a self-rendered observation, 50 full-frame
             iterations; counts kernel launches per call and times 3 calls
@@ -48,9 +48,8 @@ Phases:
             march also at the three ROI shapes of the fast plan, plain,
             relaxed, the warm march cold and mid-refinement, the fp32
             culling march without adaptive, and the bf16 marches; active
-            16x16 tiles per render, each table copy of the default and
-            bf16 marches, the flat launch, all-miss poses; the scatter with
-            zero cotangents and with float2 pair atomics
+            16x16 tiles per render, the flat launch, all-miss poses of the
+            default and bf16 marches; the scatter with zero cotangents
   profile   torch.profiler over one full-frame, fast and temporal call:
             device busy share and the ops that take the time
 
@@ -435,13 +434,7 @@ class Smoke:
         print(f"check scatter     N={pts.shape[0]} max|d|={es:.3e} "
               f"(tol {tol:.3e})")
         assert es <= tol, "scatter kernel disagrees with its plain twin"
-        # the scalar atomics, which chip_smoke times against the pairs
-        e = float((k.scatter(pts, cot.contiguous(), res, pairs=False)
-                   - want).abs().max())
-        print(f"check scatter     scalar atomics max|d|={e:.3e}")
-        assert e <= tol, "scatter with scalar atomics disagrees"
-        self.report["scatter"] = dict(max_err=max(es, e), tol=tol,
-                                      n=pts.shape[0],
+        self.report["scatter"] = dict(max_err=es, tol=tol, n=pts.shape[0],
                                       active=int((cot != 0).sum()))
         # march, at every ground-truth pose, with and without culling +
         # adaptive relaxation
@@ -478,10 +471,10 @@ class Smoke:
         self.check_tiles()
 
     def check_tiles(self):
-        """The tiled march at every pose: each table copy and the flat
-        (N, 3) launch give the default launch's depth bit for bit, for the
+        """The tiled march at every pose: the flat (N, 3) launch of 1-D
+        blocks gives the 16x16-tile launch's depth bit for bit, for the
         culling + adaptive, no-adaptive, relaxed culling and bf16 marches;
-        with the object behind the camera every copy gives zeros."""
+        with the object behind the camera the tiles give zeros."""
         import torch
 
         from sdfest_torch.render import api, kernels as k
@@ -502,20 +495,14 @@ class Smoke:
                                **kw)
                 same = torch.equal(want.reshape(-1), k.march(
                     self.sdf, flat, pose, thr, 500, True, adaptive, **kw))
-                zeros = True
-                for copy in k.TABLE_COPIES:
-                    same = same and torch.equal(want, k.march(
-                        self.sdf, rays, pose, thr, 500, True, adaptive,
-                        table_copy=copy, **kw))
-                    zeros = zeros and not bool(k.march(
-                        self.sdf, rays, behind, thr, 500, True, adaptive,
-                        table_copy=copy, **kw).any())
+                zeros = not bool(k.march(
+                    self.sdf, rays, behind, thr, 500, True, adaptive,
+                    **kw).any())
                 assert int((want > 0).sum()) > 3000, "too few hits"
-                assert same, f"{name}: table copies or flat launch differ"
+                assert same, f"{name}: tiles and flat launch differ"
                 assert zeros, f"{name}: all-miss pose not all zeros"
-            print(f"check march tiles pose {i}: every table copy "
-                  f"{list(k.TABLE_COPIES)} and the flat launch equal the "
-                  f"default bit for bit ({', '.join(marches)}); all-miss "
+            print(f"check march tiles pose {i}: the flat launch equals the "
+                  f"16x16 tiles bit for bit ({', '.join(marches)}); all-miss "
                   f"zeros")
 
     def check_bf16(self):
@@ -1364,14 +1351,14 @@ class Smoke:
                               bytes=nbytes, ops=ops, steps=steps))
         self.time_march_variants(poses, dirs, coarse)
         self.time_tiles(poses, dirs, coarse)
-        self.time_scatter_variants(sets)
+        self.time_scatter_zeros(sets)
 
     def time_tiles(self, poses, dirs, coarse):
         """The march's per-tile culling at the 30 timed poses: active 16x16
         tiles per render (from the twin's slab test, no kernel change); the
-        default and the bf16 march with each table copy, the flat (N, 3)
-        launch of 1-D blocks, and both marches at 30 all-miss poses (the
-        same poses with the object behind the camera)."""
+        flat (N, 3) launch of 1-D blocks, and the default and the bf16
+        march at 30 all-miss poses (the same poses with the object behind
+        the camera)."""
         import torch
 
         from sdfest_torch.render import kernels as k
@@ -1419,30 +1406,15 @@ class Smoke:
         # bound of an all-miss render: directions in, zeros out, the table
         b_miss = {False: bound(h * w * 16 + table, 0.0),
                   True: bound(h * w * 16 + 2 * 16 ** 3 * 4 + 14 * 4, 0.0)}
-        copies = self.report["march"]["table_copy"] = {}
         miss = self.report["march"]["all_miss"] = {}
-        for copy in k.TABLE_COPIES:
-            row = copies[copy] = {}
-            for bf16 in (False, True):
-                kw = dict(coarse=pair, bf16=True, sdf_bf16=grid_b) if bf16 \
-                    else dict(coarse=coarse)
-                name = "bf16" if bf16 else "default"
-                row[name] = cuda_ms(lambda pose: k.march(
-                    self.sdf, rays, pose, thr, 500, True, True,
-                    table_copy=copy, **kw), poses)
-                row[f"all_miss_{name}"] = cuda_ms(lambda pose: k.march(
-                    self.sdf, rays, pose, thr, 500, True, True,
-                    table_copy=copy, **kw), behind)
-            print(f"time march table copy {copy}: default {row['default']:.4f}"
-                  f" ms, bf16 {row['bf16']:.4f} ms; all-miss default "
-                  f"{row['all_miss_default']:.4f} ms, bf16 "
-                  f"{row['all_miss_bf16']:.4f} ms")
-        for bf16, name in ((False, "default"), (True, "bf16")):
-            ms = copies[k.TABLE_COPY][f"all_miss_{name}"]
+        for bf16 in (False, True):
+            kw = dict(coarse=pair, bf16=True, sdf_bf16=grid_b) if bf16 \
+                else dict(coarse=coarse)
+            name = "bf16" if bf16 else "default"
+            ms = cuda_ms(lambda pose: k.march(
+                self.sdf, rays, pose, thr, 500, True, True, **kw), behind)
             b_ms, by = b_miss[bf16]
-            miss[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by,
-                              by_copy={c: copies[c][f"all_miss_{name}"]
-                                       for c in copies})
+            miss[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
             print(f"time march all-miss {name} kernel {ms:.4f} ms bound "
                   f"{b_ms:.5f} ms ({by})")
         # the flat (N, 3) launch: 1-D blocks of 256 consecutive raster rays
@@ -1452,10 +1424,9 @@ class Smoke:
         print(f"time march flat (N, 3) launch, 256-ray row blocks: {ms:.4f} "
               f"ms (16x16 tiles: {self.report['march']['ms']:.4f} ms)")
 
-    def time_scatter_variants(self, sets):
+    def time_scatter_zeros(self, sets):
         """The scatter with all-zero cotangents (the floor of launch, read
-        and fill), and with scalar against float2 pair atomics, on the time
-        phase's 30 backward query sets."""
+        and fill) on the time phase's 30 backward query sets."""
         import torch
 
         from sdfest_torch.render import kernels as k
@@ -1470,18 +1441,6 @@ class Smoke:
             ms=ms, bound_ms=b_ms, bound_by=by)
         print(f"time scatter zero cotangents kernel {ms:.4f} ms bound "
               f"{b_ms:.5f} ms ({by})")
-        gen = torch.Generator(device="cpu").manual_seed(3)
-        inp = [(p, (torch.randn(n, generator=gen).to(self.dev)
-                    * torch.cat([sm, m])).contiguous())
-               for p, (_, sm, _, m) in zip(pts, sets)]
-        # scalar against float2 pair atomics, in turns, twice
-        r = self.report["scatter"]["variants"] = {}
-        for _ in range(2):
-            for pairs in (False, True):
-                ms = cuda_ms(lambda x: k.scatter(*x, res, pairs=pairs), inp)
-                r.setdefault("pairs" if pairs else "scalar", []).append(ms)
-        print(f"time scatter scalar atomics {r['scalar']} ms, float2 pair "
-              f"atomics {r['pairs']} ms (two turns)")
 
     def time_march_variants(self, poses, dirs, coarse):
         """The plain branch, the relaxed march (culling on and off) and the
@@ -1797,8 +1756,7 @@ def kernels_line(report) -> str:
         })
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
-                    "active_tiles", "table_copy", "all_miss", "flat",
-                    "zero_cotangents", "variants"):
+                    "active_tiles", "all_miss", "flat", "zero_cotangents"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})

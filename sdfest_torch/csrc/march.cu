@@ -38,16 +38,12 @@
 // pallas_kernel.py:546-561 with _obb_interval_tile :564, done per block
 // without a prefetch pass): every thread first runs its ray's slab test,
 // then the block votes (__syncthreads_or).  A tile where no ray meets the
-// box writes its zeros and leaves without the coarse table; only the
-// others copy it into shared memory.  How (TableCopy below): by default
-// thread 0 issues one TMA bulk copy after the vote and the tile waits on
-// its mbarrier; or a float4 copy by the whole block after the vote; or one
-// TMA bulk copy issued before the slab test, so that it overlaps the rays'
-// setup (an empty tile then still waits for it: its shared memory must not
-// be released under a copy in flight).  The table lives in dynamic shared
-// memory, at its 128-byte aligned base (a TMA copy into a merely 16-byte
-// aligned destination measured several times slower), so a launch without
-// culling holds none and the SM's L1 stays with the grid's gathers.
+// box writes its zeros and leaves without the coarse table; in the others
+// thread 0 issues one TMA bulk copy of it into shared memory and the tile
+// waits on the copy's mbarrier.  The table lives in dynamic shared memory,
+// at its 128-byte aligned base (a TMA copy into a merely 16-byte aligned
+// destination measured several times slower), so a launch without culling
+// holds none and the SM's L1 stays with the grid's gathers.
 //
 // Per ray:
 //  1. rotate the host-constant f32 camera ray into the object frame;
@@ -83,15 +79,14 @@
 // launch of 1,200 blocks, where only ~8% of the rays meet the box; here the
 // copy happens only in tiles with a ray in the box (124 of 1,200 on
 // average at the timed poses).  Measured on an NVIDIA H100 80GB HBM3 at
-// 700 W, mean of 30 launches at 640x480, two runs (PERF.md section 6):
-// with the TMA copy after the vote the default march takes 16.2 / 16.1 us
-// and the bf16 march 18.6 / 18.4 us, against 18.8 and 21.9 us with the
-// copy in every block; float4 loads after the vote 16.4 / 19.4 us; the
-// TMA copy before the slab test 16.2 / 19.1 us, but 5.0 / 6.0 us on an
-// all-miss frame, where every empty tile waits for its copy.
-// What remains: a frame where every ray misses the box still takes 4.7 us
-// (1,200 blocks of 48 registers, 5 per SM: two waves of slab tests), and
-// the longest per-ray step chains of the active tiles, with trip-count
+// 700 W, mean of 30 launches at 640x480 (PERF.md section 6, chip run 5):
+// the default march takes 16.2 us and the bf16 march 18.8-18.9 us, against
+// 18.9 and 22.1 us with the copy in every block.  A float4 copy by the
+// whole block after the vote, and a TMA copy issued before the slab test,
+// measured slower (PERF.md section 6).
+// What remains: a frame where every ray misses the box still takes 4.6-4.7
+// us (1,200 blocks of 48 registers, 5 per SM: two waves of slab tests),
+// and the longest per-ray step chains of the active tiles, with trip-count
 // divergence; grouping rays by expected trip count is left for later.
 // The bf16 branch halves the bytes of a fast sample (a 512 KiB bf16 grid)
 // but gathers twice on a verified step and gives up the adaptive
@@ -203,7 +198,7 @@ __device__ __forceinline__ int coarse_cell(float px, float py, float pz) {
 // The pixel of this thread, -1 outside the rays.  h > 0: the block is the
 // 16x16 tile (blockIdx.x, blockIdx.y) of an (h, w) raster, thread k at
 // (row k / 16, column k % 16) of the tile; h == 0: a flat set of n rays in
-// 1-D blocks.  (kernels.march_pixels writes the same map for the tests.)
+// 1-D blocks.
 constexpr int kTile = 16;
 static_assert(kTile * kTile == sdfest::kThreads, "a block is one tile");
 
@@ -216,14 +211,6 @@ __device__ __forceinline__ int pixel_index(int n, int h, int w) {
   const int y = blockIdx.y * kTile + (int)threadIdx.x / kTile;
   return x < w && y < h ? y * w + x : -1;
 }
-
-// How a culling march's tile copies the coarse table into shared memory
-// (the wrapper's table_copy; every mode gives the same result bit for bit).
-enum TableCopy : int {
-  kCopyTmaEarly = 0,  // TMA bulk copy issued before the slab test
-  kCopyFloat4 = 1,    // float4 loads by the block after the vote
-  kCopyTma = 2,       // TMA bulk copy issued after the vote (the default)
-};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -296,23 +283,15 @@ struct CoarseTable {
   alignas(8) float s[kPairs ? 2 * kCells : kCells];
 };
 
-// The coarse table of march_kernel, copied from `g` into the block's
-// dynamic shared memory `s` (sized by the launch: 0 bytes when the march
-// does not cull).  kPairs as CoarseTable.
+// The coarse table of march_kernel, copied by one TMA bulk copy into the
+// block's dynamic shared memory `s` (sized by the launch: 0 bytes when the
+// march does not cull).  kPairs as CoarseTable.
 template <bool kPairs>
 struct TableView {
   static constexpr int kFloats = kPairs ? 2 * kCells : kCells;
   static constexpr unsigned kBytes = kFloats * sizeof(float);
-  const float* g;
   float* s;
 
-  // float4 loads by the whole block; the caller synchronises
-  __device__ __forceinline__ void load_float4() const {
-    const float4* src = reinterpret_cast<const float4*>(g);
-    float4* dst = reinterpret_cast<float4*>(s);
-    for (int k = threadIdx.x; k < kFloats / 4; k += blockDim.x)
-      dst[k] = __ldg(src + k);
-  }
   __device__ __forceinline__ float bound(float px, float py, float pz,
                                          float scale, float* amax) const {
     const int c = coarse_cell(px, py, pz);
@@ -360,22 +339,17 @@ __global__ void march_kernel(const float* __restrict__ sdf,
                              const float* __restrict__ pose,
                              float* __restrict__ depth, int n, int h, int w,
                              int res, float threshold, int max_steps,
-                             int culling, int adaptive, float relaxation,
-                             int copy) {
+                             int culling, int adaptive, float relaxation) {
   // the table at the base of the dynamic shared memory (the launch has no
   // static shared memory, so the TMA destination is 128-byte aligned),
   // then the mbarrier of its bulk copy
   extern __shared__ __align__(128) float4 dynamic_smem[];
-  const TableView<kBf16> table{coarse,
-                               reinterpret_cast<float*>(dynamic_smem)};
+  const TableView<kBf16> table{reinterpret_cast<float*>(dynamic_smem)};
   unsigned long long* bar =
       reinterpret_cast<unsigned long long*>(table.s + table.kFloats);
   const bool cull = kBf16 || culling;
   const bool adapt = !kBf16 && adaptive;
   const int i = pixel_index(n, h, w);
-  const bool lead = threadIdx.x == 0;
-  if (cull && copy == kCopyTmaEarly && lead)
-    bulk_copy(table.s, coarse, table.kBytes, bar);
 
   Ray r;
   bool marches = false;
@@ -387,20 +361,11 @@ __global__ void march_kernel(const float* __restrict__ sdf,
     // every thread of the block reaches the vote, ragged edge included
     if (!__syncthreads_or(marches)) {  // no ray of the tile meets the box
       if (i >= 0) depth[i] = 0.0f;
-      // the copy must land before the block's shared memory is released
-      if (copy == kCopyTmaEarly && lead) bulk_wait(bar);
       return;
     }
-    if (copy == kCopyFloat4) {
-      table.load_float4();
-      __syncthreads();
-    } else {
-      if (copy == kCopyTma) {
-        if (lead) bulk_copy(table.s, coarse, table.kBytes, bar);
-        __syncthreads();  // the barrier is armed before anyone waits on it
-      }
-      bulk_wait(bar);
-    }
+    if (threadIdx.x == 0) bulk_copy(table.s, coarse, table.kBytes, bar);
+    __syncthreads();  // the barrier is armed before anyone waits on it
+    bulk_wait(bar);
   }
   if (i < 0) return;
 
@@ -589,14 +554,13 @@ __global__ void march_warm_kernel(
 // culling).
 // The rays: n = h * w in raster order when h > 0 (one block per 16x16
 // tile; the wrapper passes h > 0 only for a culling march), else a set of
-// n in 1-D blocks.  copy: a TableCopy, read when the march culls (coarse
-// 16-byte aligned).
+// n in 1-D blocks.  coarse is 16-byte aligned (the source of a TMA copy).
 extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
                             const float* coarse, const float* dirs,
                             const float* pose, float* depth, int n, int h,
                             int w, int res, float threshold, int max_steps,
                             int culling, int adaptive, float relaxation,
-                            int bf16, int copy, void* stream) {
+                            int bf16, void* stream) {
   if (n <= 0) return 0;
   const dim3 blocks =
       h > 0 ? dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile)
@@ -615,7 +579,7 @@ extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
   kernel<<<blocks, sdfest::kThreads, smem, (cudaStream_t)stream>>>(
       sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
       depth, n, h, w, res, threshold, max_steps, culling, adaptive,
-      relaxation, copy);
+      relaxation);
   return (int)cudaGetLastError();
 }
 

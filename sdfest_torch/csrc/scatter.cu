@@ -16,9 +16,9 @@
 //     lowest lane of each group sums the group's 8 corner contributions
 //     (shuffles, members in lane order) and issues the group's atomics
 //     alone (their results unused: RED instructions);
-//  3. with `pairs` (the default), a leader whose cell has an even z index
-//     adds each z-pair of corners with one 8-byte float2 atomicAdd (sm_90):
-//     4 atomics instead of 8.
+//  3. when res is even, a leader whose cell has an even z index adds each
+//     z-pair of corners with one 8-byte float2 atomicAdd (sm_90): 4
+//     atomics instead of 8 (an odd res or z index takes 8 scalar ones).
 // NOT DETERMINISTIC: the order of the float atomics across warps changes
 // from run to run, so the last bits of the sums do.  The JAX kernel is
 // deterministic (a matmul transpose accumulated over sequential grid steps,
@@ -31,11 +31,11 @@
 // zero fill fused into the kernel (a cooperative launch with a grid-wide
 // barrier before the atomics) measured slower than torch.zeros plus this
 // launch, and is not used.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (PERF.md section 6): 4.0 us per launch inside the 50-iteration
-// full-frame call (one atomic per corner and row read 5.0 us in an
-// earlier run); 8.2 us against that design's 9.1 us for the wrapper (fill
-// included) over 614,400 rows in one run, of which 5.9 us is the floor
-// with every cotangent zero; float2 pairs 0.2-0.6 us faster than scalar
+// (PERF.md section 6, chip run 5): 4.0 us per launch inside the
+// 50-iteration full-frame call (one atomic per corner and row: 5.0 us);
+// 7.9-8.0 us against that design's 8.9-9.0 us for the wrapper (fill
+// included) over 614,400 rows, of which 5.8-5.9 us is the floor with
+// every cotangent zero; float2 pairs 0.3-0.6 us faster than scalar
 // atomics.
 #include <cuda_runtime.h>
 
@@ -47,8 +47,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void scatter_kernel(const float* __restrict__ points,
                                const float* __restrict__ cot,
-                               float* __restrict__ grad, int n, int res,
-                               int pairs) {
+                               float* __restrict__ grad, int n, int res) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const float g = i < n ? cot[i] : 0.0f;
   const bool live = g != 0.0f;
@@ -89,7 +88,8 @@ __global__ void scatter_kernel(const float* __restrict__ points,
   if (!leader) return;
 
   const int rr = res * res;
-  if (pairs && (key & 1) == 0) {
+  // an even res and key put each z-pair at an 8-byte aligned address
+  if (((res | key) & 1) == 0) {
 #pragma unroll
     for (int k = 0; k < 8; k += 2)
       atomicAdd(reinterpret_cast<float2*>(grad + key + (k >> 2) * rr +
@@ -105,14 +105,12 @@ __global__ void scatter_kernel(const float* __restrict__ points,
 
 }  // namespace
 
-// pairs: float2 atomics on the z-pairs of cells with an even z index (the
-// grid 8-byte aligned, res even).
+// grad: 8-byte aligned (the float2 atomics of an even res).
 extern "C" int sdfest_scatter(const float* points, const float* cot,
-                              float* grad, int n, int res, int pairs,
-                              void* stream) {
+                              float* grad, int n, int res, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
   scatter_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-      points, cot, grad, n, res, pairs);
+      points, cot, grad, n, res);
   return (int)cudaGetLastError();
 }

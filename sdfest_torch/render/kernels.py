@@ -58,22 +58,14 @@ _F = ctypes.c_float
 # wrapper -> (library, C entry, argument types)
 _SIGNATURES = {
     "march": ("march", "sdfest_march",
-              [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _F, _I, _I, _P]),
+              [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _F, _I, _P]),
     "march_warm": ("march", "sdfest_march_warm",
                    [_P] * 13 + [_I, _I, _F, _I, _I, _P]),
     "sample": ("sample", "sdfest_sample", [_P, _P, _P, _P, _I, _I, _P]),
     "sample_grad": ("sample_grad", "sdfest_sample_grad",
                     [_P, _P, _P, _P, _P, _I, _I, _P]),
-    "scatter": ("scatter", "sdfest_scatter", [_P, _P, _P, _I, _I, _I, _P]),
+    "scatter": ("scatter", "sdfest_scatter", [_P, _P, _P, _I, _I, _P]),
 }
-# how a culling march's tile with a ray in the box copies the coarse table
-# into shared memory (``TableCopy`` in csrc/march.cu; the same result bit
-# for bit): "tma_early" one TMA bulk copy issued before the slab test,
-# "float4" float4 loads by the block after the tile's vote, "tma" one TMA
-# bulk copy after the vote (TABLE_COPY, the default: the fastest on the
-# H100, PERF.md section 6; chip_smoke.py times all three)
-TABLE_COPIES = {"tma_early": 0, "float4": 1, "tma": 2}
-TABLE_COPY = "tma"
 _FUNCS = {}
 
 
@@ -193,22 +185,6 @@ def march_geometry(raster: tuple, tiles: bool = True
     return h, w, (-(-w // TILE), -(-h // TILE))
 
 
-def march_pixels(raster: tuple, tiles: bool = True) -> torch.Tensor:
-    """The pixel each thread of the march's launch over ``raster`` takes,
-    ``(*reversed(blocks), TILE * TILE)`` with -1 outside the rays: the map
-    of ``pixel_index`` in ``csrc/march.cu``, for tests of the geometry."""
-    h, w, blocks = march_geometry(raster, tiles)
-    k = torch.arange(TILE * TILE)
-    if h == 0:
-        i = torch.arange(blocks[0])[:, None] * (TILE * TILE) + k
-        return torch.where(i < w, i, -1)
-    bx = torch.arange(blocks[0])[None, :, None]
-    by = torch.arange(blocks[1])[:, None, None]
-    x = bx * TILE + k % TILE
-    y = by * TILE + k // TILE
-    return torch.where((x < w) & (y < h), y * w + x, -1)
-
-
 def _check_pose(pose: torch.Tensor) -> None:
     if pose.shape != (14,):
         raise ValueError("pose must be [rot (9), origin_o (3), inv_s, s]")
@@ -253,7 +229,6 @@ def march(
     relaxation: float = 1.0,
     bf16: bool = False,
     sdf_bf16: Optional[torch.Tensor] = None,
-    table_copy: str = TABLE_COPY,
 ) -> torch.Tensor:
     """Sphere-trace the depth of rays ``dirs (..., 3)``, shaped like their
     leading dims (``csrc/march.cu``; plain version
@@ -263,10 +238,10 @@ def march(
     render (:func:`sdfest_torch.render.api.ray_set`); each ray depends on
     nothing but its own direction, so an ROI render equals the crop of the
     full render bit for bit.  A culling march over a raster launches one
-    block per 16x16 tile (:func:`march_geometry`), and a tile reads the
-    coarse table only when one of its rays meets the box, as
-    ``table_copy`` (:data:`TABLE_COPIES`) says; a march without culling,
-    or over a flat ``(N, 3)`` set, launches 1-D blocks of 256 rays.
+    block per 16x16 tile (:func:`march_geometry`), and a tile copies the
+    coarse table into shared memory only when one of its rays meets the
+    box; a march without culling, or over a flat ``(N, 3)`` set, launches
+    1-D blocks of 256 rays.
     ``relaxation > 1`` selects the relaxed march (``adaptive`` is then
     ignored).  ``bf16`` gates the fine steps with a
     bf16 sample; as in the JAX package it acts only with culling and there
@@ -279,8 +254,6 @@ def march(
     res = _check_grid(sdf)
     raster, flat = _rays(dirs)
     _check_pose(pose)
-    if table_copy not in TABLE_COPIES:
-        raise ValueError(f"table_copy must be one of {list(TABLE_COPIES)}")
     bf16 = bool(bf16 and culling)
     if _on_cpu(sdf, dirs, pose):
         return march_plain(sdf, flat, pose, threshold, max_steps, culling,
@@ -304,7 +277,6 @@ def march(
             pose.data_ptr(), depth.data_ptr(), n, h, w, res,
             float(threshold), int(max_steps), int(bool(culling)),
             int(bool(adaptive) and not bf16), float(relaxation), int(bf16),
-            TABLE_COPIES[table_copy],
         )
         march.launches += 1
         march.bf16_launches += bf16
@@ -454,16 +426,14 @@ def scatter_plain(
 
 
 def scatter(
-    points: torch.Tensor, cotangents: torch.Tensor, res: int,
-    pairs: bool = True,
+    points: torch.Tensor, cotangents: torch.Tensor, res: int
 ) -> torch.Tensor:
     """``(res, res, res)`` accumulation of each point's 8 corner weights
     times its cotangent (``csrc/scatter.cu``; plain version
     :func:`scatter_plain`).  On CUDA the lanes of a warp that share a base
     cell sum their contributions first, and one lane adds them with float
-    atomics (``pairs``: float2 atomics on the z-pairs of even cells; off
-    only to time the scalar atomics against them): the sums are not
-    deterministic in their last bits."""
+    atomics (float2 atomics on the z-pairs of even cells when ``res`` is
+    even): the sums are not deterministic in their last bits."""
     n = _check_points(points, cotangents)
     if _on_cpu(points, cotangents):
         return scatter_plain(points, cotangents, res)
@@ -473,8 +443,7 @@ def scatter(
                        device=points.device)
     if n:
         _launch("scatter", points.device, points.data_ptr(),
-                cotangents.data_ptr(), grad.data_ptr(), n, res,
-                int(bool(pairs) and res % 2 == 0))
+                cotangents.data_ptr(), grad.data_ptr(), n, res)
         scatter.launches += 1
     return grad
 

@@ -284,9 +284,9 @@ def _march_case(dev, cam, case):
                                   "all_miss", "fills_frame"])
 @pytest.mark.parametrize("instance", list(MARCHES))
 def test_tiled_march_equals_its_twin_bit_for_bit(dev, mug, instance, case):
-    """Every instance of march_kernel, with every table copy, equals its
-    CUDA twin bit for bit on ragged rasters, a flat ray set, an all-miss
-    pose (zeros) and a pose where every tile meets the box."""
+    """Every instance of march_kernel equals its CUDA twin bit for bit on
+    ragged rasters, a flat ray set, an all-miss pose (zeros) and a pose
+    where every tile meets the box."""
     sdf, cam = mug
     culling, adaptive, relaxation, bf16 = MARCHES[instance]
     rays, pose = _march_case(dev, cam, case)
@@ -304,15 +304,13 @@ def test_tiled_march_equals_its_twin_bit_for_bit(dev, mug, instance, case):
                                  rays.shape[:-1])
     if case != "all_miss":
         assert int((want > 0).sum()) > 0
-    for copy in kernels.TABLE_COPIES:
-        kernels.reset_launches()
-        got = kernels.march(sdf, rays, pose, 0.005, 500, culling, adaptive,
-                            relaxation=relaxation, bf16=bf16,
-                            table_copy=copy)
-        torch.cuda.synchronize()
-        assert kernels.march.launches == 1
-        assert kernels.march.bf16_launches == int(bf16)
-        assert torch.equal(got, want), (copy, float((got - want).abs().max()))
+    kernels.reset_launches()
+    got = kernels.march(sdf, rays, pose, 0.005, 500, culling, adaptive,
+                        relaxation=relaxation, bf16=bf16)
+    torch.cuda.synchronize()
+    assert kernels.march.launches == 1
+    assert kernels.march.bf16_launches == int(bf16)
+    assert torch.equal(got, want), float((got - want).abs().max())
 
 
 def _scatter_case(dev, mug, case):
@@ -321,7 +319,8 @@ def _scatter_case(dev, mug, case):
     if case == "zeros":
         pts = torch.rand(614_400, 3, generator=g) * 2.0 - 1.0
         return pts.to(dev), torch.zeros(614_400, device=dev)
-    if case == "one_cell":  # 4,096 rows in base cell 40 of each axis
+    if case == "one_cell":  # 4,096 rows in base cell 40 of each axis (res
+        # 64; two cells per axis at res 63)
         pts = -1.0 + (40.25 + 0.5 * torch.rand(4096, 3, generator=g)) * (
             2.0 / 63.0)
         return pts.to(dev), torch.randn(4096, generator=g).to(dev)
@@ -349,23 +348,23 @@ def _scatter_case(dev, mug, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("res", [64, 63])
 @pytest.mark.parametrize("case", ["zeros", "one_cell", "ragged_1000",
                                   "ragged_4099", "tile_ordered"])
-def test_aggregated_scatter_matches_plain_twin(dev, mug, case, pairs):
-    """The warp-aggregated scatter, with scalar and with float2 pair
-    atomics, against scatter_plain (tolerance 1e-3 relative to max(1,
-    max|want|): float atomics in no fixed order); all-zero cotangents give
-    exact zeros."""
+def test_aggregated_scatter_matches_plain_twin(dev, mug, case, res):
+    """The warp-aggregated scatter against scatter_plain (tolerance 1e-3
+    relative to max(1, max|want|): float atomics in no fixed order), on a
+    grid of even res (float2 atomics on even cells) and of odd res (scalar
+    atomics only); all-zero cotangents give exact zeros."""
     pts, cot = _scatter_case(dev, mug, case)
     kernels.reset_launches()
-    got = kernels.scatter(pts, cot, 64, pairs=pairs)
+    got = kernels.scatter(pts, cot, res)
     torch.cuda.synchronize()
     assert kernels.scatter.launches == 1
     if case == "zeros":
         assert torch.equal(got, torch.zeros_like(got))
         return
-    want = kernels.scatter_plain(pts, cot, 64)
+    want = kernels.scatter_plain(pts, cot, res)
     assert float(want.abs().max()) > 0
     err = float((got - want).abs().max())
     assert err <= 1e-3 * max(1.0, float(want.abs().max())), err

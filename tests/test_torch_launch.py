@@ -1,32 +1,54 @@
-"""The march kernel's launch geometry (``kernels.march_geometry`` and the
-thread-to-pixel map ``kernels.march_pixels``, which ``pixel_index`` in
-``csrc/march.cu`` follows): every ray is taken by exactly one thread."""
+"""The march kernel's launch geometry (``kernels.march_geometry``): with the
+thread-to-pixel map of ``pixel_index`` in ``csrc/march.cu``, written out
+here, every ray is taken by exactly one thread."""
 import pytest
 import torch
 
 from sdfest_torch.render import kernels
 
 
+def pixel_map(h: int, w: int, blocks: tuple) -> torch.Tensor:
+    """The pixel each thread of a launch takes, ``(*reversed(blocks),
+    TILE * TILE)`` with -1 outside the rays, as ``pixel_index``: h == 0 a
+    flat set of w rays in 1-D blocks; otherwise block (bx, by) is the
+    16x16 tile of the (h, w) raster, thread k at (row k / 16, column
+    k % 16) of the tile."""
+    tile = kernels.TILE
+    k = torch.arange(tile * tile)
+    if h == 0:
+        i = torch.arange(blocks[0])[:, None] * (tile * tile) + k
+        return torch.where(i < w, i, -1)
+    bx = torch.arange(blocks[0])[None, :, None]
+    by = torch.arange(blocks[1])[:, None, None]
+    x = bx * tile + k % tile
+    y = by * tile + k // tile
+    return torch.where((x < w) & (y < h), y * w + x, -1)
+
+
 @pytest.mark.parametrize("tiles", [True, False])
 @pytest.mark.parametrize("raster", [(480, 640), (64, 80), (37, 53), (1, 7),
-                                    (1, 200), (2, 37, 53), (1000,)])
+                                    (1, 200), (16, 16), (2, 37, 53),
+                                    (1000,)])
 def test_march_launch_covers_every_ray_once(raster, tiles):
     h, w, blocks = kernels.march_geometry(raster, tiles)
-    pixels = kernels.march_pixels(raster, tiles)
     n = 1
     for d in raster:
         n *= d
     threads = kernels.TILE * kernels.TILE
+    if len(raster) == 1 or not tiles:  # 1-D blocks of consecutive rays
+        assert h == 0 and w == n
+        assert blocks == (-(-n // threads),)
+    else:  # a culling raster: one block per 16x16 tile of the (h, w) image
+        assert (h, w) == (n // raster[-1], raster[-1])
+        assert blocks == (-(-w // 16), -(-h // 16))
+    pixels = pixel_map(h, w, blocks)
     assert pixels.shape == (*reversed(blocks), threads)
     taken = pixels[pixels >= 0]
     assert taken.numel() == n
     assert torch.equal(torch.sort(taken).values, torch.arange(n))
-    if len(raster) == 1 or not tiles:  # 1-D blocks of consecutive rays
-        assert h == 0 and w == n
+    if h == 0:
         assert torch.equal(taken, torch.arange(n))
-    else:  # a culling raster: one block per 16x16 tile of the (h, w) image
-        assert (h, w) == (n // raster[-1], raster[-1])
-        assert blocks == (-(-w // 16), -(-h // 16))
+    else:
         rows, cols = taken // w, taken % w
         for b in range(pixels.shape[0] * pixels.shape[1]):
             p = pixels.reshape(-1, threads)[b]
@@ -35,11 +57,3 @@ def test_march_launch_covers_every_ray_once(raster, tiles):
             assert bool(((p // w) // 16 == by).all())
             assert bool(((p % w) // 16 == bx).all())
         assert int(rows.max()) == h - 1 and int(cols.max()) == w - 1
-
-
-def test_march_rejects_unknown_table_copy():
-    sdf = torch.zeros(8, 8, 8)
-    pose = torch.zeros(14)
-    with pytest.raises(ValueError, match="table_copy"):
-        kernels.march(sdf, torch.zeros(4, 4, 3), pose, 0.005, 10,
-                      table_copy="texture")
