@@ -14,14 +14,18 @@ Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
   check     hold each kernel against its plain PyTorch twin at main-path
             shapes (640x480 camera, decoded 64^3 mug SDF, realistic masks);
-            ROI marches against the crop of the full march (bit for bit)
-            and against the plain ROI march, at strides 1, 2 and 4; the
-            warm/aux march cold and with a real warm step's inputs, and
-            all rays skipped; the relaxed march with and without culling;
-            the bf16 marches (culling, relaxed, warm), bf16 without culling
-            equal to the fp32 march, and the bf16 sample's error bound; the
-            tiled march: the flat launch bit for bit equal to the 16x16
-            tiles, zeros on an all-miss pose
+            the sampler bit for bit also on row counts that are not a
+            multiple of 4, views 1 and 2 rows past the base and a
+            non-binary mask; ROI marches against the crop of the full march
+            (bit for bit) and against the plain ROI march, at strides 1, 2
+            and 4; the tiled warm/aux march (fp32 and bf16) bit for bit,
+            cold and with a real warm step's inputs, and the exact
+            non-marching outputs of an all-skip frame and an all-miss pose;
+            the relaxed march with and without culling; the bf16 marches
+            (culling, relaxed), bf16 without culling equal to the fp32
+            march, and the bf16 sample's error bound; the tiled march: the
+            flat launch bit for bit equal to the 16x16 tiles, zeros on an
+            all-miss pose
   pipeline  SDFPipeline.__call__ of the mug_procedural preset with the
             committed weights on a self-rendered observation, 50 full-frame
             iterations; counts kernel launches per call and times 3 calls
@@ -49,7 +53,11 @@ Phases:
             relaxed, the warm march cold and mid-refinement, the fp32
             culling march without adaptive, and the bf16 marches; active
             16x16 tiles per render, the flat launch, all-miss poses of the
-            default and bf16 marches; the scatter with zero cotangents
+            default and bf16 marches; the scatter with zero cotangents; the
+            sampler on hot inputs, an empty kernel at its launch geometry,
+            its design variants and F.grid_sample (library yardstick); the
+            warm march's active tiles and an all-skip frame.  Runs without
+            the check phase too (as on a parent tree, to time it in turns)
   profile   torch.profiler over one full-frame, fast and temporal call:
             device busy share and the ops that take the time
 
@@ -203,7 +211,12 @@ class Smoke:
         self.latent = (0.5 * torch.randn(1, 8, generator=gen)).to(self.dev)
         with torch.no_grad():
             self.sdf = self.pipe._decode(self.latent)[0, 0].contiguous()
-        self.report = {}
+        # each kernel's entry (the check phase fills them first; the time
+        # phase runs without it too, as on a parent tree)
+        self.report = {
+            "sample": {}, "sample_grad": {}, "scatter": {},
+            "march": {"roi": {}}, "march_warm": {}, "march_relaxed": {},
+            "march_bf16": {"culling": {}, "relaxed": {}, "warm": {}}}
 
     # -- helpers -----------------------------------------------------------
 
@@ -402,14 +415,28 @@ class Smoke:
         gt = GT_POSES[0]
         sur, sur_m, obj, pc_m = self.queries(gt, 0.01, 1)
         res = self.sdf.shape[0]
-        # sample: the pc values of the fused forward (N = H*W)
-        got = k.sample(self.sdf, obj, pc_m)
-        want = k.sample_plain(self.sdf, obj, pc_m)
-        err = float((got - want).abs().max())
-        print(f"check sample      N={obj.shape[0]} max|d|={err:.3e} "
-              f"(tol 1e-4, active {int(pc_m.sum())})")
-        assert err <= 1e-4, "sample kernel disagrees with its plain twin"
-        self.report["sample"] = dict(max_err=err, tol=1e-4, n=obj.shape[0],
+        # sample: the pc values of the fused forward (N = H*W), then rows
+        # that are not a multiple of 4, views whose base is 4 or 8 bytes
+        # past a 16-byte boundary, and a non-binary mask
+        n = obj.shape[0]
+        scale = torch.rand(n, generator=torch.Generator().manual_seed(5))
+        cases = {"main path": (obj, pc_m),
+                 "n % 4 == 3": (obj[:n - 1], pc_m[:n - 1]),
+                 "offset by one row": (obj[1:], pc_m[1:]),
+                 "offset by two rows, n % 4 == 2": (obj[2:], pc_m[2:]),
+                 "non-binary mask": (obj, (pc_m * scale.to(self.dev))
+                                     .contiguous())}
+        err = 0.0
+        for label, (pts, mask) in cases.items():
+            got = k.sample(self.sdf, pts, mask)
+            want = k.sample_plain(self.sdf, pts, mask)
+            err = max(err, float((got - want).abs().max()))
+            print(f"check sample {label}: N={pts.shape[0]} base "
+                  f"{pts.data_ptr() % 16}/{mask.data_ptr() % 16} bytes past "
+                  f"16 (points/mask), active {int((mask != 0).sum())}, bit "
+                  f"for bit {torch.equal(got, want)}")
+            assert torch.equal(got, want), f"sample differs: {label}"
+        self.report["sample"] = dict(max_err=err, tol="bit for bit", n=n,
                                      active=int(pc_m.sum()))
         # sample-grad + scatter: the concatenated backward queries (2*H*W)
         pts = torch.cat([sur, obj]).contiguous()
@@ -507,10 +534,10 @@ class Smoke:
 
     def check_bf16(self):
         """The bf16-verified marches against their twins at every pose: the
-        culling march (relaxation 1) and the relaxed culling march (1.5),
-        and the warm march cold and with a real warm step's inputs; with
-        culling off, bf16 is the fp32 march bit for bit.  Then the bf16
-        sample's error bound over 1 M points of the decoded mug."""
+        culling march (relaxation 1) and the relaxed culling march (1.5)
+        (the bf16 warm march: check_warm); with culling off, bf16 is the
+        fp32 march bit for bit.  Then the bf16 sample's error bound over 1 M
+        points of the decoded mug."""
         import torch
 
         from sdfest_torch.ops.interpolation import sample_sdf
@@ -522,9 +549,9 @@ class Smoke:
         shape = rays.shape[:2]
         r = self.report["march_bf16"] = dict(
             max_err=0.0, agreement=1.0,
-            tol="hit agreement > 0.995, |ddepth| < 5e-3; warm corridor "
-                "fields |d| < 1e-4 where the hit status agrees; culling off: "
-                "equal to the fp32 march; sample error <= BF16_ERR * amax",
+            tol="hit agreement > 0.995, |ddepth| < 5e-3; warm: all six "
+                "outputs bit for bit; culling off: equal to the fp32 march; "
+                "sample error <= BF16_ERR * amax",
             culling={}, relaxed={}, warm={})
 
         def bar(entry, got, want, label):
@@ -539,7 +566,6 @@ class Smoke:
             for e in (entry, r):
                 e["max_err"] = max(e.get("max_err", 0.0), dd)
                 e["agreement"] = min(e.get("agreement", 1.0), agree)
-            return hit_g == hit_w
 
         for key, relaxation in (("culling", 1.0), ("relaxed", RELAXATION)):
             equal = True
@@ -560,32 +586,6 @@ class Smoke:
                   f"march: {equal}")
             assert equal, "bf16 without culling differs from the fp32 march"
             r[key]["no_culling_equals_fp32"] = equal
-        cold = (torch.full(shape, -1.0, device=self.dev),
-                torch.zeros(shape, device=self.dev))
-        w = r["warm"]
-        w["corridor_max_err"], w["corridor_share_within_1e-4"] = 0.0, 1.0
-        for i, gt in enumerate(GT_POSES):
-            pos, half, q = gt
-            for label, (pose, t_init, skip) in (
-                    ("cold", (self.pose(pos, q, half), *cold)),
-                    ("warm", self.warm_step(gt, 10 + i))):
-                got = k.march_warm(self.sdf, rays, pose, t_init, skip, thr,
-                                   500, bf16=True)
-                want = [x.reshape(shape) for x in plain.march_warm_plain(
-                    self.sdf, flat, pose, t_init.reshape(-1),
-                    skip.reshape(-1), thr, 500, bf16=True)]
-                same = bar(w, got[0], want[0], f"warm pose {i} {label}")
-                de = torch.stack([(g - x).abs() for g, x in
-                                  zip(got[1:], want[1:])]).amax(0)[same]
-                share = float((de < 1e-4).float().mean())
-                print(f"check march_bf16 warm pose {i} {label}: corridor "
-                      f"max|d| {float(de.max()):.3e}, share within 1e-4 "
-                      f"{share:.6f}")
-                assert float(de.max()) < 1e-4, "bf16 warm corridor disagrees"
-                w["corridor_max_err"] = max(w["corridor_max_err"],
-                                            float(de.max()))
-                w["corridor_share_within_1e-4"] = min(
-                    w["corridor_share_within_1e-4"], share)
         # the error bound of a bf16 sample, 1 M points in the box
         gen = torch.Generator(device="cpu").manual_seed(6)
         pts = (torch.rand(1_000_000, 3, generator=gen) * 2.0 - 1.0).to(
@@ -601,10 +601,12 @@ class Smoke:
         r["sample_error_over_amax"] = ratio
 
     def check_warm(self):
-        """The warm/aux march against its twin at every pose, cold and with
-        a real warm step's inputs: the march's bar on the depth, the
-        corridor fields within 1e-4 on rays whose hit status agrees; every
-        ray skipped gives zeros and t == t_last == t0 exactly."""
+        """The tiled warm/aux march, both instances (fp32 and bf16),
+        against its twin at every pose, cold and with a real warm step's
+        inputs: all six outputs bit for bit.  Then, at every pose, a frame
+        where every ray is skipped and a pose with the object behind the
+        camera: depth, v0, min_dip and v_last 0, t == t_last == t0 exactly
+        (no tile marches, so none copies the table)."""
         import torch
 
         from sdfest_torch.render import api, kernels as k, plain
@@ -612,55 +614,57 @@ class Smoke:
         thr = self.pipe.config["threshold"]
         rays = api.ray_set(self.camera, self.dev).march
         shape = rays.shape[:2]
+        flat = rays.reshape(-1, 3)
         r = self.report["march_warm"] = dict(
-            max_err=0.0, agreement=1.0, corridor_max_err=0.0,
-            tol="hit agreement > 0.995, |ddepth| < 5e-3; corridor fields "
-                "|d| < 1e-4 where the hit status agrees; all skipped: zeros, "
-                "t == t_last == t0 exactly")
+            max_err=0.0, tol="all six outputs equal to the twin's (bit for "
+            "bit); all skipped and all miss: zeros, t == t_last == t0")
         cold = (torch.full(shape, -1.0, device=self.dev),
                 torch.zeros(shape, device=self.dev))
         for i, gt in enumerate(GT_POSES):
             pos, half, q = gt
             for label, (pose, t_init, skip) in (
                     ("cold", (self.pose(pos, q, half), *cold)),
-                    ("warm", self.warm_step(gt, 10 + i))):
-                got = k.march_warm(self.sdf, rays, pose, t_init, skip, thr,
-                                   500)
-                want = [x.reshape(shape) for x in plain.march_warm_plain(
-                    self.sdf, rays.reshape(-1, 3), pose, t_init.reshape(-1),
-                    skip.reshape(-1), thr, 500)]
-                hit_g, hit_w = got[0] > 0, want[0] > 0
-                same = hit_g == hit_w
-                agree = float(same.float().mean())
-                both = hit_g & hit_w
-                dd = float((got[0] - want[0])[both].abs().max())
-                de = max(float((g - w)[same].abs().max())
-                         for g, w in zip(got[1:], want[1:]))
-                print(f"check march_warm pose {i} {label}: hits "
-                      f"{int(hit_w.sum())} skipped {int(skip.sum())} "
-                      f"warm-started {int((t_init >= 0).sum())} agreement "
-                      f"{agree:.6f} max|ddepth| {dd:.3e} corridor max|d| "
-                      f"{de:.3e}")
-                assert int(hit_w.sum()) > 3000, "too few hits"
-                assert agree > 0.995 and dd < 5e-3, "march_warm disagrees"
-                assert de < 1e-4, "march_warm corridor fields disagree"
-                r["max_err"] = max(r["max_err"], dd)
-                r["agreement"] = min(r["agreement"], agree)
-                r["corridor_max_err"] = max(r["corridor_max_err"], de)
-        pos, half, q = GT_POSES[0]
-        pose = self.pose(pos, q, half)
-        depth, t, v0, min_dip, v_last, t_last = k.march_warm(
-            self.sdf, rays, pose, cold[0], torch.ones(shape, device=self.dev),
-            thr, 500)
-        _, t0, _ = plain.ray_interval(rays.reshape(-1, 3), pose)
-        t0 = t0.reshape(shape)
-        zeros = all(float(x.abs().sum()) == 0.0
-                    for x in (depth, v0, min_dip, v_last))
-        at_t0 = torch.equal(t, t0) and torch.equal(t_last, t0)
-        print(f"check march_warm all skipped: zeros {zeros}, t == t_last == "
-              f"t0 {at_t0}")
-        assert zeros and at_t0, "all-skip march_warm is not at its start"
-        r["all_skipped_exact"] = True
+                    ("mid-refinement", self.warm_step(gt, 10 + i))):
+                for bf16 in (False, True):
+                    got = k.march_warm(self.sdf, rays, pose, t_init, skip,
+                                       thr, 500, bf16=bf16)
+                    want = [x.reshape(shape) for x in plain.march_warm_plain(
+                        self.sdf, flat, pose, t_init.reshape(-1),
+                        skip.reshape(-1), thr, 500, bf16=bf16)]
+                    errs = [float((g - w).abs().max())
+                            for g, w in zip(got, want)]
+                    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                    print(f"check march_warm{' bf16' if bf16 else ''} pose "
+                          f"{i} {label}: hits {int((want[0] > 0).sum())} "
+                          f"skipped {int(skip.sum())} warm-started "
+                          f"{int((t_init >= 0).sum())}; max|d| per output "
+                          f"{dict(zip(plain.WARM_OUTPUTS, errs))}; bit for "
+                          f"bit {equal}")
+                    assert int((want[0] > 0).sum()) > 3000, "too few hits"
+                    assert equal, "the warm march differs from its twin"
+        for i, (pos, half, q) in enumerate(GT_POSES):
+            pose = self.pose(pos, q, half)
+            behind = self.pose((pos[0], pos[1], -pos[2]), q, half)
+            for label, pose, skip in (
+                    ("all skipped", pose, torch.ones(shape, device=self.dev)),
+                    ("all miss", behind, cold[1])):
+                hit, t_min, t_max = (x.reshape(shape) for x in
+                                     plain.ray_interval(flat, pose))
+                if label == "all miss":
+                    assert not bool((hit & (t_min < t_max)).any())
+                for bf16 in (False, True):
+                    depth, t, v0, min_dip, v_last, t_last = k.march_warm(
+                        self.sdf, rays, pose, cold[0], skip, thr, 500,
+                        bf16=bf16)
+                    zeros = all(float(x.abs().sum()) == 0.0
+                                for x in (depth, v0, min_dip, v_last))
+                    at_t0 = torch.equal(t, t_min) and torch.equal(t_last,
+                                                                  t_min)
+                    print(f"check march_warm{' bf16' if bf16 else ''} pose "
+                          f"{i} {label}: zeros {zeros}, t == t_last == t0 "
+                          f"{at_t0}")
+                    assert zeros and at_t0, f"{label}: not at the start"
+        r["all_skipped_exact"] = r["all_miss_exact"] = True
 
     def check_relaxed(self):
         """The relaxed march (relaxation 1.5) against its twin at every
@@ -1267,6 +1271,7 @@ class Smoke:
         active = mean([float(m.sum()) for _, m in inp])
         nbytes = n * 8 + mean([gather_bytes(o, m != 0, res) for o, m in inp])
         self._timed("sample", ms, pms, nbytes, active * OPS_SAMPLE)
+        self.time_sample_floor(inp)
         # sample-grad and scatter on the concatenated backward queries
         inp = [(torch.cat([s, o]).contiguous(), torch.cat([sm, m]).contiguous())
                for s, sm, o, m in sets]
@@ -1373,12 +1378,7 @@ class Smoke:
             hit, t_min, t_max = plain.ray_interval(dirs, pose)
             marches = (hit & (t_min < t_max)).reshape(h, w)
             active_rays.append(int(marches.sum()))
-            padded = torch.zeros(-(-h // tile) * tile, -(-w // tile) * tile,
-                                 dtype=torch.bool, device=self.dev)
-            padded[:h, :w] = marches
-            tiles.append(int(padded.reshape(
-                padded.shape[0] // tile, tile, padded.shape[1] // tile,
-                tile).any(3).any(1).sum()))
+            tiles.append(active_tiles(marches))
         n_tiles = -(-h // tile) * -(-w // tile)
         mean = lambda xs: sum(xs) / len(xs)
         t = self.report["march"]["active_tiles"] = dict(
@@ -1423,6 +1423,87 @@ class Smoke:
         self.report["march"]["flat"] = dict(ms=ms)
         print(f"time march flat (N, 3) launch, 256-ray row blocks: {ms:.4f} "
               f"ms (16x16 tiles: {self.report['march']['ms']:.4f} ms)")
+
+    def time_sample_floor(self, inp):
+        """What sets the sampler's time on the 30 main-path input sets (4.9
+        MB each, 147 MB together, more than the 50 MB L2: the timed launches
+        find their inputs cold): the same launch on one set repeated 30
+        times (inputs hot in L2), an empty kernel at the sampler's launch
+        geometry (the launch floor), and the library yardstick
+        F.grid_sample times the mask, which computes the same trilinear
+        value on rows inside the volume (the main path's mask includes
+        `inside`), held against the twin on the masked rows first."""
+        import ctypes
+
+        import torch
+        import torch.nn.functional as F
+
+        from sdfest_torch.render import _build, kernels as k
+
+        r = self.report["sample"]
+        reps = len(inp)
+        r["hot"] = dict(ms=cuda_ms(lambda x: k.sample(self.sdf, *x),
+                                   [inp[0]] * reps))
+        print(f"time sample hot (one set x {reps}) kernel "
+              f"{r['hot']['ms']:.4f} ms (cold: {r['ms']:.4f} ms)")
+        # the library call: sdf[x][y][z] is grid_sample's (D, H, W), and its
+        # coordinates come in (W, H, D) order, so a point (x, y, z) is (z,
+        # y, x)
+        grid = self.sdf[None, None]
+        coords = [(o[:, [2, 1, 0]].reshape(1, 1, 1, -1, 3).contiguous(), m)
+                  for o, m in inp]
+        library = lambda x: F.grid_sample(
+            grid, x[0], mode="bilinear", align_corners=True).reshape(-1) * x[1]
+        for (o, m), c in zip(inp, coords):
+            on = m != 0
+            err = float((library(c) - k.sample_plain(self.sdf, o, m))[on]
+                        .abs().max())
+            assert err <= 1e-5, f"grid_sample disagrees on masked rows: {err}"
+        r["library_ms"] = cuda_ms(library, coords)
+        print(f"time sample library F.grid_sample x mask {r['library_ms']:.4f}"
+              f" ms (same function on in-volume rows; max|d| vs twin on the "
+              f"masked rows <= 1e-5)")
+        lib = _build.library("sample")
+        if not hasattr(lib, "sdfest_empty"):  # a tree before the floor row
+            return
+        empty = lib.sdfest_empty
+        empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        stream = torch.cuda.current_stream().cuda_stream
+        n = inp[0][0].shape[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        r["empty"] = {}
+        for label, blocks in (
+                ("one_row_per_thread", -(-n // 256)),
+                ("quads", k.sample_geometry(n, 0)[1]), ("one_per_sm", sms)):
+            ms = cuda_ms(lambda b: empty(b, stream), [blocks] * reps)
+            r["empty"][label] = dict(blocks=blocks, ms=ms)
+            print(f"time sample empty kernel, {blocks} blocks of 256 "
+                  f"({label}): {ms:.4f} ms")
+        # design variants of the same function: one row per thread (the
+        # parent's kernel) and quads on a grid of one block per SM
+        variant = lib.sdfest_sample_variant
+        variant.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        res = self.sdf.shape[0]
+
+        def run(v, x):
+            o, m = x
+            out = torch.empty(n, device=self.dev)
+            assert variant(v, self.sdf.data_ptr(), o.data_ptr(), m.data_ptr(),
+                           out.data_ptr(), n, (m.data_ptr() // 4) % 4, res,
+                           stream) == 0
+            return out
+
+        r["variants"] = {}
+        for v, label in ((0, "one_row_per_thread"), (1, "quads_one_per_sm")):
+            for x in inp:
+                assert torch.equal(run(v, x), k.sample_plain(self.sdf, *x)), (
+                    f"sample variant {label} differs from the twin")
+            cold = cuda_ms(lambda x: run(v, x), inp)
+            hot = cuda_ms(lambda x: run(v, x), [inp[0]] * reps)
+            r["variants"][label] = dict(ms=cold, hot_ms=hot)
+            print(f"time sample variant {label}: cold {cold:.4f} ms hot "
+                  f"{hot:.4f} ms (bit for bit with the twin)")
 
     def time_scatter_zeros(self, sets):
         """The scatter with all-zero cotangents (the floor of launch, read
@@ -1522,6 +1603,16 @@ class Smoke:
                for i in range(reps)]
         w = self.report.setdefault("march_warm", {})
         for label, inp in (("cold", cold), ("mid_refinement", mid)):
+            # tiles with a ray that marches: hit, t0 < t_max and no skip
+            tiles = []
+            for pose, t_init, skip in inp:
+                hit, t_min, t_max = (x.reshape(shape) for x in
+                                     plain.ray_interval(dirs, pose))
+                t0 = torch.where(t_init >= 0, torch.maximum(t_min, t_init),
+                                 t_min)
+                tiles.append(active_tiles(hit & (t0 < t_max) & (skip <= 0)))
+            w.setdefault(label, {})["active_tiles"] = dict(
+                mean=sum(tiles) / reps, min=min(tiles), max=max(tiles))
             ms = cuda_ms(lambda x: k.march_warm(self.sdf, rays, *x, thr, 500,
                                                 coarse=coarse), inp)
             pms = cuda_ms(lambda x: plain.march_warm_plain(
@@ -1542,7 +1633,18 @@ class Smoke:
                 entry, ms, pms, mean_steps(run), n * 44 + table,
                 OPS_WARM_RAY, OPS_WARM_FINE, OPS_WARM_BOUND)
                 + f" skipped {entry['skipped']:.0f} warm-started "
-                  f"{entry['warm_started']:.0f}")
+                  f"{entry['warm_started']:.0f} active 16x16 tiles "
+                  f"{entry['active_tiles']}")
+        # every ray skipped: no tile marches; the rays, t_init and skip in,
+        # the six outputs out, and the pose
+        skipped = [(pose, torch.full(shape, -1.0, device=self.dev),
+                    torch.ones(shape, device=self.dev)) for pose in poses]
+        ms = cuda_ms(lambda x: k.march_warm(self.sdf, rays, *x, thr, 500,
+                                            coarse=coarse), skipped)
+        b_ms, by = bound(n * 44 + 14 * 4, 0.0)
+        w["all_skip"] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
+        print(f"time march_warm all-skip kernel {ms:.4f} ms bound "
+              f"{b_ms:.5f} ms ({by})")
         for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
             w[key] = w["mid_refinement"][key]
         self.time_bf16(poses, dirs, coarse)
@@ -1708,6 +1810,23 @@ class Smoke:
                                  bound_by=by, bytes=nbytes, ops=ops)
 
 
+def active_tiles(marches) -> int:
+    """The 16x16 tiles of an ``(h, w)`` raster with a marching ray, from
+    the twin's slab test (the tiles that copy the coarse table)."""
+    import torch
+
+    from sdfest_torch.render import kernels as k
+
+    tile = k.TILE
+    h, w = marches.shape
+    padded = torch.zeros(-(-h // tile) * tile, -(-w // tile) * tile,
+                         dtype=torch.bool, device=marches.device)
+    padded[:h, :w] = marches
+    return int(padded.reshape(padded.shape[0] // tile, tile,
+                              padded.shape[1] // tile, tile).any(3).any(1)
+               .sum())
+
+
 # the kernels of the fused render op (one launch each per iteration); the
 # warm march launches on the temporal path only
 FUSED_KERNELS = ("march", "sample", "sample_grad", "scatter")
@@ -1752,11 +1871,12 @@ def kernels_line(report) -> str:
             "tol": r.get("tol"), "launches_fast": r.get("launches_fast"),
             "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
             "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
         })
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
-                    "active_tiles", "all_miss", "flat", "zero_cotangents"):
+                    "active_tiles", "all_miss", "flat", "zero_cotangents",
+                    "hot", "empty", "all_skip"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -1801,7 +1921,7 @@ def main(argv=None) -> int:
 
     smoke = Smoke()
     if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "bf16",
-                      "multiview", "time"}:
+                      "multiview"}:
         phases = ["check"] + [p for p in phases if p != "check"]
     for phase in PHASES[1:]:
         if phase in phases:

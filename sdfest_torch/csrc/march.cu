@@ -36,9 +36,11 @@
 //
 // Per-tile culling (the TPU kernel's compaction to active tiles,
 // pallas_kernel.py:546-561 with _obb_interval_tile :564, done per block
-// without a prefetch pass): every thread first runs its ray's slab test,
-// then the block votes (__syncthreads_or).  A tile where no ray meets the
-// box writes its zeros and leaves without the coarse table; in the others
+// without a prefetch pass), in both kernels: every thread first runs its
+// ray's slab test, then the block votes (__syncthreads_or).  A tile where no
+// ray marches writes its non-marching outputs and leaves without the coarse
+// table (the warm march also counts skipped rays and warm starts past the
+// exit as not marching); in the others
 // thread 0 issues one TMA bulk copy of it into shared memory and the tile
 // waits on the copy's mbarrier.  The table lives in dynamic shared memory,
 // at its 128-byte aligned base (a TMA copy into a merely 16-byte aligned
@@ -250,48 +252,33 @@ __device__ __forceinline__ void bulk_wait(unsigned long long* bar) {
   }
 }
 
-// The coarse table of march_warm_kernel, in static shared memory.  kPairs
-// (the bf16 marches): one float2 (min bound, max |value|) per cell, 32 KB,
-// copied in one pass; otherwise the min bounds alone, 16 KB.
-template <bool kPairs>
-struct CoarseTable {
-  __device__ __forceinline__ void load(const float* __restrict__ coarse) {
-    if constexpr (kPairs) {
-      const float2* src = reinterpret_cast<const float2*>(coarse);
-      float2* dst = reinterpret_cast<float2*>(s);
-      for (int k = threadIdx.x; k < kCells; k += blockDim.x)
-        dst[k] = __ldg(src + k);
-    } else {
-      for (int k = threadIdx.x; k < kCells; k += blockDim.x)
-        s[k] = coarse[k];
-    }
-    __syncthreads();
-  }
-  // the certified lower bound at a point (times scale) and, with kPairs,
-  // the max |value| of its window in *amax
-  __device__ __forceinline__ float bound(float px, float py, float pz,
-                                         float scale, float* amax) const {
-    const int c = coarse_cell(px, py, pz);
-    if constexpr (kPairs) {
-      const float2 b = reinterpret_cast<const float2*>(s)[c];
-      *amax = b.y;
-      return b.x * scale;
-    } else {
-      return s[c] * scale;
-    }
-  }
-  alignas(8) float s[kPairs ? 2 * kCells : kCells];
-};
-
-// The coarse table of march_kernel, copied by one TMA bulk copy into the
+// The coarse table of both marches, copied by one TMA bulk copy into the
 // block's dynamic shared memory `s` (sized by the launch: 0 bytes when the
-// march does not cull).  kPairs as CoarseTable.
+// march does not cull).  kPairs (the bf16 marches): one float2 (min bound,
+// max |value|) per cell, 32 KB; otherwise the min bounds alone, 16 KB.
 template <bool kPairs>
 struct TableView {
   static constexpr int kFloats = kPairs ? 2 * kCells : kCells;
   static constexpr unsigned kBytes = kFloats * sizeof(float);
   float* s;
 
+  // the block's table at the base of the dynamic shared memory (a launch
+  // with no static shared memory, so the TMA destination is 128-byte
+  // aligned), and the mbarrier of its bulk copy just after it
+  __device__ __forceinline__ unsigned long long* barrier() const {
+    return reinterpret_cast<unsigned long long*>(s + kFloats);
+  }
+
+  // thread 0 starts the copy, and every thread of the block waits for it
+  __device__ __forceinline__ void load(const float* __restrict__ coarse)
+      const {
+    if (threadIdx.x == 0) bulk_copy(s, coarse, kBytes, barrier());
+    __syncthreads();  // the barrier is armed before anyone waits on it
+    bulk_wait(barrier());
+  }
+
+  // the certified lower bound at a point (times scale) and, with kPairs,
+  // the max |value| of its window in *amax
   __device__ __forceinline__ float bound(float px, float py, float pz,
                                          float scale, float* amax) const {
     const int c = coarse_cell(px, py, pz);
@@ -340,13 +327,8 @@ __global__ void march_kernel(const float* __restrict__ sdf,
                              float* __restrict__ depth, int n, int h, int w,
                              int res, float threshold, int max_steps,
                              int culling, int adaptive, float relaxation) {
-  // the table at the base of the dynamic shared memory (the launch has no
-  // static shared memory, so the TMA destination is 128-byte aligned),
-  // then the mbarrier of its bulk copy
   extern __shared__ __align__(128) float4 dynamic_smem[];
   const TableView<kBf16> table{reinterpret_cast<float*>(dynamic_smem)};
-  unsigned long long* bar =
-      reinterpret_cast<unsigned long long*>(table.s + table.kFloats);
   const bool cull = kBf16 || culling;
   const bool adapt = !kBf16 && adaptive;
   const int i = pixel_index(n, h, w);
@@ -363,9 +345,7 @@ __global__ void march_kernel(const float* __restrict__ sdf,
       if (i >= 0) depth[i] = 0.0f;
       return;
     }
-    if (threadIdx.x == 0) bulk_copy(table.s, coarse, table.kBytes, bar);
-    __syncthreads();  // the barrier is armed before anyone waits on it
-    bulk_wait(bar);
+    table.load(coarse);
   }
   if (i < 0) return;
 
@@ -474,9 +454,19 @@ __global__ void march_kernel(const float* __restrict__ sdf,
 // sample (kBf16Err above); a fast step feeds the corridor its certified
 // lower bound d_fast - err and takes no hit.
 //
+// Design: march_kernel's.  A frame (h > 0) launches one block per 16x16
+// tile, a flat set of n rays 1-D blocks of 256.  Every thread first runs
+// its ray's slab test and warm start, then the block votes on "this ray
+// marches" (hit, t0 < t_max, skip <= 0).  A tile where no ray marches
+// writes the non-marching outputs and leaves without the coarse table;
+// every other tile copies it with one TMA bulk copy after the vote into
+// dynamic shared memory.  In the middle of a refinement most rays of the
+// box are skipped or warm-started beside the surface, so most tiles leave
+// early.
+//
 // What bounds it on the H100: as march_kernel, the dependent gathers along
 // each ray's step chain; it moves 2 more inputs and 5 more outputs per ray
-// (~13.5 MB at 640x480 against ~5 MB), still far from the bytes bound.
+// (~13.6 MB at 640x480 against ~5 MB).
 template <bool kBf16>
 __global__ void march_warm_kernel(
     const float* __restrict__ sdf, const __nv_bfloat16* __restrict__ sdf_b,
@@ -485,21 +475,41 @@ __global__ void march_warm_kernel(
     const float* __restrict__ skip, float* __restrict__ depth,
     float* __restrict__ t_out, float* __restrict__ v0_out,
     float* __restrict__ min_dip_out, float* __restrict__ v_last_out,
-    float* __restrict__ t_last_out, int n, int res, float threshold,
-    int max_steps) {
-  __shared__ CoarseTable<kBf16> table;
-  table.load(coarse);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+    float* __restrict__ t_last_out, int n, int h, int w, int res,
+    float threshold, int max_steps) {
+  extern __shared__ __align__(128) float4 dynamic_smem[];
+  const TableView<kBf16> table{reinterpret_cast<float*>(dynamic_smem)};
+  const int i = pixel_index(n, h, w);
 
-  const Ray r = setup_ray(dirs, pose, i);
-  const float ti = t_init[i];
-  const float t0 = ti >= 0.0f ? fmaxf(r.t_min, ti) : r.t_min;
+  Ray r;
+  float t0 = 0.0f;
+  bool marches = false;
+  if (i >= 0) {
+    r = setup_ray(dirs, pose, i);
+    const float ti = t_init[i];
+    t0 = ti >= 0.0f ? fmaxf(r.t_min, ti) : r.t_min;
+    marches = r.hit && t0 < r.t_max && skip[i] <= 0.0f;
+  }
+  // every thread of the block reaches the vote, ragged edge included
+  if (!__syncthreads_or(marches)) {  // no ray of the tile marches
+    if (i >= 0) {
+      depth[i] = 0.0f;
+      t_out[i] = t0;
+      v0_out[i] = 0.0f;
+      min_dip_out[i] = 0.0f;
+      v_last_out[i] = 0.0f;
+      t_last_out[i] = t0;
+    }
+    return;
+  }
+  table.load(coarse);
+  if (i < 0) return;
+
   float t = t0;
   float result = 0.0f;
   float v_prev = 0.0f, t_prev = t0, min_dip = 1e9f, v0 = 0.0f;
   bool have = false;
-  if (r.hit && t0 < r.t_max && skip[i] <= 0.0f) {
+  if (marches) {
     for (int step = 0; step < max_steps; ++step) {
       const float px = (r.ox + t * r.d[0]) * r.inv_scale;
       const float py = (r.oy + t * r.d[1]) * r.inv_scale;
@@ -546,14 +556,27 @@ __global__ void march_warm_kernel(
   t_last_out[i] = t_prev;
 }
 
+// The launch grid of both marches (see pixel_index).
+dim3 grid_of(int n, int h, int w) {
+  return h > 0 ? dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile)
+               : dim3((n + sdfest::kThreads - 1) / sdfest::kThreads);
+}
+
+// The dynamic shared memory of a culling launch: the table and its
+// mbarrier.
+size_t table_smem(bool bf16) {
+  return (bf16 ? TableView<true>::kBytes : TableView<false>::kBytes) +
+         sizeof(unsigned long long);
+}
+
 }  // namespace
 
-// sdf_b: the bf16 copy of the grid and coarse: the interleaved (min, max
-// |value|) table when bf16 is set (the bf16 instance, culling implied);
-// otherwise sdf_b is not read and coarse is the min table (read when
-// culling).
+// Both entries: sdf_b is the bf16 copy of the grid and coarse the
+// interleaved (min, max |value|) table when bf16 is set (the bf16
+// instance, culling implied); otherwise sdf_b is not read and coarse is
+// the min table (read when culling; the warm march always culls).
 // The rays: n = h * w in raster order when h > 0 (one block per 16x16
-// tile; the wrapper passes h > 0 only for a culling march), else a set of
+// tile; the wrappers pass h > 0 only for a culling march), else a set of
 // n in 1-D blocks.  coarse is 16-byte aligned (the source of a TMA copy).
 extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
                             const float* coarse, const float* dirs,
@@ -562,21 +585,14 @@ extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
                             int culling, int adaptive, float relaxation,
                             int bf16, void* stream) {
   if (n <= 0) return 0;
-  const dim3 blocks =
-      h > 0 ? dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile)
-            : dim3((n + sdfest::kThreads - 1) / sdfest::kThreads);
   const bool relaxed = relaxation > 1.0f;
   auto kernel = bf16 ? (relaxed ? march_kernel<true, true>
                                 : march_kernel<false, true>)
                      : (relaxed ? march_kernel<true, false>
                                 : march_kernel<false, false>);
-  // shared memory only for a culling march: the table and its mbarrier
-  const size_t smem =
-      bf16 || culling ? (bf16 ? TableView<true>::kBytes
-                              : TableView<false>::kBytes) +
-                            sizeof(unsigned long long)
-                      : 0;
-  kernel<<<blocks, sdfest::kThreads, smem, (cudaStream_t)stream>>>(
+  // shared memory only for a culling march
+  const size_t smem = bf16 || culling ? table_smem(bf16) : 0;
+  kernel<<<grid_of(n, h, w), sdfest::kThreads, smem, (cudaStream_t)stream>>>(
       sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
       depth, n, h, w, res, threshold, max_steps, culling, adaptive,
       relaxation);
@@ -588,15 +604,15 @@ extern "C" int sdfest_march_warm(const float* sdf, const void* sdf_b,
                                  const float* pose, const float* t_init,
                                  const float* skip, float* depth, float* t,
                                  float* v0, float* min_dip, float* v_last,
-                                 float* t_last, int n, int res,
+                                 float* t_last, int n, int h, int w, int res,
                                  float threshold, int max_steps, int bf16,
                                  void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
   auto kernel = bf16 ? march_warm_kernel<true> : march_warm_kernel<false>;
-  kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid_of(n, h, w), sdfest::kThreads, table_smem(bf16),
+           (cudaStream_t)stream>>>(
       sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
-      t_init, skip, depth, t, v0, min_dip, v_last, t_last, n, res,
+      t_init, skip, depth, t, v0, min_dip, v_last, t_last, n, h, w, res,
       threshold, max_steps);
   return (int)cudaGetLastError();
 }

@@ -4,25 +4,119 @@
 // sample_sdf_pallas -> _sample_impl -> _sample_kernel (the pc values of the
 // fused render + pc forward, render/api.py:305).
 //
-// Design.  One thread per point: it reads its point and mask, and a row
-// whose mask is 0 writes 0 and reads nothing else; a valid row gathers its
-// 8 corners through the read-only cache and writes value * mask.  The TPU
-// kernel's one-hot MXU factorization, y/z windows and tile compaction
-// worked around the TPU's slow gathers and are not carried over.
+// Design.  One thread per quad of 4 consecutive rows.  Quad q holds rows
+// 4q - shift .. 4q - shift + 3 (those in [0, n)), where shift = the mask's
+// 16-byte phase in rows, so that every full quad of a 16-byte aligned
+// mask, or of a view of it offset by some rows, starts on a 16-byte
+// boundary: its 4 masks come in one float4 load, and its 4 points (48
+// bytes) in three, when the points' base shares that phase (a view offset
+// by k rows moves both by the same phase); its 4 outputs go out in one
+// float4 store when the output does.  A partial first or last quad, or an
+// array off that phase, takes its rows one by one in the same thread.  A
+// thread whose 4 masks are 0 stores zeros and reads nothing else; an
+// active row gathers its 8 corners through the read-only cache and writes
+// value * mask.  The TPU kernel's one-hot MXU factorization, y/z windows
+// and tile compaction worked around the TPU's slow gathers and are not
+// carried over.
 //
-// What bounds it on the H100: device-memory bytes (16 B of point + mask in
-// and 4 B out per row; the 1 MiB grid is read from L2 after its first
-// touch).  Loads are coalesced across the warp; nothing else is needed.
+// What bounds it on the H100: device-memory bytes (4 B of mask and 4 B of
+// output per row, 12 B of point per active row; the 1 MiB grid is read
+// from L2 after its first touch), far below a launch's own floor at the
+// main path's 307,200 rows, of which ~8% are active.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "trilinear.cuh"
 
 namespace {
 
+constexpr int kQuad = 4;
+
+__device__ __forceinline__ bool aligned16(const float* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+}
+
+// The quad of rows r0 .. r0 + 3 (rows outside [0, n) are not read or
+// written).
+__device__ __forceinline__ void sample_quad(const float* __restrict__ sdf,
+                                            const float* __restrict__ points,
+                                            const float* __restrict__ mask,
+                                            float* __restrict__ out, int r0,
+                                            int n, int res) {
+  const bool full = r0 >= 0 && r0 + kQuad <= n;
+  float m[kQuad];
+  if (full && aligned16(mask + r0)) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(mask + r0));
+    m[0] = v.x, m[1] = v.y, m[2] = v.z, m[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      const int r = r0 + j;
+      m[j] = r >= 0 && r < n ? mask[r] : 0.0f;
+    }
+  }
+  float o[kQuad] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (m[0] != 0.0f || m[1] != 0.0f || m[2] != 0.0f || m[3] != 0.0f) {
+    float p[3 * kQuad];
+    if (full && aligned16(points + 3 * r0)) {
+      const float4* src = reinterpret_cast<const float4*>(points + 3 * r0);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float4 v = __ldg(src + k);
+        p[4 * k] = v.x, p[4 * k + 1] = v.y, p[4 * k + 2] = v.z,
+        p[4 * k + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        if (m[j] != 0.0f) {
+          const float* src = points + 3 * (r0 + j);
+          p[3 * j] = src[0], p[3 * j + 1] = src[1], p[3 * j + 2] = src[2];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j)
+      if (m[j] != 0.0f)
+        o[j] = sdfest::sample(sdf, p[3 * j], p[3 * j + 1], p[3 * j + 2],
+                              res) *
+               m[j];
+  }
+  if (full && aligned16(out + r0)) {
+    *reinterpret_cast<float4*>(out + r0) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      const int r = r0 + j;
+      if (r >= 0 && r < n) out[r] = o[j];
+    }
+  }
+}
+
+// kStride: a grid of at most one block per SM walks the quads.
+template <bool kStride>
 __global__ void sample_kernel(const float* __restrict__ sdf,
                               const float* __restrict__ points,
                               const float* __restrict__ mask,
-                              float* __restrict__ out, int n, int res) {
+                              float* __restrict__ out, int n, int shift,
+                              int res) {
+  const int quads = (n + shift + kQuad - 1) / kQuad;
+  int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (kStride) {
+    for (; q < quads; q += gridDim.x * blockDim.x)
+      sample_quad(sdf, points, mask, out, kQuad * q - shift, n, res);
+  } else {
+    if (q < quads) sample_quad(sdf, points, mask, out, kQuad * q - shift, n,
+                               res);
+  }
+}
+
+// The parent's design: one thread per row.
+__global__ void sample_rows_kernel(const float* __restrict__ sdf,
+                                   const float* __restrict__ points,
+                                   const float* __restrict__ mask,
+                                   float* __restrict__ out, int n, int res) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float m = mask[i];
@@ -37,12 +131,47 @@ __global__ void sample_kernel(const float* __restrict__ sdf,
 
 }  // namespace
 
+// An empty kernel of `blocks` blocks of kThreads: the launch floor that
+// chip_smoke.py times beside the sampler at the sampler's geometry.
+__global__ void empty_kernel() {}
+
+extern "C" int sdfest_empty(int blocks, void* stream) {
+  empty_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// shift: the mask's 16-byte phase in rows, (address / 4) % 4.
 extern "C" int sdfest_sample(const float* sdf, const float* points,
-                             const float* mask, float* out, int n, int res,
-                             void* stream) {
+                             const float* mask, float* out, int n, int shift,
+                             int res, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
-  sample_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-      sdf, points, mask, out, n, res);
+  const int quads = (n + shift + kQuad - 1) / kQuad;
+  const int blocks = (quads + sdfest::kThreads - 1) / sdfest::kThreads;
+  sample_kernel<false><<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+      sdf, points, mask, out, n, shift, res);
+  return (int)cudaGetLastError();
+}
+
+// Design variants timed beside sdfest_sample: 0 one row per thread (the
+// parent's kernel), 1 quads on a grid of at most one block per SM.
+extern "C" int sdfest_sample_variant(int variant, const float* sdf,
+                                     const float* points, const float* mask,
+                                     float* out, int n, int shift, int res,
+                                     void* stream) {
+  if (n <= 0) return 0;
+  if (variant == 0) {
+    const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
+    sample_rows_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+        sdf, points, mask, out, n, res);
+  } else {
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const int quads = (n + shift + kQuad - 1) / kQuad;
+    int blocks = (quads + sdfest::kThreads - 1) / sdfest::kThreads;
+    blocks = blocks < sms ? blocks : sms;
+    sample_kernel<true><<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+        sdf, points, mask, out, n, shift, res);
+  }
   return (int)cudaGetLastError();
 }

@@ -709,8 +709,13 @@ class SDFPipeline:
         self,
         depth_images,
         masks,
+        color_images=None,
+        visualize: bool = False,
         camera_positions=None,
         camera_orientations=None,
+        log_path: Optional[str] = None,
+        animation_path: Optional[str] = None,
+        animation_mode: str = "depth",
         shape_optimization: bool = True,
         point_constraint=None,
         prior_orientation_distribution=None,
@@ -720,10 +725,19 @@ class SDFPipeline:
         """Infer pose, scale and latent shape from depth views
         (``pipeline.py:1136-1236``).
 
+        The parameters are the reference's, in its order and under its
+        names, except ``generator`` in place of ``key``.
+
         Args:
             depth_images: Depth along the camera z-axis, ``(V, H, W)`` or
                 one view ``(H, W)``; masked and far-field-cut internally.
             masks: Binary object masks of the same shape.
+            color_images: Unused, as in the reference (visualization only).
+            visualize / log_path / animation_path / animation_mode: The
+                reference's plots, flight recorder and animation.  Not
+                ported yet (ROADMAP section 1, item 4): ``visualize=True``,
+                a ``log_path`` or an ``animation_path`` raises
+                ``NotImplementedError`` before any device work.
             camera_positions / camera_orientations: The cameras' world poses
                 ``(V, 3)``/``(V, 4)`` (``(3,)``/``(4,)`` with one view);
                 identity when None.
@@ -748,6 +762,13 @@ class SDFPipeline:
         previous call's plan and runs no probe, so it cannot raise
         :class:`NoDepthError` up front (``pipeline.py:1208-1216``).
         """
+        unported = [name for name, given in (
+            ("visualize", visualize), ("log_path", log_path is not None),
+            ("animation_path", animation_path is not None)) if given]
+        if unported:
+            raise NotImplementedError(
+                f"{', '.join(unported)}: not ported yet (the evaluation "
+                "modules, ROADMAP section 1, item 4)")
         dev = self.device
         depth = torch.as_tensor(depth_images, dtype=torch.float32, device=dev)
         mask = torch.as_tensor(masks, device=dev)

@@ -60,8 +60,8 @@ _SIGNATURES = {
     "march": ("march", "sdfest_march",
               [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _F, _I, _P]),
     "march_warm": ("march", "sdfest_march_warm",
-                   [_P] * 13 + [_I, _I, _F, _I, _I, _P]),
-    "sample": ("sample", "sdfest_sample", [_P, _P, _P, _P, _I, _I, _P]),
+                   [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P]),
+    "sample": ("sample", "sdfest_sample", [_P] * 4 + [_I] * 3 + [_P]),
     "sample_grad": ("sample_grad", "sdfest_sample_grad",
                     [_P, _P, _P, _P, _P, _I, _I, _P]),
     "scatter": ("scatter", "sdfest_scatter", [_P, _P, _P, _I, _I, _P]),
@@ -307,7 +307,10 @@ def march_warm(
     :func:`sdfest_torch.render.plain.march_warm_plain`).
 
     Returns ``(depth, t, v0, min_dip, v_last, t_last)``, each shaped like
-    ``t_init``.  ``bf16`` gates the fine steps with a bf16 sample (the
+    ``t_init``.  The launch is the culling march's
+    (:func:`march_geometry`): a raster in 16x16 tiles, of which only those
+    with a marching ray (hit, start before the exit, not skipped) copy the
+    coarse table; a flat ``(N, 3)`` set in 1-D blocks.  ``bf16`` gates the fine steps with a bf16 sample (the
     branch of ``render_depth_pallas_fwd(aux=True, bf16=True)``; no pipeline
     path takes it, as the JAX package's ``render_depth_warm`` passes no
     bf16); ``march_warm.bf16_launches`` counts its launches.  ``coarse``
@@ -323,15 +326,20 @@ def march_warm(
             sdf, flat, pose, t_init.reshape(-1), skip.reshape(-1), threshold,
             max_steps, bf16=bf16))
     coarse = _coarse_for(sdf, coarse, bf16)
+    if coarse.data_ptr() % 16:
+        raise ValueError("the coarse table must be 16-byte aligned")
     grid_b = _bf16_grid(sdf, sdf_bf16) if bf16 else None
     outs = torch.empty((6, *raster), dtype=torch.float32, device=sdf.device)
     n = flat.shape[0]
+    h, w, blocks = march_geometry(raster)
+    if n >= 2 ** 31 or (h and blocks[1] > 65535):
+        raise ValueError(f"too many rays for one launch: {raster}")
     if n:
         _launch(
             "march_warm", sdf.device, sdf.data_ptr(),
             grid_b.data_ptr() if bf16 else None, coarse.data_ptr(),
             flat.data_ptr(), pose.data_ptr(), t_init.data_ptr(),
-            skip.data_ptr(), *(o.data_ptr() for o in outs), n, res,
+            skip.data_ptr(), *(o.data_ptr() for o in outs), n, h, w, res,
             float(threshold), int(max_steps), int(bf16),
         )
         march_warm.launches += 1
@@ -356,19 +364,36 @@ def sample_plain(
     return torch.where(mask != 0, value * mask, torch.zeros_like(value))
 
 
+QUAD = 4  # rows per thread of the sample kernel
+
+
+def sample_geometry(n: int, shift: int) -> Tuple[int, int]:
+    """The sample kernel's launch over ``n`` rows whose mask lies ``shift``
+    rows past a 16-byte boundary: ``(quads, blocks)``.  Thread ``q`` takes
+    rows ``QUAD * q - shift`` to ``QUAD * q - shift + QUAD - 1`` (those in
+    ``[0, n)``), blocks of ``TILE * TILE`` threads."""
+    quads = -(-(n + shift) // QUAD)
+    return quads, -(-quads // (TILE * TILE))
+
+
 def sample(
     sdf: torch.Tensor, points: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
     """Values ``(N,)`` at points ``(N, 3)`` times ``mask (N,)``
-    (``csrc/sample.cu``; plain version :func:`sample_plain`)."""
+    (``csrc/sample.cu``; plain version :func:`sample_plain`).  On CUDA each
+    thread takes 4 consecutive rows (:func:`sample_geometry`), with 16-byte
+    loads and stores where the rows' addresses allow."""
     res = _check_grid(sdf)
     n = _check_points(points, mask)
     if _on_cpu(sdf, points, mask):
         return sample_plain(sdf, points, mask)
+    if 3 * n + QUAD >= 2 ** 31:
+        raise ValueError(f"too many rows for one launch: {n}")
     out = torch.empty(n, dtype=torch.float32, device=sdf.device)
     if n:
         _launch("sample", sdf.device, sdf.data_ptr(), points.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), n, res)
+                mask.data_ptr(), out.data_ptr(), n,
+                (mask.data_ptr() // 4) % QUAD, res)
         sample.launches += 1
     return out
 

@@ -391,3 +391,120 @@ def test_bf16_warm_march_matches_plain_twin(dev, mug):
     agree = (got[0] > 0) == (want[0] > 0)
     for g, w in zip(got[1:], want[1:]):
         assert float((g - w)[agree].abs().max()) < 1e-4
+
+
+def _warm_case(dev, mug, case):
+    """Rays, pose, t_init and skip of one warm-march launch: the march's
+    launch shapes, cold; every ray of the frame skipped; and the inputs of
+    a real warm step (a cold render, then a small move)."""
+    from sdfest_torch.render import warm
+
+    sdf, cam = mug
+    if case not in ("all_skip", "mid_refinement"):
+        rays, pose = _march_case(dev, cam, case)
+        shape = rays.shape[:-1]
+        return (rays, pose, torch.full(shape, -1.0, device=dev),
+                torch.zeros(shape, device=dev))
+    rays = api.ray_set(cam, dev).march
+    shape = rays.shape[:2]
+    t_init = torch.full(shape, -1.0, device=dev)
+    pose = _mug_pose(dev)
+    if case == "all_skip":
+        return rays, pose, t_init, torch.ones(shape, device=dev)
+    outs = kernels.march_warm(sdf, rays, pose, t_init,
+                              torch.zeros(shape, device=dev), 0.005, 500)
+    _, t_min, _ = (x.reshape(shape) for x in plain.ray_interval(
+        rays.reshape(-1, 3), pose))
+    state = dict(zip(plain.WARM_OUTPUTS[1:], outs[1:]),
+                 hit=(outs[0] > 0).float(), t0=t_min,
+                 macc=torch.zeros(shape, device=dev))
+    pose = _mug_pose(dev, dp=(1e-3, -6e-4, 8e-4))
+    t_init, skip, _ = warm.warm_inputs(
+        state, rays, pose, torch.tensor(3e-3, device=dev), False, 0.005)
+    assert int(skip.sum()) > 1000 and int((t_init >= 0).sum()) > 1000
+    return rays, pose, t_init.contiguous(), skip.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_37x53", "ragged_1x200", "flat",
+                                  "all_miss", "fills_frame", "all_skip",
+                                  "mid_refinement"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_tiled_warm_march_equals_its_twin_bit_for_bit(dev, mug, bf16, case):
+    """Both instances of march_warm_kernel equal their CUDA twin in all six
+    outputs bit for bit: on the march's launch shapes (cold), on a frame
+    where every ray is skipped and on mid-refinement inputs.  Where no ray
+    marches, depth, v0, min_dip and v_last are 0 and t == t_last == t0."""
+    sdf, _ = mug
+    rays, pose, t_init, skip = _warm_case(dev, mug, case)
+    flat = rays.reshape(-1, 3)
+    kernels.reset_launches()
+    got = kernels.march_warm(sdf, rays, pose, t_init, skip, 0.005, 500,
+                             bf16=bf16)
+    torch.cuda.synchronize()
+    assert kernels.march_warm.launches == 1
+    assert kernels.march_warm.bf16_launches == int(bf16)
+    want = plain.march_warm_plain(sdf, flat, pose, t_init.reshape(-1),
+                                  skip.reshape(-1), 0.005, 500, bf16=bf16)
+    for name, g, w in zip(plain.WARM_OUTPUTS, got, want):
+        w = w.reshape(g.shape)
+        assert torch.equal(g, w), (name, float((g - w).abs().max()))
+    if case in ("all_miss", "all_skip"):
+        _, t0, _ = plain.ray_interval(flat, pose)
+        t0 = t0.reshape(got[0].shape)
+        for x in (got[0], got[2], got[3], got[4]):
+            assert not bool(x.any())
+        assert torch.equal(got[1], t0) and torch.equal(got[5], t0)
+    else:
+        assert int((got[0] > 0).sum()) > 0
+
+
+def _sample_case(dev, mug, case):
+    """Points and mask of one sampler input: the mug's observed cloud in
+    tile order in the object frame of a slightly moved pose, with its
+    validity as the mask (the main path), all-zero, all-one and non-binary
+    masks, a row count that is not a multiple of 4, and views whose base is
+    one or two rows past the tensor's (4 or 8 bytes past a 16-byte
+    boundary)."""
+    pts, valid = _scatter_case(dev, mug, "tile_ordered")
+    valid = (valid != 0).float()
+    g = torch.Generator().manual_seed(8)
+    if case == "zeros":
+        return pts, torch.zeros_like(valid)
+    if case == "ones":  # every row, in the volume or not
+        return pts, torch.ones_like(valid)
+    if case == "non_binary":
+        return pts, (valid * torch.rand(valid.shape[0], generator=g).to(dev)
+                     - 0.25 * (torch.rand(valid.shape[0], generator=g) < 0.01
+                               ).float().to(dev)).contiguous()
+    if case == "ragged_4099":
+        return pts[:4099], valid[:4099]
+    if case == "offset_1":
+        return pts[1:], valid[1:]
+    if case == "offset_2_ragged":
+        return pts[2:-1], valid[2:-1]
+    return pts, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main_path", "zeros", "ones", "non_binary",
+                                  "ragged_4099", "offset_1",
+                                  "offset_2_ragged"])
+def test_quad_sampler_equals_its_twin_bit_for_bit(dev, mug, case):
+    """The sample kernel (4 rows per thread, 16-byte loads where the rows'
+    addresses allow) equals sample_plain bit for bit on every input."""
+    sdf, _ = mug
+    pts, mask = _sample_case(dev, mug, case)
+    assert pts.is_contiguous() and mask.is_contiguous()
+    if case.startswith("offset"):
+        assert mask.data_ptr() % 16 and pts.data_ptr() % 16
+    kernels.reset_launches()
+    got = kernels.sample(sdf, pts, mask)
+    torch.cuda.synchronize()
+    assert kernels.sample.launches == 1
+    want = kernels.sample_plain(sdf, pts, mask)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if case == "zeros":
+        assert not bool(got.any())
+    else:
+        assert bool(got.any())

@@ -1,6 +1,8 @@
-"""The march kernel's launch geometry (``kernels.march_geometry``): with the
-thread-to-pixel map of ``pixel_index`` in ``csrc/march.cu``, written out
-here, every ray is taken by exactly one thread."""
+"""The kernels' launch geometry: with the thread-to-pixel map of
+``pixel_index`` in ``csrc/march.cu``, written out here, the launch of both
+marches (``kernels.march_geometry``) takes every ray exactly once; with the
+thread-to-row map of ``sample_kernel`` in ``csrc/sample.cu``, the sampler's
+launch (``kernels.sample_geometry``) takes every row exactly once."""
 import pytest
 import torch
 
@@ -25,11 +27,17 @@ def pixel_map(h: int, w: int, blocks: tuple) -> torch.Tensor:
     return torch.where((x < w) & (y < h), y * w + x, -1)
 
 
-@pytest.mark.parametrize("tiles", [True, False])
+# the launches of the wrappers: a culling march in tiles, a march without
+# culling in 1-D blocks, the warm march (always culling) in tiles
+LAUNCHES = {"march": True, "march_no_culling": False, "march_warm": True}
+
+
+@pytest.mark.parametrize("launch", list(LAUNCHES))
 @pytest.mark.parametrize("raster", [(480, 640), (64, 80), (37, 53), (1, 7),
                                     (1, 200), (16, 16), (2, 37, 53),
                                     (1000,)])
-def test_march_launch_covers_every_ray_once(raster, tiles):
+def test_march_launch_covers_every_ray_once(raster, launch):
+    tiles = LAUNCHES[launch]
     h, w, blocks = kernels.march_geometry(raster, tiles)
     n = 1
     for d in raster:
@@ -57,3 +65,38 @@ def test_march_launch_covers_every_ray_once(raster, tiles):
             assert bool(((p // w) // 16 == by).all())
             assert bool(((p % w) // 16 == bx).all())
         assert int(rows.max()) == h - 1 and int(cols.max()) == w - 1
+
+
+def row_map(n: int, shift: int, blocks: int) -> torch.Tensor:
+    """The row each thread of a sample launch takes, ``(blocks, TILE *
+    TILE, QUAD)`` with -1 outside the rows, as ``sample_kernel``: thread q
+    takes rows QUAD * q - shift .. QUAD * q - shift + QUAD - 1."""
+    threads = kernels.TILE * kernels.TILE
+    q = torch.arange(blocks * threads).reshape(blocks, threads, 1)
+    r = kernels.QUAD * q - shift + torch.arange(kernels.QUAD)
+    return torch.where((r >= 0) & (r < n), r, -1)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1001, 307_200])
+def test_sample_launch_covers_every_row_once(n, offset):
+    """A mask at a 16-byte boundary, or a view of one offset by a row (its
+    phase, the shift the wrapper passes, is then 1): every row is taken
+    once, and every full quad of 4 in-range rows starts on a 16-byte
+    boundary of the mask."""
+    base = 4096  # a 16-byte aligned address of row 0 of the parent tensor
+    shift = ((base + 4 * offset) // 4) % kernels.QUAD
+    assert shift == offset
+    quads, blocks = kernels.sample_geometry(n, shift)
+    assert quads == -(-(n + shift) // kernels.QUAD)
+    assert blocks == -(-quads // (kernels.TILE * kernels.TILE))
+    rows = row_map(n, shift, blocks)
+    taken = rows[rows >= 0]
+    assert torch.equal(taken, torch.arange(n))  # each once, in order
+    # no thread beyond the quads holds a row
+    assert not bool((rows.reshape(-1, kernels.QUAD)[quads:] >= 0).any())
+    full = (rows >= 0).all(-1)
+    first = rows[..., 0][full]
+    assert bool(((base + 4 * (offset + first)) % 16 == 0).all())
+    # and so do its points, a view of (N, 3) points offset by the same rows
+    assert bool(((base + 12 * (offset + first)) % 16 == 0).all())

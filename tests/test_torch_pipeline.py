@@ -154,6 +154,51 @@ def test_call_matches_jax(scene, monkeypatch, camera_pose):
     assert pipe.last_log["loss"].shape == (3,)
 
 
+def test_call_takes_the_reference_parameters_in_order():
+    """__call__'s parameters are the JAX package's, by name, order and
+    default, except ``generator`` in place of ``key``."""
+    import inspect
+
+    want = list(inspect.signature(JPipeline.__call__).parameters.values())
+    got = list(inspect.signature(SDFPipeline.__call__).parameters.values())
+    assert [p.name for p in got] == [
+        "generator" if p.name == "key" else p.name for p in want]
+    assert [p.default for p in got] == [p.default for p in want]
+
+
+def test_call_ignores_color_images_and_binds_positions_as_jax(scene):
+    """A call with ``color_images`` equals the call without it, and a
+    reference-style positional call (color_images, visualize,
+    camera_positions, camera_orientations) binds as the keyword call."""
+    depth = torch.from_numpy(scene["depth"])
+    mask = depth > 0
+    pipe = SDFPipeline(_config(), device="cpu")
+    cam_pos = torch.tensor([0.1, -0.05, 0.2])
+    cam_quat = torch.from_numpy(Rotation.from_euler(
+        "XYZ", [10, -20, 5], degrees=True).as_quat().astype(np.float32))
+    want = pipe(depth, mask, camera_positions=cam_pos,
+                camera_orientations=cam_quat)
+    color = torch.rand(*depth.shape, 3, generator=torch.Generator(
+        ).manual_seed(0))
+    for got in (pipe(depth, mask, color_images=color, camera_positions=cam_pos,
+                     camera_orientations=cam_quat),
+                pipe(depth, mask, color, False, cam_pos, cam_quat)):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("option", [
+    dict(visualize=True), dict(log_path="estimate.pkl"),
+    dict(animation_path="estimate.mp4")])
+def test_unported_call_options_raise_before_any_work(option):
+    """The plots, the flight recorder and the animation are not ported:
+    each raises NotImplementedError before the inputs are read (None depth
+    would raise anything else)."""
+    pipe = SDFPipeline(_config(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP section 1, item 4"):
+        pipe(None, None, **option)
+
+
 def test_losses_match_jax():
     from sdfest_tpu.pipeline import losses as jlosses
     from sdfest_torch.pipeline import losses as tlosses
