@@ -1309,13 +1309,12 @@ class Smoke:
                                           True, True, coarse=coarse), poses)
         pms = cuda_ms(lambda pose: plain.march_plain(
             self.sdf, dirs, pose, thr, 500, True, True), poses, warmup=1)
-        steps = {"rays": 0, "fine": 0, "bound": 0, "cells": 0}
+        runs = []
         for pose in poses:
-            s = {}
+            runs.append({})
             plain.march_plain(self.sdf, dirs, pose, thr, 500, True, True,
-                              steps=s)
-            for key in steps:
-                steps[key] += s[key] / reps
+                              steps=runs[-1])
+        steps = mean_steps(runs)
         n = dirs.shape[0]
         ops = (steps["rays"] * OPS_MARCH_RAY + steps["fine"] * OPS_MARCH_FINE
                + steps["bound"] * OPS_MARCH_BOUND)
@@ -1335,13 +1334,12 @@ class Smoke:
             pms = cuda_ms(lambda x: plain.march_plain(
                 self.sdf, x[1].reshape(-1, 3), x[0], thr, 500, True, True),
                 inp, warmup=1)
-            steps = {"rays": 0, "fine": 0, "bound": 0, "cells": 0}
+            runs = []
             for pose, r in inp:
-                st = {}
+                runs.append({})
                 plain.march_plain(self.sdf, r.reshape(-1, 3), pose, thr, 500,
-                                  True, True, steps=st)
-                for key in steps:
-                    steps[key] += st[key] / reps
+                                  True, True, steps=runs[-1])
+            steps = mean_steps(runs)
             n = roi[0] * roi[1]
             ops = (steps["rays"] * OPS_MARCH_RAY
                    + steps["fine"] * OPS_MARCH_FINE
@@ -1474,33 +1472,36 @@ class Smoke:
         r["empty"] = {}
         for label, blocks in (
                 ("one_row_per_thread", -(-n // 256)),
-                ("quads", k.sample_geometry(n, 0)[1]), ("one_per_sm", sms)):
+                ("pairs", -(-n // 512)), ("quads", k.sample_geometry(n, 0)[1]),
+                ("one_per_sm", sms)):
             ms = cuda_ms(lambda b: empty(b, stream), [blocks] * reps)
             r["empty"][label] = dict(blocks=blocks, ms=ms)
             print(f"time sample empty kernel, {blocks} blocks of 256 "
                   f"({label}): {ms:.4f} ms")
-        # design variants of the same function: one row per thread (the
-        # parent's kernel) and quads on a grid of one block per SM
+        # design variants of the same function: rows per thread (1 is the
+        # parent's layout, 2 pairs, 4 quads), with or without the chunks
+        # of 32 threads spread over the blocks
         variant = lib.sdfest_sample_variant
-        variant.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        variant.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
             ctypes.c_int] * 3 + [ctypes.c_void_p]
         res = self.sdf.shape[0]
 
-        def run(v, x):
+        def run(rows, spread, x):
             o, m = x
             out = torch.empty(n, device=self.dev)
-            assert variant(v, self.sdf.data_ptr(), o.data_ptr(), m.data_ptr(),
-                           out.data_ptr(), n, (m.data_ptr() // 4) % 4, res,
-                           stream) == 0
+            assert variant(rows, spread, self.sdf.data_ptr(), o.data_ptr(),
+                           m.data_ptr(), out.data_ptr(), n,
+                           (m.data_ptr() // 4) % rows, res, stream) == 0
             return out
 
         r["variants"] = {}
-        for v, label in ((0, "one_row_per_thread"), (1, "quads_one_per_sm")):
+        for rows, spread in ((1, 0), (1, 1), (2, 1), (4, 0)):
+            label = f"rows_{rows}{'_spread' if spread else ''}"
             for x in inp:
-                assert torch.equal(run(v, x), k.sample_plain(self.sdf, *x)), (
-                    f"sample variant {label} differs from the twin")
-            cold = cuda_ms(lambda x: run(v, x), inp)
-            hot = cuda_ms(lambda x: run(v, x), [inp[0]] * reps)
+                assert torch.equal(run(rows, spread, x), k.sample_plain(
+                    self.sdf, *x)), f"sample variant {label} differs"
+            cold = cuda_ms(lambda x: run(rows, spread, x), inp)
+            hot = cuda_ms(lambda x: run(rows, spread, x), [inp[0]] * reps)
             r["variants"][label] = dict(ms=cold, hot_ms=hot)
             print(f"time sample variant {label}: cold {cold:.4f} ms hot "
                   f"{hot:.4f} ms (bit for bit with the twin)")
@@ -1535,13 +1536,6 @@ class Smoke:
         thr = self.pipe.config["threshold"]
         n = dirs.shape[0]
         reps = len(poses)
-
-        def mean_steps(run):
-            steps = {"rays": 0, "fine": 0, "bound": 0, "cells": 0}
-            for x in run:
-                for key, v in x.items():
-                    steps[key] += v / reps
-            return steps
 
         def march_steps(culling, adaptive, relaxation):
             out = []
@@ -1665,13 +1659,6 @@ class Smoke:
         reps = len(poses)
         pair = plain.coarse_pair_table(self.sdf)
         grid_b = self.sdf.to(torch.bfloat16)
-
-        def mean_steps(runs):
-            out = {}
-            for st in runs:
-                for key, v in st.items():
-                    out[key] = out.get(key, 0.0) + v / reps
-            return out
 
         def entry(e, ms, pms, steps, n_bytes, ops_ray, ops_bound, warm):
             corridor = 6 if warm else 0
@@ -1808,6 +1795,16 @@ class Smoke:
               f"{ops / 1e6:.2f} Mop)")
         self.report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=by, bytes=nbytes, ops=ops)
+
+
+def mean_steps(runs) -> dict:
+    """The mean over runs of the plain marches' ``steps`` reports (rays,
+    fine and bound steps, cells, the longest ray's steps, ...)."""
+    out = {}
+    for st in runs:
+        for key, v in st.items():
+            out[key] = out.get(key, 0.0) + v / len(runs)
+    return out
 
 
 def active_tiles(marches) -> int:

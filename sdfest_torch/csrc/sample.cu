@@ -33,100 +33,134 @@ namespace {
 
 constexpr int kQuad = 4;
 
-__device__ __forceinline__ bool aligned16(const float* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+// True when p lies on a boundary of kRows floats (16 bytes for a quad).
+template <int kRows>
+__device__ __forceinline__ bool aligned(const float* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & (kRows * 4u - 1u)) == 0;
 }
 
-// The quad of rows r0 .. r0 + 3 (rows outside [0, n) are not read or
-// written).
-__device__ __forceinline__ void sample_quad(const float* __restrict__ sdf,
-                                            const float* __restrict__ points,
-                                            const float* __restrict__ mask,
-                                            float* __restrict__ out, int r0,
-                                            int n, int res) {
-  const bool full = r0 >= 0 && r0 + kQuad <= n;
-  float m[kQuad];
-  if (full && aligned16(mask + r0)) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(mask + r0));
-    m[0] = v.x, m[1] = v.y, m[2] = v.z, m[3] = v.w;
+// kRows consecutive floats from an address aligned<kRows>, in one load.
+template <int kRows>
+__device__ __forceinline__ void load_rows(const float* src, float* dst) {
+  if constexpr (kRows == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
+  } else if constexpr (kRows == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(src));
+    dst[0] = v.x, dst[1] = v.y;
+  } else {
+    dst[0] = __ldg(src);
+  }
+}
+
+// The group of rows r0 .. r0 + kRows - 1 (rows outside [0, n) are not read
+// or written).  Every active row's 8 corners are gathered before any lerp,
+// so that the gathers of the group are in flight together: a row with mask
+// 0 locates the grid's center instead of its point (which it must not
+// read) and its corners are not used.
+template <int kRows>
+__device__ __forceinline__ void sample_group(
+    const float* __restrict__ sdf, const float* __restrict__ points,
+    const float* __restrict__ mask, float* __restrict__ out, int r0, int n,
+    int res) {
+  const bool full = r0 >= 0 && r0 + kRows <= n;
+  float m[kRows];
+  if (full && aligned<kRows>(mask + r0)) {
+    load_rows<kRows>(mask + r0, m);
   } else {
 #pragma unroll
-    for (int j = 0; j < kQuad; ++j) {
+    for (int j = 0; j < kRows; ++j) {
       const int r = r0 + j;
       m[j] = r >= 0 && r < n ? mask[r] : 0.0f;
     }
   }
-  float o[kQuad] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (m[0] != 0.0f || m[1] != 0.0f || m[2] != 0.0f || m[3] != 0.0f) {
-    float p[3 * kQuad];
-    if (full && aligned16(points + 3 * r0)) {
-      const float4* src = reinterpret_cast<const float4*>(points + 3 * r0);
+  bool any = false;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float4 v = __ldg(src + k);
-        p[4 * k] = v.x, p[4 * k + 1] = v.y, p[4 * k + 2] = v.z,
-        p[4 * k + 3] = v.w;
-      }
+  for (int j = 0; j < kRows; ++j) any = any || m[j] != 0.0f;
+  float o[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) o[j] = 0.0f;
+  if (any) {
+    float p[3 * kRows];
+    if (full && aligned<kRows>(points + 3 * r0)) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        load_rows<kRows>(points + 3 * r0 + kRows * k, p + kRows * k);
     } else {
 #pragma unroll
-      for (int j = 0; j < kQuad; ++j) {
-        if (m[j] != 0.0f) {
-          const float* src = points + 3 * (r0 + j);
-          p[3 * j] = src[0], p[3 * j + 1] = src[1], p[3 * j + 2] = src[2];
-        }
+      for (int j = 0; j < kRows; ++j) {
+        const float* src = points + 3 * (r0 + j);
+        const bool on = m[j] != 0.0f;
+        p[3 * j] = on ? src[0] : 0.0f;
+        p[3 * j + 1] = on ? src[1] : 0.0f;
+        p[3 * j + 2] = on ? src[2] : 0.0f;
       }
     }
+    sdfest::Cell cell[kRows];
+    float c[kRows][2][2][2];
 #pragma unroll
-    for (int j = 0; j < kQuad; ++j)
-      if (m[j] != 0.0f)
-        o[j] = sdfest::sample(sdf, p[3 * j], p[3 * j + 1], p[3 * j + 2],
-                              res) *
-               m[j];
+    for (int j = 0; j < kRows; ++j) {
+      const bool on = m[j] != 0.0f;
+      cell[j] = sdfest::locate(on ? p[3 * j] : 0.0f, on ? p[3 * j + 1] : 0.0f,
+                               on ? p[3 * j + 2] : 0.0f, res);
+      sdfest::gather(sdf, cell[j], res, c[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+      if (m[j] != 0.0f) o[j] = sdfest::lerp(c[j], cell[j]) * m[j];
   }
-  if (full && aligned16(out + r0)) {
-    *reinterpret_cast<float4*>(out + r0) = make_float4(o[0], o[1], o[2], o[3]);
+  if (full && aligned<kRows>(out + r0)) {
+    if constexpr (kRows == 4) {
+      *reinterpret_cast<float4*>(out + r0) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    } else if constexpr (kRows == 2) {
+      *reinterpret_cast<float2*>(out + r0) = make_float2(o[0], o[1]);
+    } else {
+      out[r0] = o[0];
+    }
   } else {
 #pragma unroll
-    for (int j = 0; j < kQuad; ++j) {
+    for (int j = 0; j < kRows; ++j) {
       const int r = r0 + j;
       if (r >= 0 && r < n) out[r] = o[j];
     }
   }
 }
 
-// kStride: a grid of at most one block per SM walks the quads.
-template <bool kStride>
+// The group of a thread.  kSpread: warp w of block b takes the 32 groups
+// of chunk w * gridDim.x + b, so that the consecutive chunks of a run of
+// active rows (the object's pixels, consecutive in tile order) land in
+// different blocks, on different SMs; otherwise warp w of block b takes
+// chunk b * (blockDim.x / 32) + w.
+template <bool kSpread>
+__device__ __forceinline__ int group_index() {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int chunk = kSpread ? warp * gridDim.x + blockIdx.x
+                            : blockIdx.x * (blockDim.x / 32) + warp;
+  return chunk * 32 + lane;
+}
+
+// Thread g takes the group of rows kRows * g - shift .. + kRows - 1.
+template <int kRows, bool kSpread>
 __global__ void sample_kernel(const float* __restrict__ sdf,
                               const float* __restrict__ points,
                               const float* __restrict__ mask,
                               float* __restrict__ out, int n, int shift,
                               int res) {
-  const int quads = (n + shift + kQuad - 1) / kQuad;
-  int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (kStride) {
-    for (; q < quads; q += gridDim.x * blockDim.x)
-      sample_quad(sdf, points, mask, out, kQuad * q - shift, n, res);
-  } else {
-    if (q < quads) sample_quad(sdf, points, mask, out, kQuad * q - shift, n,
-                               res);
-  }
+  const int g = group_index<kSpread>();
+  if (g < (n + shift + kRows - 1) / kRows)
+    sample_group<kRows>(sdf, points, mask, out, kRows * g - shift, n, res);
 }
 
-// The parent's design: one thread per row.
-__global__ void sample_rows_kernel(const float* __restrict__ sdf,
-                                   const float* __restrict__ points,
-                                   const float* __restrict__ mask,
-                                   float* __restrict__ out, int n, int res) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float m = mask[i];
-  if (m == 0.0f) {
-    out[i] = 0.0f;
-    return;
-  }
-  const float v = sdfest::sample(sdf, points[3 * i], points[3 * i + 1],
-                                 points[3 * i + 2], res);
-  out[i] = v * m;
+template <int kRows, bool kSpread>
+int launch(const float* sdf, const float* points, const float* mask,
+           float* out, int n, int shift, int res, void* stream) {
+  const int groups = (n + shift + kRows - 1) / kRows;
+  const int blocks = (groups + sdfest::kThreads - 1) / sdfest::kThreads;
+  sample_kernel<kRows, kSpread>
+      <<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
+          sdf, points, mask, out, n, shift, res);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -145,33 +179,19 @@ extern "C" int sdfest_sample(const float* sdf, const float* points,
                              const float* mask, float* out, int n, int shift,
                              int res, void* stream) {
   if (n <= 0) return 0;
-  const int quads = (n + shift + kQuad - 1) / kQuad;
-  const int blocks = (quads + sdfest::kThreads - 1) / sdfest::kThreads;
-  sample_kernel<false><<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-      sdf, points, mask, out, n, shift, res);
-  return (int)cudaGetLastError();
+  return launch<kQuad, true>(sdf, points, mask, out, n, shift, res, stream);
 }
 
-// Design variants timed beside sdfest_sample: 0 one row per thread (the
-// parent's kernel), 1 quads on a grid of at most one block per SM.
-extern "C" int sdfest_sample_variant(int variant, const float* sdf,
+// Design variants timed beside sdfest_sample: `rows` rows per thread (1,
+// 2 or 4), chunks spread over the blocks or not, shift = the mask's phase
+// in rows modulo `rows`.
+extern "C" int sdfest_sample_variant(int rows, int spread, const float* sdf,
                                      const float* points, const float* mask,
                                      float* out, int n, int shift, int res,
                                      void* stream) {
   if (n <= 0) return 0;
-  if (variant == 0) {
-    const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
-    sample_rows_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-        sdf, points, mask, out, n, res);
-  } else {
-    int device = 0, sms = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    const int quads = (n + shift + kQuad - 1) / kQuad;
-    int blocks = (quads + sdfest::kThreads - 1) / sdfest::kThreads;
-    blocks = blocks < sms ? blocks : sms;
-    sample_kernel<true><<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-        sdf, points, mask, out, n, shift, res);
-  }
-  return (int)cudaGetLastError();
+  auto kernel = rows == 1   ? (spread ? launch<1, true> : launch<1, false>)
+                : rows == 2 ? (spread ? launch<2, true> : launch<2, false>)
+                            : (spread ? launch<4, true> : launch<4, false>);
+  return kernel(sdf, points, mask, out, n, shift, res, stream);
 }

@@ -310,7 +310,8 @@ def march_warm(
     ``t_init``.  The launch is the culling march's
     (:func:`march_geometry`): a raster in 16x16 tiles, of which only those
     with a marching ray (hit, start before the exit, not skipped) copy the
-    coarse table; a flat ``(N, 3)`` set in 1-D blocks.  ``bf16`` gates the fine steps with a bf16 sample (the
+    coarse table; a flat ``(N, 3)`` set in 1-D blocks.  ``bf16`` gates the
+    fine steps with a bf16 sample (the
     branch of ``render_depth_pallas_fwd(aux=True, bf16=True)``; no pipeline
     path takes it, as the JAX package's ``render_depth_warm`` passes no
     bf16); ``march_warm.bf16_launches`` counts its launches.  ``coarse``

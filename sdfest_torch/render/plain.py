@@ -180,11 +180,14 @@ def _point(pose, dirs_o, t):
 class _StepCount:
     """The ``steps`` report of the plain marches: rays that entered the box,
     fine (fp32-sampled) and bound ray-steps, distinct grid cells the fine
-    steps read; for a bf16 march also its ``fast`` steps and the distinct
+    steps read, and the ``longest`` ray's steps (the chain that a launch
+    waits for); for a bf16 march also its ``fast`` steps and the distinct
     cells of the bf16 grid that its bf16 samples (fast and verified) read."""
 
     def __init__(self, active: torch.Tensor, sdf: torch.Tensor, bf16: bool):
         self.rays, self.fine, self.bound = int(active.sum()), 0, 0
+        self.per_ray = torch.zeros(active.shape, dtype=torch.int32,
+                                   device=active.device)
         self.res = sdf.shape[0]
         self.touched = torch.zeros(sdf.numel(), dtype=torch.bool,
                                    device=sdf.device)
@@ -200,6 +203,7 @@ class _StepCount:
             fast: Optional[torch.Tensor] = None):
         self.fine += int(fine.sum())
         self.bound += int(far.sum())
+        self.per_ray += fine | far if fast is None else fine | far | fast
         self._touch(self.touched, fine, p)
         if fast is not None:
             self.fast += int(fast.sum())
@@ -207,7 +211,8 @@ class _StepCount:
 
     def report(self, steps: Dict[str, int]) -> None:
         steps.update(rays=self.rays, fine=self.fine, bound=self.bound,
-                     cells=int(self.touched.sum()))
+                     cells=int(self.touched.sum()),
+                     longest=int(self.per_ray.max()) if self.rays else 0)
         if self.bf16:
             steps.update(fast=self.fast,
                          cells_bf16=int(self.touched_bf16.sum()))
@@ -237,7 +242,8 @@ def march_plain(
     When ``steps`` is given, it receives the number of ``rays`` that entered
     the box, of ``fine`` and ``bound`` ray-steps taken and of distinct grid
     ``cells`` the fine steps read (the work the march does on these
-    inputs); with bf16 also the ``fast`` steps and ``cells_bf16``.
+    inputs), and the steps of the ``longest`` ray; with bf16 also the
+    ``fast`` steps and ``cells_bf16``.
     """
     scale = pose[13]
     dirs_o = object_rays(dirs, pose)

@@ -477,8 +477,9 @@ def _sample_case(dev, mug, case):
         return pts, (valid * torch.rand(valid.shape[0], generator=g).to(dev)
                      - 0.25 * (torch.rand(valid.shape[0], generator=g) < 0.01
                                ).float().to(dev)).contiguous()
-    if case == "ragged_4099":
-        return pts[:4099], valid[:4099]
+    if case == "ragged_4099":  # from a 16-byte boundary before the object
+        start = int(valid.nonzero()[0]) // 4 * 4
+        return pts[start:start + 4099], valid[start:start + 4099]
     if case == "offset_1":
         return pts[1:], valid[1:]
     if case == "offset_2_ragged":

@@ -67,14 +67,19 @@ def test_march_launch_covers_every_ray_once(raster, launch):
         assert int(rows.max()) == h - 1 and int(cols.max()) == w - 1
 
 
-def row_map(n: int, shift: int, blocks: int) -> torch.Tensor:
-    """The row each thread of a sample launch takes, ``(blocks, TILE *
-    TILE, QUAD)`` with -1 outside the rows, as ``sample_kernel``: thread q
-    takes rows QUAD * q - shift .. QUAD * q - shift + QUAD - 1."""
+def row_map(n: int, shift: int, blocks: int):
+    """The group and the rows of each thread of a sample launch, ``(blocks,
+    TILE * TILE)`` and ``(blocks, TILE * TILE, QUAD)`` with -1 outside the
+    rows, as ``sample_kernel``: lane l of
+    warp w of block b takes group g = (w * blocks + b) * 32 + l (the
+    chunks of 32 groups spread over the blocks), rows QUAD * g - shift ..
+    QUAD * g - shift + QUAD - 1."""
     threads = kernels.TILE * kernels.TILE
-    q = torch.arange(blocks * threads).reshape(blocks, threads, 1)
-    r = kernels.QUAD * q - shift + torch.arange(kernels.QUAD)
-    return torch.where((r >= 0) & (r < n), r, -1)
+    t = torch.arange(threads)
+    chunk = (t // 32)[None, :] * blocks + torch.arange(blocks)[:, None]
+    g = (chunk * 32 + t % 32)[..., None]
+    r = kernels.QUAD * g - shift + torch.arange(kernels.QUAD)
+    return g[..., 0], torch.where((r >= 0) & (r < n), r, -1)
 
 
 @pytest.mark.parametrize("offset", [0, 1])
@@ -90,11 +95,17 @@ def test_sample_launch_covers_every_row_once(n, offset):
     quads, blocks = kernels.sample_geometry(n, shift)
     assert quads == -(-(n + shift) // kernels.QUAD)
     assert blocks == -(-quads // (kernels.TILE * kernels.TILE))
-    rows = row_map(n, shift, blocks)
+    g, rows = row_map(n, shift, blocks)
     taken = rows[rows >= 0]
-    assert torch.equal(taken, torch.arange(n))  # each once, in order
-    # no thread beyond the quads holds a row
-    assert not bool((rows.reshape(-1, kernels.QUAD)[quads:] >= 0).any())
+    assert taken.numel() == n  # each row once
+    assert torch.equal(torch.sort(taken).values, torch.arange(n))
+    # each group is one thread's, and a warp's 32 threads take 32
+    # consecutive groups (32 * QUAD consecutive rows)
+    assert torch.equal(torch.sort(g.reshape(-1)).values,
+                       torch.arange(g.numel()))
+    assert bool((g.reshape(-1, 32).diff(dim=1) == 1).all())
+    # the threads past the last quad hold no row
+    assert not bool((rows[g >= quads] >= 0).any())
     full = (rows >= 0).all(-1)
     first = rows[..., 0][full]
     assert bool(((base + 4 * (offset + first)) % 16 == 0).all())
