@@ -416,8 +416,8 @@ class Smoke:
         sur, sur_m, obj, pc_m = self.queries(gt, 0.01, 1)
         res = self.sdf.shape[0]
         # sample: the pc values of the fused forward (N = H*W), then rows
-        # that are not a multiple of 4, views whose base is 4 or 8 bytes
-        # past a 16-byte boundary, and a non-binary mask
+        # that are not a multiple of 4, views one and two rows past the
+        # tensors' base, and a non-binary mask
         n = obj.shape[0]
         scale = torch.rand(n, generator=torch.Generator().manual_seed(5))
         cases = {"main path": (obj, pc_m),
@@ -1465,43 +1465,38 @@ class Smoke:
         if not hasattr(lib, "sdfest_empty"):  # a tree before the floor row
             return
         empty = lib.sdfest_empty
-        empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         stream = torch.cuda.current_stream().cuda_stream
         n = inp[0][0].shape[0]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
         r["empty"] = {}
-        for label, blocks in (
-                ("one_row_per_thread", -(-n // 256)),
-                ("pairs", -(-n // 512)), ("quads", k.sample_geometry(n, 0)[1]),
-                ("one_per_sm", sms)):
-            ms = cuda_ms(lambda b: empty(b, stream), [blocks] * reps)
-            r["empty"][label] = dict(blocks=blocks, ms=ms)
-            print(f"time sample empty kernel, {blocks} blocks of 256 "
-                  f"({label}): {ms:.4f} ms")
-        # design variants of the same function: rows per thread (1 is the
-        # parent's layout, 2 pairs, 4 quads), with or without the chunks
-        # of 32 threads spread over the blocks
+        for threads in (256, 1024):
+            blocks = -(-n // threads)
+            ms = cuda_ms(lambda b: empty(b, threads, stream), [blocks] * reps)
+            r["empty"][f"{blocks}x{threads}"] = ms
+            print(f"time sample empty kernel, {blocks} blocks of {threads}: "
+                  f"{ms:.4f} ms")
+        # design variants of the same function: the point loaded before
+        # the mask is known or after, in blocks of 256 or 1024 threads
         variant = lib.sdfest_sample_variant
         variant.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
+            ctypes.c_int] * 2 + [ctypes.c_void_p]
         res = self.sdf.shape[0]
 
-        def run(rows, spread, x):
+        def run(eager, threads, x):
             o, m = x
             out = torch.empty(n, device=self.dev)
-            assert variant(rows, spread, self.sdf.data_ptr(), o.data_ptr(),
-                           m.data_ptr(), out.data_ptr(), n,
-                           (m.data_ptr() // 4) % rows, res, stream) == 0
+            assert variant(eager, threads, self.sdf.data_ptr(), o.data_ptr(),
+                           m.data_ptr(), out.data_ptr(), n, res, stream) == 0
             return out
 
         r["variants"] = {}
-        for rows, spread in ((1, 0), (1, 1), (2, 1), (4, 0)):
-            label = f"rows_{rows}{'_spread' if spread else ''}"
+        for eager, threads in ((0, 256), (1, 256), (0, 1024), (1, 1024)):
+            label = f"{'eager' if eager else 'lazy'}_{threads}"
             for x in inp:
-                assert torch.equal(run(rows, spread, x), k.sample_plain(
+                assert torch.equal(run(eager, threads, x), k.sample_plain(
                     self.sdf, *x)), f"sample variant {label} differs"
-            cold = cuda_ms(lambda x: run(rows, spread, x), inp)
-            hot = cuda_ms(lambda x: run(rows, spread, x), [inp[0]] * reps)
+            cold = cuda_ms(lambda x: run(eager, threads, x), inp)
+            hot = cuda_ms(lambda x: run(eager, threads, x), [inp[0]] * reps)
             r["variants"][label] = dict(ms=cold, hot_ms=hot)
             print(f"time sample variant {label}: cold {cold:.4f} ms hot "
                   f"{hot:.4f} ms (bit for bit with the twin)")

@@ -4,194 +4,91 @@
 // sample_sdf_pallas -> _sample_impl -> _sample_kernel (the pc values of the
 // fused render + pc forward, render/api.py:305).
 //
-// Design.  One thread per quad of 4 consecutive rows.  Quad q holds rows
-// 4q - shift .. 4q - shift + 3 (those in [0, n)), where shift = the mask's
-// 16-byte phase in rows, so that every full quad of a 16-byte aligned
-// mask, or of a view of it offset by some rows, starts on a 16-byte
-// boundary: its 4 masks come in one float4 load, and its 4 points (48
-// bytes) in three, when the points' base shares that phase (a view offset
-// by k rows moves both by the same phase); its 4 outputs go out in one
-// float4 store when the output does.  A partial first or last quad, or an
-// array off that phase, takes its rows one by one in the same thread.  A
-// thread whose 4 masks are 0 stores zeros and reads nothing else; an
-// active row gathers its 8 corners through the read-only cache and writes
-// value * mask.  The TPU kernel's one-hot MXU factorization, y/z windows
-// and tile compaction worked around the TPU's slow gathers and are not
-// carried over.
+// Design.  One thread per point: it reads its point and mask, and a row
+// whose mask is 0 writes 0 and reads nothing else; a valid row gathers its
+// 8 corners through the read-only cache and writes value * mask.  The TPU
+// kernel's one-hot MXU factorization, y/z windows and tile compaction
+// worked around the TPU's slow gathers and are not carried over.
 //
-// What bounds it on the H100: device-memory bytes (4 B of mask and 4 B of
-// output per row, 12 B of point per active row; the 1 MiB grid is read
-// from L2 after its first touch), far below a launch's own floor at the
-// main path's 307,200 rows, of which ~8% are active.
-#include <cstdint>
-
+// What bounds it on the H100: device-memory bytes (16 B of point + mask in
+// and 4 B out per row; the 1 MiB grid is read from L2 after its first
+// touch).  Loads are coalesced across the warp; nothing else is needed.
 #include <cuda_runtime.h>
 
 #include "trilinear.cuh"
 
 namespace {
 
-constexpr int kQuad = 4;
-
-// True when p lies on a boundary of kRows floats (16 bytes for a quad).
-template <int kRows>
-__device__ __forceinline__ bool aligned(const float* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & (kRows * 4u - 1u)) == 0;
+// A load issued where it is written (not sunk into the branch that uses
+// it), so that it is in flight together with the mask's.
+__device__ __forceinline__ float load_now(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
 }
 
-// kRows consecutive floats from an address aligned<kRows>, in one load.
-template <int kRows>
-__device__ __forceinline__ void load_rows(const float* src, float* dst) {
-  if constexpr (kRows == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
-  } else if constexpr (kRows == 2) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(src));
-    dst[0] = v.x, dst[1] = v.y;
-  } else {
-    dst[0] = __ldg(src);
-  }
-}
-
-// The group of rows r0 .. r0 + kRows - 1 (rows outside [0, n) are not read
-// or written).  Every active row's 8 corners are gathered before any lerp,
-// so that the gathers of the group are in flight together: a row with mask
-// 0 locates the grid's center instead of its point (which it must not
-// read) and its corners are not used.
-template <int kRows>
-__device__ __forceinline__ void sample_group(
-    const float* __restrict__ sdf, const float* __restrict__ points,
-    const float* __restrict__ mask, float* __restrict__ out, int r0, int n,
-    int res) {
-  const bool full = r0 >= 0 && r0 + kRows <= n;
-  float m[kRows];
-  if (full && aligned<kRows>(mask + r0)) {
-    load_rows<kRows>(mask + r0, m);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int r = r0 + j;
-      m[j] = r >= 0 && r < n ? mask[r] : 0.0f;
-    }
-  }
-  bool any = false;
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) any = any || m[j] != 0.0f;
-  float o[kRows];
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) o[j] = 0.0f;
-  if (any) {
-    float p[3 * kRows];
-    if (full && aligned<kRows>(points + 3 * r0)) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        load_rows<kRows>(points + 3 * r0 + kRows * k, p + kRows * k);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const float* src = points + 3 * (r0 + j);
-        const bool on = m[j] != 0.0f;
-        p[3 * j] = on ? src[0] : 0.0f;
-        p[3 * j + 1] = on ? src[1] : 0.0f;
-        p[3 * j + 2] = on ? src[2] : 0.0f;
-      }
-    }
-    sdfest::Cell cell[kRows];
-    float c[kRows][2][2][2];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const bool on = m[j] != 0.0f;
-      cell[j] = sdfest::locate(on ? p[3 * j] : 0.0f, on ? p[3 * j + 1] : 0.0f,
-                               on ? p[3 * j + 2] : 0.0f, res);
-      sdfest::gather(sdf, cell[j], res, c[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < kRows; ++j)
-      if (m[j] != 0.0f) o[j] = sdfest::lerp(c[j], cell[j]) * m[j];
-  }
-  if (full && aligned<kRows>(out + r0)) {
-    if constexpr (kRows == 4) {
-      *reinterpret_cast<float4*>(out + r0) =
-          make_float4(o[0], o[1], o[2], o[3]);
-    } else if constexpr (kRows == 2) {
-      *reinterpret_cast<float2*>(out + r0) = make_float2(o[0], o[1]);
-    } else {
-      out[r0] = o[0];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int r = r0 + j;
-      if (r >= 0 && r < n) out[r] = o[j];
-    }
-  }
-}
-
-// The group of a thread.  kSpread: warp w of block b takes the 32 groups
-// of chunk w * gridDim.x + b, so that the consecutive chunks of a run of
-// active rows (the object's pixels, consecutive in tile order) land in
-// different blocks, on different SMs; otherwise warp w of block b takes
-// chunk b * (blockDim.x / 32) + w.
-template <bool kSpread>
-__device__ __forceinline__ int group_index() {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int chunk = kSpread ? warp * gridDim.x + blockIdx.x
-                            : blockIdx.x * (blockDim.x / 32) + warp;
-  return chunk * 32 + lane;
-}
-
-// Thread g takes the group of rows kRows * g - shift .. + kRows - 1.
-template <int kRows, bool kSpread>
+// kEager: the point is loaded before the mask is known (every row's point
+// is read), so that the two loads overlap.
+template <bool kEager>
 __global__ void sample_kernel(const float* __restrict__ sdf,
                               const float* __restrict__ points,
                               const float* __restrict__ mask,
-                              float* __restrict__ out, int n, int shift,
-                              int res) {
-  const int g = group_index<kSpread>();
-  if (g < (n + shift + kRows - 1) / kRows)
-    sample_group<kRows>(sdf, points, mask, out, kRows * g - shift, n, res);
+                              float* __restrict__ out, int n, int res) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float px = 0.0f, py = 0.0f, pz = 0.0f;
+  if constexpr (kEager) {
+    px = load_now(points + 3 * i);
+    py = load_now(points + 3 * i + 1);
+    pz = load_now(points + 3 * i + 2);
+  }
+  const float m = mask[i];
+  if (m == 0.0f) {
+    out[i] = 0.0f;
+    return;
+  }
+  if constexpr (!kEager) {
+    px = points[3 * i], py = points[3 * i + 1], pz = points[3 * i + 2];
+  }
+  out[i] = sdfest::sample(sdf, px, py, pz, res) * m;
 }
 
-template <int kRows, bool kSpread>
-int launch(const float* sdf, const float* points, const float* mask,
-           float* out, int n, int shift, int res, void* stream) {
-  const int groups = (n + shift + kRows - 1) / kRows;
-  const int blocks = (groups + sdfest::kThreads - 1) / sdfest::kThreads;
-  sample_kernel<kRows, kSpread>
-      <<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-          sdf, points, mask, out, n, shift, res);
+template <bool kEager>
+int launch(int threads, const float* sdf, const float* points,
+           const float* mask, float* out, int n, int res, void* stream) {
+  const int blocks = (n + threads - 1) / threads;
+  sample_kernel<kEager><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      sdf, points, mask, out, n, res);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// An empty kernel of `blocks` blocks of kThreads: the launch floor that
+// An empty kernel of `blocks` blocks of `threads`: the launch floor that
 // chip_smoke.py times beside the sampler at the sampler's geometry.
 __global__ void empty_kernel() {}
 
-extern "C" int sdfest_empty(int blocks, void* stream) {
-  empty_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>();
+extern "C" int sdfest_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 
-// shift: the mask's 16-byte phase in rows, (address / 4) % 4.
 extern "C" int sdfest_sample(const float* sdf, const float* points,
-                             const float* mask, float* out, int n, int shift,
-                             int res, void* stream) {
+                             const float* mask, float* out, int n, int res,
+                             void* stream) {
   if (n <= 0) return 0;
-  return launch<kQuad, true>(sdf, points, mask, out, n, shift, res, stream);
+  return launch<false>(sdfest::kThreads, sdf, points, mask, out, n, res,
+                       stream);
 }
 
-// Design variants timed beside sdfest_sample: `rows` rows per thread (1,
-// 2 or 4), chunks spread over the blocks or not, shift = the mask's phase
-// in rows modulo `rows`.
-extern "C" int sdfest_sample_variant(int rows, int spread, const float* sdf,
+// Design variants timed beside sdfest_sample: the point loaded eagerly or
+// not, in blocks of `threads` (256 or 1024).
+extern "C" int sdfest_sample_variant(int eager, int threads, const float* sdf,
                                      const float* points, const float* mask,
-                                     float* out, int n, int shift, int res,
+                                     float* out, int n, int res,
                                      void* stream) {
   if (n <= 0) return 0;
-  auto kernel = rows == 1   ? (spread ? launch<1, true> : launch<1, false>)
-                : rows == 2 ? (spread ? launch<2, true> : launch<2, false>)
-                            : (spread ? launch<4, true> : launch<4, false>);
-  return kernel(sdf, points, mask, out, n, shift, res, stream);
+  return eager ? launch<true>(threads, sdf, points, mask, out, n, res, stream)
+               : launch<false>(threads, sdf, points, mask, out, n, res,
+                               stream);
 }

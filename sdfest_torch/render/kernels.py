@@ -61,7 +61,7 @@ _SIGNATURES = {
               [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _F, _I, _P]),
     "march_warm": ("march", "sdfest_march_warm",
                    [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P]),
-    "sample": ("sample", "sdfest_sample", [_P] * 4 + [_I] * 3 + [_P]),
+    "sample": ("sample", "sdfest_sample", [_P, _P, _P, _P, _I, _I, _P]),
     "sample_grad": ("sample_grad", "sdfest_sample_grad",
                     [_P, _P, _P, _P, _P, _I, _I, _P]),
     "scatter": ("scatter", "sdfest_scatter", [_P, _P, _P, _I, _I, _P]),
@@ -365,36 +365,21 @@ def sample_plain(
     return torch.where(mask != 0, value * mask, torch.zeros_like(value))
 
 
-QUAD = 4  # rows per thread of the sample kernel
-
-
-def sample_geometry(n: int, shift: int) -> Tuple[int, int]:
-    """The sample kernel's launch over ``n`` rows whose mask lies ``shift``
-    rows past a 16-byte boundary: ``(quads, blocks)``.  Thread ``q`` takes
-    rows ``QUAD * q - shift`` to ``QUAD * q - shift + QUAD - 1`` (those in
-    ``[0, n)``), blocks of ``TILE * TILE`` threads."""
-    quads = -(-(n + shift) // QUAD)
-    return quads, -(-quads // (TILE * TILE))
-
-
 def sample(
     sdf: torch.Tensor, points: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
     """Values ``(N,)`` at points ``(N, 3)`` times ``mask (N,)``
-    (``csrc/sample.cu``; plain version :func:`sample_plain`).  On CUDA each
-    thread takes 4 consecutive rows (:func:`sample_geometry`), with 16-byte
-    loads and stores where the rows' addresses allow."""
+    (``csrc/sample.cu``; plain version :func:`sample_plain`)."""
     res = _check_grid(sdf)
     n = _check_points(points, mask)
     if _on_cpu(sdf, points, mask):
         return sample_plain(sdf, points, mask)
-    if 3 * n + QUAD >= 2 ** 31:
+    if 3 * n >= 2 ** 31:
         raise ValueError(f"too many rows for one launch: {n}")
     out = torch.empty(n, dtype=torch.float32, device=sdf.device)
     if n:
         _launch("sample", sdf.device, sdf.data_ptr(), points.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), n,
-                (mask.data_ptr() // 4) % QUAD, res)
+                mask.data_ptr(), out.data_ptr(), n, res)
         sample.launches += 1
     return out
 

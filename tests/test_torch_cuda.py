@@ -491,9 +491,9 @@ def _sample_case(dev, mug, case):
 @pytest.mark.parametrize("case", ["main_path", "zeros", "ones", "non_binary",
                                   "ragged_4099", "offset_1",
                                   "offset_2_ragged"])
-def test_quad_sampler_equals_its_twin_bit_for_bit(dev, mug, case):
-    """The sample kernel (4 rows per thread, 16-byte loads where the rows'
-    addresses allow) equals sample_plain bit for bit on every input."""
+def test_sampler_equals_its_twin_bit_for_bit(dev, mug, case):
+    """The sample kernel (one row per thread, the point loaded with the
+    mask) equals sample_plain bit for bit on every input."""
     sdf, _ = mug
     pts, mask = _sample_case(dev, mug, case)
     assert pts.is_contiguous() and mask.is_contiguous()

@@ -2,7 +2,7 @@
 ``pixel_index`` in ``csrc/march.cu``, written out here, the launch of both
 marches (``kernels.march_geometry``) takes every ray exactly once; with the
 thread-to-row map of ``sample_kernel`` in ``csrc/sample.cu``, the sampler's
-launch (``kernels.sample_geometry``) takes every row exactly once."""
+launch (``kernels.sample_blocks``) takes every row exactly once."""
 import pytest
 import torch
 
@@ -67,47 +67,25 @@ def test_march_launch_covers_every_ray_once(raster, launch):
         assert int(rows.max()) == h - 1 and int(cols.max()) == w - 1
 
 
-def row_map(n: int, shift: int, blocks: int):
-    """The group and the rows of each thread of a sample launch, ``(blocks,
-    TILE * TILE)`` and ``(blocks, TILE * TILE, QUAD)`` with -1 outside the
-    rows, as ``sample_kernel``: lane l of
-    warp w of block b takes group g = (w * blocks + b) * 32 + l (the
-    chunks of 32 groups spread over the blocks), rows QUAD * g - shift ..
-    QUAD * g - shift + QUAD - 1."""
+def row_map(n: int, blocks: int) -> torch.Tensor:
+    """The row each thread of a sample launch takes, ``(blocks, TILE *
+    TILE)`` with -1 outside the rows, as ``sample_kernel``: thread k of
+    block b on row b * TILE * TILE + k."""
     threads = kernels.TILE * kernels.TILE
-    t = torch.arange(threads)
-    chunk = (t // 32)[None, :] * blocks + torch.arange(blocks)[:, None]
-    g = (chunk * 32 + t % 32)[..., None]
-    r = kernels.QUAD * g - shift + torch.arange(kernels.QUAD)
-    return g[..., 0], torch.where((r >= 0) & (r < n), r, -1)
+    r = torch.arange(blocks)[:, None] * threads + torch.arange(threads)
+    return torch.where(r < n, r, -1)
 
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1001, 307_200])
 def test_sample_launch_covers_every_row_once(n, offset):
-    """A mask at a 16-byte boundary, or a view of one offset by a row (its
-    phase, the shift the wrapper passes, is then 1): every row is taken
-    once, and every full quad of 4 in-range rows starts on a 16-byte
-    boundary of the mask."""
-    base = 4096  # a 16-byte aligned address of row 0 of the parent tensor
-    shift = ((base + 4 * offset) // 4) % kernels.QUAD
-    assert shift == offset
-    quads, blocks = kernels.sample_geometry(n, shift)
-    assert quads == -(-(n + shift) // kernels.QUAD)
-    assert blocks == -(-quads // (kernels.TILE * kernels.TILE))
-    g, rows = row_map(n, shift, blocks)
-    taken = rows[rows >= 0]
-    assert taken.numel() == n  # each row once
-    assert torch.equal(torch.sort(taken).values, torch.arange(n))
-    # each group is one thread's, and a warp's 32 threads take 32
-    # consecutive groups (32 * QUAD consecutive rows)
-    assert torch.equal(torch.sort(g.reshape(-1)).values,
-                       torch.arange(g.numel()))
-    assert bool((g.reshape(-1, 32).diff(dim=1) == 1).all())
-    # the threads past the last quad hold no row
-    assert not bool((rows[g >= quads] >= 0).any())
-    full = (rows >= 0).all(-1)
-    first = rows[..., 0][full]
-    assert bool(((base + 4 * (offset + first)) % 16 == 0).all())
-    # and so do its points, a view of (N, 3) points offset by the same rows
-    assert bool(((base + 12 * (offset + first)) % 16 == 0).all())
+    """Every row is taken by exactly one thread, in order, whether the
+    rows start at a tensor's base or one row past it (the kernel reads each
+    row's own floats, so its launch does not depend on the base)."""
+    rows = torch.arange(n + offset)[offset:]  # a view one row in, or not
+    blocks = kernels.sample_blocks(rows.numel())
+    assert blocks == -(-n // (kernels.TILE * kernels.TILE))
+    taken = row_map(n, blocks)
+    assert torch.equal(taken[taken >= 0], torch.arange(n))
+    assert int((taken < 0).sum()) == blocks * kernels.TILE ** 2 - n
+    assert torch.equal(rows[taken[taken >= 0]], torch.arange(n) + offset)
