@@ -54,8 +54,8 @@ Phases:
             culling march without adaptive, and the bf16 marches; active
             16x16 tiles per render, the flat launch, all-miss poses of the
             default and bf16 marches; the scatter with zero cotangents; the
-            sampler on hot inputs, an empty kernel at its launch geometry,
-            its design variants and F.grid_sample (library yardstick); the
+            sampler on hot inputs, an empty kernel at its launch geometry
+            and F.grid_sample (library yardstick); the
             warm march's active tiles and an all-skip frame.  Runs without
             the check phase too (as on a parent tree, to time it in turns)
   profile   torch.profiler over one full-frame, fast and temporal call:
@@ -1465,41 +1465,13 @@ class Smoke:
         if not hasattr(lib, "sdfest_empty"):  # a tree before the floor row
             return
         empty = lib.sdfest_empty
-        empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
         stream = torch.cuda.current_stream().cuda_stream
-        n = inp[0][0].shape[0]
-        r["empty"] = {}
-        for threads in (256, 1024):
-            blocks = -(-n // threads)
-            ms = cuda_ms(lambda b: empty(b, threads, stream), [blocks] * reps)
-            r["empty"][f"{blocks}x{threads}"] = ms
-            print(f"time sample empty kernel, {blocks} blocks of {threads}: "
-                  f"{ms:.4f} ms")
-        # design variants of the same function: the point loaded before
-        # the mask is known or after, in blocks of 256 or 1024 threads
-        variant = lib.sdfest_sample_variant
-        variant.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 2 + [ctypes.c_void_p]
-        res = self.sdf.shape[0]
-
-        def run(eager, threads, x):
-            o, m = x
-            out = torch.empty(n, device=self.dev)
-            assert variant(eager, threads, self.sdf.data_ptr(), o.data_ptr(),
-                           m.data_ptr(), out.data_ptr(), n, res, stream) == 0
-            return out
-
-        r["variants"] = {}
-        for eager, threads in ((0, 256), (1, 256), (0, 1024), (1, 1024)):
-            label = f"{'eager' if eager else 'lazy'}_{threads}"
-            for x in inp:
-                assert torch.equal(run(eager, threads, x), k.sample_plain(
-                    self.sdf, *x)), f"sample variant {label} differs"
-            cold = cuda_ms(lambda x: run(eager, threads, x), inp)
-            hot = cuda_ms(lambda x: run(eager, threads, x), [inp[0]] * reps)
-            r["variants"][label] = dict(ms=cold, hot_ms=hot)
-            print(f"time sample variant {label}: cold {cold:.4f} ms hot "
-                  f"{hot:.4f} ms (bit for bit with the twin)")
+        blocks = k.sample_blocks(inp[0][0].shape[0])
+        ms = cuda_ms(lambda b: empty(b, stream), [blocks] * reps)
+        r["empty"] = dict(blocks=blocks, ms=ms)
+        print(f"time sample empty kernel at its launch geometry, {blocks} "
+              f"blocks of 256: {ms:.4f} ms")
 
     def time_scatter_zeros(self, sets):
         """The scatter with all-zero cotangents (the floor of launch, read

@@ -465,12 +465,12 @@ __global__ void march_kernel(const float* __restrict__ sdf,
 // What bounds it on the H100: as march_kernel, the longest dependent step
 // chain of the launch; it moves 2 more inputs and 5 more outputs per ray
 // (13.6 MB at 640x480 against 5 MB, a bound of 4.07 us).  Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W at 640x480 (PERF.md section 6, PR 6): a
-// frame where every ray is skipped takes 6.4-6.7 us (10.0-10.1 with the
-// table copied into every block); cold and mid-refinement inputs both
-// 17.6-18.1 us (20.5-20.7).  In the middle of a refinement a third of the
-// steps go, skipped rays and warm starts near the surface, but 114 of the
-// 124 active tiles stay and the longest ray's chain stays at ~29 of ~30
+// NVIDIA H100 80GB HBM3 at 700 W at 640x480 (PERF.md section 6): a frame
+// where every ray is skipped takes 6.4-6.7 us (9.9-10.1 with the table
+// copied into every block); cold and mid-refinement inputs both 17.7-18.1
+// us (20.3-20.7).  In the middle of a refinement a third of the steps go,
+// skipped rays and warm starts near the surface, but 114 of the 124
+// active tiles stay and the longest ray's chain stays at ~29 of ~30
 // steps, so mid-refinement still reads what cold reads.
 template <bool kBf16>
 __global__ void march_warm_kernel(

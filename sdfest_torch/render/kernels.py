@@ -365,11 +365,20 @@ def sample_plain(
     return torch.where(mask != 0, value * mask, torch.zeros_like(value))
 
 
+def sample_blocks(n: int) -> int:
+    """The sample kernel's launch over ``n`` rows: one thread per row,
+    thread ``k`` of block ``b`` on row ``b * TILE * TILE + k``, in this
+    many blocks of ``TILE * TILE`` threads."""
+    return -(-n // (TILE * TILE))
+
+
 def sample(
     sdf: torch.Tensor, points: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
     """Values ``(N,)`` at points ``(N, 3)`` times ``mask (N,)``
-    (``csrc/sample.cu``; plain version :func:`sample_plain`)."""
+    (``csrc/sample.cu``; plain version :func:`sample_plain`).  On CUDA one
+    thread per row (:func:`sample_blocks`) loads its point and its mask
+    together."""
     res = _check_grid(sdf)
     n = _check_points(points, mask)
     if _on_cpu(sdf, points, mask):
