@@ -9,6 +9,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check,fast   # the fast.yaml path
     python3 chip_smoke.py --phases build,check,temporal   # warm refinement
     python3 chip_smoke.py --phases build,check,bf16,multiview   # slice 4
+    python3 chip_smoke.py --phases build,check,batch   # refine_batch
 
 Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
@@ -25,7 +26,13 @@ Phases:
             (culling, relaxed), bf16 without culling equal to the fp32
             march, and the bf16 sample's error bound; the tiled march: the
             flat launch bit for bit equal to the 16x16 tiles, zeros on an
-            all-miss pose
+            all-miss pose; every kernel family at B = 8 hypotheses (one
+            posed behind the camera): one batched launch equal to 8
+            unbatched launches and to the batched plain version bit for
+            bit (sample-grad against its twin and the scatter within their
+            tolerances), every march instance on the frame, an ROI crop and
+            a strided raster, the warm march cold, mid-refinement and
+            all-skip
   pipeline  SDFPipeline.__call__ of the mug_procedural preset with the
             committed weights on a self-rendered observation, 50 full-frame
             iterations; counts kernel launches per call and times 3 calls
@@ -47,6 +54,18 @@ Phases:
             calls; the init's orientation error without and with a prior
             near the truth; one call each with a point constraint, under
             fast.yaml and under temporal coherence
+  batch     SDFPipeline.refine_batch of 8 hypotheses (the init network's
+            start, positions perturbed by 0.01) under the full-frame, fast,
+            fast-adaptive and temporal presets: launches per iteration,
+            equal to one single-hypothesis _refine's on the same plan;
+            ms per call and hypothesis-iterations/s against the same 8
+            starts through 8 sequential single-hypothesis _refine runs, in
+            turns; each hypothesis against its own run (the loss of
+            iteration 0 within 1e-6, the state after the first update and
+            its render's loss within EARLY_TOL, the final loss within
+            FINAL_SHARE of its run's fall; the final state printed beside
+            what two sequential runs differ by); every hypothesis's loss
+            finite and falling
   time      each kernel and its plain twin over 30 distinct inputs (CUDA
             events), with the least time the card could take (bound); the
             march also at the three ROI shapes of the fast plan, plain,
@@ -57,9 +76,12 @@ Phases:
             sampler on hot inputs, an empty kernel at its launch geometry
             and F.grid_sample (library yardstick); the
             warm march's active tiles and an all-skip frame.  Runs without
-            the check phase too (as on a parent tree, to time it in turns)
-  profile   torch.profiler over one full-frame, fast and temporal call:
-            device busy share and the ops that take the time
+            the check phase too (as on a parent tree, to time it in turns);
+            each kernel family at B = 8 hypotheses on distinct inputs
+            beside 8 times its B = 1 time and bound
+  profile   torch.profiler over one full-frame, fast and temporal call and
+            one batched full-frame refine_batch of 8 hypotheses: device
+            busy share and the ops that take the time
 
 Prints one JSON line {"kernels": [...]}, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Any failed check
@@ -77,7 +99,8 @@ import sys
 import time
 
 PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
-          "bf16", "multiview", "time", "profile")
+          "bf16", "multiview", "batch", "time", "profile")
+HYPOTHESES = 8  # refine_batch's batch (bench.py's --hypotheses default)
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
 SPIN_CYCLES = 100_000_000
@@ -105,6 +128,29 @@ OPS_WARM_FINE, OPS_WARM_BOUND, OPS_WARM_RAY = 72, 31, 50
 # and update (9); the warm march adds the corridor update (6) to each
 OPS_BF16_FAST, OPS_BF16_VERIFIED = 76, 107
 RELAXATION = 1.5  # the relaxed paths' over-relaxation factor
+# a refine_batch hypothesis against its own single-hypothesis run.  The
+# scatter's float atomics (and the backward of the decoder's trilinear
+# resize) add in no fixed order, so the gradient differs from run to run in
+# its last bits, and 50 Adam steps amplify that: the CPU tests' 1e-6
+# between a hypothesis and its own _refine holds only where the sums are
+# ordered.  So: iteration 0 (before any update) within 1e-6; the state
+# after the first update and the loss of the render it gives within
+# EARLY_TOL (that update is the last one whose inputs no last-bit
+# difference has touched: from the next render on, a sphere trace that
+# starts a last bit apart can stop a step earlier or later, and the warm
+# march can skip or warm-start a ray differently, so a hypothesis and its
+# own run part by more than the bits).  After 50 iterations the parting
+# has grown as far as two sequential runs of the same starts part (up to
+# ~0.1 in a latent on the fast plan, whose 64x80 level gives each pixel 16
+# times the weight), and which way a run goes is a coin toss, so the final
+# state is printed beside that spread, not held to it: a bound taken from
+# two runs fails whenever both happen to land together.  What is held at
+# the end is the outcome: each hypothesis's final loss within FINAL_SHARE
+# of the fall of its own run's loss.  The first EARLY_SHOWN updates are
+# printed beside what the two sequential runs differ by there.
+EARLY_TOL = 1e-5
+EARLY_SHOWN = 3
+FINAL_SHARE = 0.25
 # an Adam-sized step between two refinement iterations, from which the
 # warm march's mid-refinement inputs are made: positions ~1e-3, the
 # quaternion ~1e-2, the scale ~1e-3 relative
@@ -496,6 +542,7 @@ class Smoke:
         self.check_relaxed()
         self.check_bf16()
         self.check_tiles()
+        self.check_batch()
 
     def check_tiles(self):
         """The tiled march at every pose: the flat (N, 3) launch of 1-D
@@ -531,6 +578,168 @@ class Smoke:
             print(f"check march tiles pose {i}: the flat launch equals the "
                   f"16x16 tiles bit for bit ({', '.join(marches)}); all-miss "
                   f"zeros")
+
+    def hypothesis_inputs(self):
+        """HYPOTHESES hypotheses on the mug: grids ``(B, R, R, R)`` (the
+        decoded mug, scaled by 1, 1.01 or 1.02), the ground-truth poses of
+        each (GT_POSES in turn, the second round's positions jittered by
+        0.01) and poses ``(B, 14)``; the last hypothesis has the mug behind
+        the camera, so it misses the frame."""
+        import torch
+
+        g = torch.Generator(device="cpu").manual_seed(21)
+        gts = []
+        for b in range(HYPOTHESES):
+            pos, half, q = GT_POSES[b % len(GT_POSES)]
+            if b >= len(GT_POSES):
+                pos = [a + 0.01 * float(x)
+                       for a, x in zip(pos, torch.randn(3, generator=g))]
+            gts.append((list(pos), half, q))
+        pos, half, q = gts[-1]
+        gts[-1] = ([pos[0], pos[1], -pos[2]], half, q)
+        grids = torch.stack([self.sdf * (1.0 + 0.01 * (b % 3))
+                             for b in range(HYPOTHESES)]).contiguous()
+        poses = torch.stack([self.pose(p, q, h) for p, h, q in gts])
+        return grids, gts, poses.contiguous()
+
+    def check_batch(self):
+        """Every kernel family at B = HYPOTHESES (hypothesis_inputs: one
+        misses the frame): one batched launch of each equals B unbatched
+        launches of the same kernel bit for bit, and its batched plain
+        version (a loop of unbatched twins) likewise; sample-grad against
+        the twin at the check's tolerance and the scatter within 1e-3 of
+        max(1, max|want|) (float atomics in no fixed order).  Every march
+        instance on the frame, the fast plan's full-resolution ROI crop and
+        its stride-4 raster; both warm instances cold, mid-refinement (each
+        hypothesis's own warm step) and all-skip."""
+        import torch
+
+        from sdfest_torch.render import api, kernels as k, plain
+
+        thr = self.pipe.config["threshold"]
+        n_hyp = HYPOTHESES
+        grids, gts, poses = self.hypothesis_inputs()
+        frame = api.ray_set(self.camera, self.dev).march
+        (f_c, roi_c), (_, roi_f) = ROI_SHAPES[0], ROI_SHAPES[-1]
+        strided = self.roi_inputs(GT_POSES[0], f_c, roi_c)[0]
+        crop = self.roi_inputs(GT_POSES[0], 1, roi_f)[2]
+        ray_sets = {"frame": frame, f"roi_{roi_f[0]}x{roi_f[1]}": crop,
+                    f"stride_{f_c}": strided}
+        instances = {  # (culling, adaptive, relaxation, bf16)
+            "culling_adaptive": (True, True, 1.0, False),
+            "culling_no_adaptive": (True, False, 1.0, False),
+            "plain": (False, False, 1.0, False),
+            "relaxed_culling": (True, True, RELAXATION, False),
+            "relaxed_no_culling": (False, True, RELAXATION, False),
+            "bf16_culling": (True, True, 1.0, True),
+            "bf16_relaxed": (True, True, RELAXATION, True)}
+
+        def one_launch(fn, *args, **kw):
+            torch.cuda.synchronize()
+            k.reset_launches()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            wrapper = k.KERNELS[fn.__name__]
+            assert (wrapper.launches, wrapper.hypotheses) == (1, n_hyp), (
+                f"{fn.__name__}: {wrapper.launches} launches for "
+                f"{wrapper.hypotheses} hypotheses")
+            return out
+
+        for name, (culling, adaptive, relaxation, bf16) in instances.items():
+            kw = dict(relaxation=relaxation, bf16=bf16)
+            for label, rays in ray_sets.items():
+                got = one_launch(k.march, grids, rays, poses, thr, 500,
+                                 culling, adaptive, **kw)
+                each = all(torch.equal(got[b], k.march(
+                    grids[b], rays, poses[b], thr, 500, culling, adaptive,
+                    **kw)) for b in range(n_hyp))
+                twin = torch.equal(got.reshape(n_hyp, -1), plain.march_plain(
+                    grids, rays.reshape(-1, 3), poses, thr, 500, culling,
+                    adaptive, **kw))
+                hits = [int((d > 0).sum()) for d in got]
+                print(f"check batch march {name} {label}: B={n_hyp} in one "
+                      f"launch; equals {n_hyp} launches {each}, the batched "
+                      f"twin {twin}; hits per hypothesis {hits}")
+                assert each and twin, f"batched march {name} {label} differs"
+                assert hits[-1] == 0 and hits[0] > 0, hits
+        # the warm march: cold, each hypothesis's own warm step, all skipped
+        shape = (n_hyp, *frame.shape[:2])
+        cold = (torch.full(shape, -1.0, device=self.dev),
+                torch.zeros(shape, device=self.dev))
+        steps = [self.warm_step(gt, 40 + b) for b, gt in enumerate(gts[:-1])]
+        mid = (torch.stack([s[0] for s in steps] + [poses[-1]]),
+               torch.stack([s[1] for s in steps] + [cold[0][-1]]),
+               torch.stack([s[2] for s in steps] + [cold[1][-1]]))
+        cases = {"cold": (poses, *cold), "mid-refinement": mid,
+                 "all skipped": (poses, cold[0], torch.ones(shape,
+                                                           device=self.dev))}
+        for label, (pose, t_init, skip) in cases.items():
+            t_init, skip = t_init.contiguous(), skip.contiguous()
+            for bf16 in (False, True):
+                got = one_launch(k.march_warm, grids, frame, pose, t_init,
+                                 skip, thr, 500, bf16=bf16)
+                each = all(all(torch.equal(g[b], w) for g, w in zip(
+                    got, k.march_warm(grids[b], frame, pose[b], t_init[b],
+                                      skip[b], thr, 500, bf16=bf16)))
+                    for b in range(n_hyp))
+                twin = all(torch.equal(g.reshape(n_hyp, -1), w) for g, w in
+                           zip(got, plain.march_warm_plain(
+                               grids, frame.reshape(-1, 3), pose,
+                               t_init.reshape(n_hyp, -1),
+                               skip.reshape(n_hyp, -1), thr, 500, bf16=bf16)))
+                print(f"check batch march_warm{' bf16' if bf16 else ''} "
+                      f"{label}: B={n_hyp} in one launch; all six outputs "
+                      f"equal {n_hyp} launches {each}, the batched twin "
+                      f"{twin}; skipped {int(skip.sum())} warm-started "
+                      f"{int((t_init >= 0).sum())}")
+                assert each and twin, f"batched warm march {label} differs"
+        # the samplers and the scatter on each hypothesis's main-path
+        # queries (the last one's observation is empty: every row masked)
+        q = [self.queries(gt, 0.01, 60 + b) for b, gt in enumerate(gts)]
+        obj = torch.stack([x[2] for x in q])
+        pc_m = torch.stack([x[3] for x in q])
+        got = one_launch(k.sample, grids, obj, pc_m)
+        each = all(torch.equal(got[b], k.sample(grids[b], obj[b], pc_m[b]))
+                   for b in range(n_hyp))
+        twin = torch.equal(got, k.sample_plain(grids, obj, pc_m))
+        print(f"check batch sample: B={n_hyp} x N={obj.shape[1]} in one "
+              f"launch; equals {n_hyp} launches {each}, the batched twin "
+              f"{twin}; active rows {[int(m.sum()) for m in pc_m]}")
+        assert each and twin, "batched sample differs"
+        pts = torch.stack([torch.cat([x[0], x[2]]) for x in q]).contiguous()
+        m = torch.stack([torch.cat([x[1], x[3]]) for x in q]).contiguous()
+        v, gr = one_launch(k.sample_grad, grids, pts, m)
+        each = all(all(torch.equal(a, b) for a, b in zip(
+            (v[b], gr[b]), k.sample_grad(grids[b], pts[b], m[b])))
+            for b in range(n_hyp))
+        wv, wg = k.sample_grad_plain(grids, pts, m)
+        ev, eg = float((v - wv).abs().max()), float((gr - wg).abs().max())
+        print(f"check batch sample_grad: B={n_hyp} x N={pts.shape[1]} in one "
+              f"launch; equals {n_hyp} launches {each}; vs the batched twin "
+              f"value {ev:.3e} (tol 1e-4) grad {eg:.3e} (tol 1e-3)")
+        assert each and ev <= 1e-4 and eg <= 1e-3, "batched sample_grad"
+        gen = torch.Generator(device="cpu").manual_seed(22)
+        cot = (torch.randn(m.shape, generator=gen).to(self.dev)
+               * m).contiguous()
+        res = self.sdf.shape[0]
+        got = one_launch(k.scatter, pts, cot, res)
+        rel = lambda a, w: float((a - w).abs().max()) / max(
+            1.0, float(w.abs().max()))
+        errs = [rel(got[b], k.scatter(pts[b], cot[b], res))
+                for b in range(n_hyp)] + [rel(got, k.scatter_plain(pts, cot,
+                                                                   res))]
+        print(f"check batch scatter: B={n_hyp} x N={pts.shape[1]} in one "
+              f"launch; max|d| / max(1, max|want|) against {n_hyp} launches "
+              f"{max(errs[:-1]):.3e}, the batched twin {errs[-1]:.3e} (tol "
+              f"1e-3)")
+        assert max(errs) <= 1e-3, "batched scatter disagrees"
+        for name in ("march", "march_warm", "march_relaxed", "march_bf16",
+                     "sample", "sample_grad", "scatter"):
+            self.report[name].setdefault("batch", {}).update(
+                hypotheses=n_hyp, check="one launch == %d launches and the "
+                "batched twin (bit for bit; sample-grad vs twin 1e-4/1e-3; "
+                "scatter 1e-3 relative)" % n_hyp)
+        self.report["scatter"]["batch"]["max_rel_err"] = max(errs)
 
     def check_bf16(self):
         """The bf16-verified marches against their twins at every pose: the
@@ -1248,6 +1457,232 @@ class Smoke:
                 f"{h}x{w}": c for (h, w), c in rasters.items()}),
             temporal=dict(ms=wall_warm * 1e3, launches=counts))
 
+    def batch_inputs(self):
+        """refine_batch's inputs on the self-rendered mug at GT_POSES[0]:
+        the shared view ``(depth (1, H, W), points, point masks, camera
+        position, camera orientation)`` and HYPOTHESES starts ``(N, 1,
+        ...)``: the init network's state of the observation, positions
+        perturbed by 0.01 per hypothesis (seeded), as bench.py perturbs its
+        batch."""
+        import torch
+
+        obs = self.observe(GT_POSES[0])
+        depth = self.pipe._preprocess_depth(obs, obs > 0)[None].contiguous()
+        points, point_masks = self.pipe._lift(depth, 1)
+        cam_p = torch.zeros(1, 3, device=self.dev)
+        cam_q = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=self.dev)
+        with torch.no_grad():
+            latent, position, scale, orientation = self.pipe._nn_init(
+                depth, cam_p, cam_q,
+                torch.Generator(device=self.dev).manual_seed(0))
+        g = torch.Generator(device="cpu").manual_seed(31)
+        n = HYPOTHESES
+        states = {
+            "position": (position + 0.01 * torch.randn(
+                n, 3, generator=g).to(self.dev))[:, None].contiguous(),
+            "orientation": orientation.expand(n, 4)[:, None].contiguous(),
+            "scale": scale.expand(n)[:, None].contiguous(),
+            "latent": latent.expand(n, -1)[:, None].contiguous()}
+        return (depth, points, point_masks, cam_p, cam_q), states
+
+    def single_refine(self, pipe, state, views, multires, roi, fine_iters):
+        """One hypothesis (``state`` with ``(1, ...)`` leaves) through
+        refine_batch's plan with the single-hypothesis ``_refine``: each
+        coarse level of ``multires`` (``_coarse_phase``), then
+        ``fine_iters`` full-resolution iterations at ``roi``.  Returns the
+        final state and the log's loss and states per iteration, ``(T,
+        ...)`` over all phases."""
+        import torch
+
+        from sdfest_torch.pipeline.pipeline import _normalize_multires
+
+        depth, points, point_masks, cam_p, cam_q = views
+        logs = []
+        for factor, n_iters in _normalize_multires(multires):
+            depth_c, points_c, masks_c, roi_c = pipe._coarse_phase(depth,
+                                                                   factor)
+            state, _, log = pipe._refine(
+                state, depth_c, points_c, masks_c, cam_p, cam_q, True,
+                n_iters, roi_c, factor, allow_early_stop=False)
+            logs.append(log)
+        state, _, log = pipe._refine(
+            state, depth, points, point_masks, cam_p, cam_q, True,
+            fine_iters, roi, 1, allow_early_stop=False)
+        logs.append(log)
+        return state, {k: torch.cat([lg[k] for lg in logs])
+                       for k in ("loss", *state)}
+
+    def batch(self):
+        """SDFPipeline.refine_batch of HYPOTHESES hypotheses (batch_inputs)
+        at 640x480, 50 iterations, under the full-frame, fast (ROI + [4, 2]
+        multires), fast-adaptive (chunks) and temporal presets
+        (batch_preset)."""
+        views, states = self.batch_inputs()
+        self.report["_batch"] = {}
+        for label, pipe, adaptive in (
+                ("full_frame", self.pipe, False),
+                ("fast", self.fast_pipe, False),
+                ("fast_adaptive", self.adaptive_pipe, True),
+                ("temporal", self.temporal_pipe, False)):
+            self.batch_preset(label, pipe, adaptive, views, states)
+
+    def batch_preset(self, label, pipe, adaptive, views, states):
+        """One preset of the batch phase.  Launches: one batched call and
+        one single-hypothesis run of the same plan (single_refine), each
+        with the counts set to 0 just before it; launches per iteration
+        must be equal, each batched launch serving every hypothesis.  Then
+        the batched call and the same starts through HYPOTHESES sequential
+        single runs, in turns (batch, sequential, sequential, batch), on
+        the host's clock around a synchronize: ms per call and
+        hypothesis-iterations/s (N x iterations / s, bench.py's
+        definition).  Each hypothesis's final state is held against its own
+        single run, and every hypothesis's loss must be finite and fall."""
+        import torch
+
+        from sdfest_torch.pipeline.pipeline import _normalize_multires
+        from sdfest_torch.render import kernels
+
+        n = HYPOTHESES
+        multires = pipe._multires_for()
+        roi = pipe._roi_for(views[0])
+        coarse_iters = sum(it for _, it in _normalize_multires(multires))
+
+        def batched():
+            return pipe.refine_batch(states, *views, roi=roi,
+                                     multires=multires, adaptive=adaptive)
+
+        def sequential(fine_iters):
+            return [self.single_refine(
+                pipe, {k: v[b] for k, v in states.items()}, views, multires,
+                roi, fine_iters) for b in range(n)]
+
+        def counted(fn, *args):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            return (out, time.perf_counter() - t0, kernels.launches(),
+                    kernels.hypotheses())
+
+        batched()  # warm-up
+        (final, _, log), _, counts, hyps = counted(batched)
+        n_iter = log["loss"].shape[1]
+        fine_iters = n_iter - coarse_iters
+        start = {k: v[0] for k, v in states.items()}
+        (_, single_log), _, single_counts, _ = counted(
+            self.single_refine, pipe, start, views, multires, roi, fine_iters)
+        assert single_log["loss"].shape == (n_iter,)
+        per_it = {k: c / n_iter for k, c in counts.items()}
+        single_per_it = {k: c / n_iter for k, c in single_counts.items()}
+        per_launch = {k: hyps[k] / c for k, c in counts.items() if c}
+        print(f"batch {label}: plan multires {multires} roi {roi}; "
+              f"{n_iter} iterations executed; launches per iteration, "
+              f"{n} hypotheses {per_it}, one hypothesis {single_per_it}; "
+              f"hypotheses per launch {per_launch}")
+        assert counts == single_counts, (
+            f"{label}: {counts} launches for {n} hypotheses, "
+            f"{single_counts} for one")
+        assert all(v == n for v in per_launch.values()), per_launch
+        walls = {"batched": [], "sequential": []}
+        runs = {"batched": [], "sequential": []}
+        for turn in ("batched", "sequential", "sequential", "batched"):
+            out, wall, _, _ = counted(
+                batched if turn == "batched" else sequential,
+                *(() if turn == "batched" else (fine_iters,)))
+            walls[turn].append(wall)
+            runs[turn].append(out)
+        ms = {k: 1e3 * sum(v) / len(v) for k, v in walls.items()}
+        rate = {k: n * n_iter / (v / 1e3) for k, v in ms.items()}
+        print(f"batch {label}: batched {ms['batched']:.3f} ms/call "
+              f"{rate['batched']:.1f} hypothesis-iterations/s; {n} "
+              f"sequential single-hypothesis runs {ms['sequential']:.3f} ms "
+              f"{rate['sequential']:.1f} hypothesis-iterations/s; turns "
+              f"{ {k: [round(w * 1e3, 3) for w in v] for k, v in walls.items()} }"
+              f"; speed-up {ms['sequential'] / ms['batched']:.3f}x")
+        loss = log["loss"]
+        assert bool(torch.isfinite(loss).all()), "non-finite batch loss"
+        falls = (loss[:, -1] < loss[:, 0]).tolist()
+        print(f"batch {label}: loss per hypothesis it0 "
+              f"{[round(x, 6) for x in loss[:, 0].tolist()]} last "
+              f"{[round(x, 6) for x in loss[:, -1].tolist()]}")
+        assert all(falls), f"{label}: a hypothesis's loss did not fall"
+        singles = runs["sequential"][0]
+        finals = [runs["batched"][0][0], runs["batched"][1][0]]
+
+        def apart(state_of):
+            return {k: max(float((state_of(0, b)[k] - state_of(1, b)[k])
+                                 .abs().max()) for b in range(n))
+                    for k in final}
+
+        diff = apart(lambda i, b: ({k: v[b] for k, v in final.items()}
+                                   if i == 0 else singles[b][0]))
+        spread = {
+            "sequential": apart(lambda i, b: runs["sequential"][i][b][0]),
+            "batched": apart(lambda i, b: {k: v[b]
+                                           for k, v in finals[i].items()})}
+        loss0 = max(abs(float(loss[b, 0]) - float(singles[b][1]["loss"][0]))
+                    for b in range(n))
+        # log row t: the loss of iteration t's render, the state after
+        # update t + 1
+
+        def after_update(t, log_of, other_of):
+            d = {k: max(float((log_of(b)[k][t] - other_of(b)[k][t])
+                              .abs().max()) for b in range(n))
+                 for k in final}
+            d["loss"] = max(float((log_of(b)["loss"][t + 1]
+                                   - other_of(b)["loss"][t + 1]).abs())
+                            for b in range(n))
+            return d
+
+        batch_log = lambda b: {k: v[b] for k, v in log.items()}
+        shown = [(after_update(t, batch_log, lambda b: singles[b][1]),
+                  after_update(t, lambda b: singles[b][1],
+                               lambda b: runs["sequential"][1][b][1]))
+                 for t in range(EARLY_SHOWN)]
+        early = shown[0][0]
+        dloss = max(float((loss[b] - singles[b][1]["loss"]).abs().max())
+                    for b in range(n))
+        # each final loss against its own run's: the share of that run's fall
+        share = max(abs(float(loss[b, -1]) - float(singles[b][1]["loss"][-1]))
+                    / max(float(singles[b][1]["loss"][0])
+                          - float(singles[b][1]["loss"][-1]), 1e-12)
+                    for b in range(n))
+        print(f"batch {label}: each hypothesis against its own single run: "
+              f"iteration 0 loss max|d| {loss0:.3e} (tol 1e-6); after the "
+              f"first update max|d| {early} (tol {EARLY_TOL}); final loss "
+              f"max|d| {share:.4f} of its run's fall (tol {FINAL_SHARE}); "
+              f"final state max|d| {diff}, loss over all iterations max|d| "
+              f"{dloss:.3e}; run to run, two sequential turns "
+              f"{spread['sequential']}, two batched turns "
+              f"{spread['batched']}")
+        for t, (d, seq) in enumerate(shown):
+            print(f"batch {label}: after update {t + 1}, max|d| against its "
+                  f"own single run {max(d.values()):.3e} {d}; two "
+                  f"sequential single runs {max(seq.values()):.3e}")
+        assert loss0 <= 1e-6, f"{label}: iteration 0 loss differs {loss0}"
+        assert max(early.values()) <= EARLY_TOL, f"{label}: {early}"
+        assert share <= FINAL_SHARE, f"{label}: final loss {share}"
+        self.report["_batch"][label] = dict(
+            hypotheses=n, iterations=n_iter, plan=[multires, roi],
+            launches_per_iteration=per_it,
+            launches_per_iteration_single=single_per_it,
+            hypotheses_per_launch=per_launch,
+            ms_per_call=ms["batched"], hyp_it_per_s=rate["batched"],
+            sequential_ms=ms["sequential"],
+            sequential_hyp_it_per_s=rate["sequential"],
+            walls_ms={k: [w * 1e3 for w in v] for k, v in walls.items()},
+            max_diff_vs_single=diff, max_loss_diff_vs_single=dloss,
+            iteration0_loss_diff=loss0, early_diff=early,
+            early_shown=[dict(batched_vs_single=d, sequential=q)
+                         for d, q in shown],
+            final_loss_share=share, run_to_run=spread,
+            loss_first=loss[:, 0].tolist(), loss_last=loss[:, -1].tolist())
+        if label == "full_frame":
+            for name in FUSED_KERNELS:
+                self.report[name].setdefault("batch", {})[
+                    "launches_per_iteration"] = per_it[name]
+
     def time(self):
         import torch
 
@@ -1355,6 +1790,72 @@ class Smoke:
         self.time_march_variants(poses, dirs, coarse)
         self.time_tiles(poses, dirs, coarse)
         self.time_scatter_zeros(sets)
+        self.time_batch(sets, poses, dirs, coarse)
+
+    def time_batch(self, sets, poses, dirs, coarse):
+        """Each kernel family at B = HYPOTHESES on 30 distinct inputs (input
+        i stacks the B = 1 rows' sets or poses i, i + 1, ..., i + B - 1 of
+        the 30), one launch each, beside B times its B = 1 row's time and
+        its bound: B times that row's operations and bytes, the marches'
+        shared ray directions counted once: the default march, the warm
+        march cold, the sampler, sample-grad and the scatter."""
+        import torch
+
+        from sdfest_torch.render import kernels as k
+
+        if not hasattr(k.march, "hypotheses"):  # a tree before the batch
+            return
+        n, reps, res = HYPOTHESES, len(sets), self.sdf.shape[0]
+        thr = self.pipe.config["threshold"]
+        grids = self.sdf.expand(n, -1, -1, -1).contiguous()
+        tables = coarse.expand(n, -1, -1, -1).contiguous()
+        stack = lambda xs, i: torch.stack(
+            [xs[(i + j) % reps] for j in range(n)]).contiguous()
+        rows = {}
+        obj = [o for _, _, o, _ in sets]
+        pc_m = [m for _, _, _, m in sets]
+        inp = [(stack(obj, i), stack(pc_m, i)) for i in range(reps)]
+        rows["sample"] = cuda_ms(lambda x: k.sample(grids, *x), inp)
+        pts = [torch.cat([s, o]) for s, _, o, _ in sets]
+        masks = [torch.cat([sm, m]) for _, sm, _, m in sets]
+        inp = [(stack(pts, i), stack(masks, i)) for i in range(reps)]
+        rows["sample_grad"] = cuda_ms(lambda x: k.sample_grad(grids, *x),
+                                      inp)
+        gen = torch.Generator(device="cpu").manual_seed(23)
+        inp = [(p, (torch.randn(m.shape, generator=gen).to(self.dev)
+                    * m).contiguous()) for p, m in inp]
+        rows["scatter"] = cuda_ms(lambda x: k.scatter(*x, res), inp)
+        del inp
+        rays = dirs.reshape(self.camera.height, self.camera.width, 3)
+        pose_sets = [stack(poses, i) for i in range(reps)]
+        rows["march"] = cuda_ms(lambda p: k.march(
+            grids, rays, p, thr, 500, True, True, coarse=tables), pose_sets)
+        shape = (n, *rays.shape[:2])
+        t_init = torch.full(shape, -1.0, device=self.dev)
+        skip = torch.zeros(shape, device=self.dev)
+        rows["march_warm"] = cuda_ms(lambda p: k.march_warm(
+            grids, rays, p, t_init, skip, thr, 500, coarse=tables), pose_sets)
+        # the marches read the shared directions once for all hypotheses
+        # (12 bytes a ray); the rest of their B = 1 bytes (outputs, cells,
+        # table, pose; t_init and skip) and the other kernels' rows are per
+        # hypothesis
+        shared = {"march": rays.numel() * 4, "march_warm": rays.numel() * 4}
+        for name, ms in rows.items():
+            one = self.report[name]
+            if name == "march_warm":
+                one = one["cold"]
+            once = shared.get(name, 0)
+            nbytes = once + n * (one["bytes"] - once)
+            b_ms, by = bound(nbytes, n * one["ops"])
+            entry = dict(hypotheses=n, ms=ms, b1_ms_times_b=n * one["ms"],
+                         bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                         shared_bytes=once)
+            self.report[name].setdefault("batch", {})["time"] = entry
+            print(f"time batch {name:<12} B={n} one launch {ms:.4f} ms; "
+                  f"{n} x B=1 {n * one['ms']:.4f} ms; bound {b_ms:.5f} ms "
+                  f"({by}: {once / 1e6:.3f} MB shared + {n} x "
+                  f"{(one['bytes'] - once) / 1e6:.3f} MB = "
+                  f"{nbytes / 1e6:.3f} MB)")
 
     def time_tiles(self, poses, dirs, coarse):
         """The march's per-tile culling at the 30 timed poses: active 16x16
@@ -1713,29 +2214,39 @@ class Smoke:
         self._profile_call(self.pipe, "full-frame")
         self._profile_call(self.fast_pipe, "fast")
         self._profile_call(self.temporal_pipe, "temporal")
+        views, states = self.batch_inputs()
+        self._profile_run(
+            f"batch-{HYPOTHESES}-full-frame",
+            lambda: self.pipe.refine_batch(states, *views),
+            self.pipe.config["max_iterations"])
 
     def _profile_call(self, pipe, label):
+        depth = self.observe(GT_POSES[0])
+        self._profile_run(label, lambda: pipe(depth, depth > 0),
+                          pipe.config["max_iterations"])
+
+    def _profile_run(self, label, call, n_iter):
+        """torch.profiler over one ``call()`` of ``n_iter`` iterations,
+        after a warm-up and one unprofiled timed call."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
         from torch.autograd import DeviceType
 
-        depth = self.observe(GT_POSES[0])
-        pipe(depth, depth > 0)  # warm-up
+        call()  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pipe(depth, depth > 0)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with profile(activities=acts) as prof:
-            pipe(depth, depth > 0)
+            call()
             torch.cuda.synchronize()
         events = prof.key_averages()
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         n_kernels = sum(e.count for e in kernels)
-        n_iter = pipe.config["max_iterations"]
         print(f"profile {label}: unprofiled wall {wall_ms:.3f} ms/call; "
               f"device kernels {dev_ms:.3f} ms/call ({n_kernels} launches, "
               f"{n_kernels / n_iter:.1f} per iteration); device busy share "
@@ -1840,7 +2351,7 @@ def kernels_line(report) -> str:
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
                     "active_tiles", "all_miss", "flat", "zero_cotangents",
-                    "hot", "empty", "all_skip"):
+                    "hot", "empty", "all_skip", "batch"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -1885,7 +2396,7 @@ def main(argv=None) -> int:
 
     smoke = Smoke()
     if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "bf16",
-                      "multiview"}:
+                      "multiview", "batch"}:
         phases = ["check"] + [p for p in phases if p != "check"]
     for phase in PHASES[1:]:
         if phase in phases:
@@ -1899,6 +2410,7 @@ def main(argv=None) -> int:
         "temporal": smoke.report.get("_temporal"),
         "bf16": smoke.report.get("_bf16"),
         "multiview": smoke.report.get("_multiview"),
+        "batch": smoke.report.get("_batch"),
         "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
                     if k.startswith("_profile_")},
         "card": card}))

@@ -34,6 +34,19 @@
 // written in raster order; a thread outside a ragged raster's edge takes
 // part in the block's barriers and writes nothing.
 //
+// Hypotheses.  Both kernels take a batch of hypotheses from blockIdx.z
+// (grid_of): hypothesis z reads its own grid, bf16 grid, coarse table and
+// pose (each at z times its size past the base) and writes its own outputs
+// (z * n past theirs), and the rays, shared by all, are read by every
+// hypothesis.  The vote and the table copy stay per (tile, hypothesis)
+// block; an unbatched call is the launch with one hypothesis.  This stands
+// for the JAX package's vmap over hypotheses (refine_batch), which runs its
+// Pallas calls one hypothesis after another (_sequential_vmap,
+// pallas_kernel.py:176-206): here one launch serves every hypothesis
+// (the default march: 36.3-36.6 us for 8 at 640x480 against 8 x 16.1-16.3,
+// and a byte bound of 4.3 us, 14.4 MB with the shared directions read once,
+// on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6).
+//
 // Per-tile culling (the TPU kernel's compaction to active tiles,
 // pallas_kernel.py:546-561 with _obb_interval_tile :564, done per block
 // without a prefetch pass), in both kernels: every thread first runs its
@@ -204,6 +217,28 @@ __device__ __forceinline__ int coarse_cell(float px, float py, float pz) {
 constexpr int kTile = 16;
 static_assert(kTile * kTile == sdfest::kThreads, "a block is one tile");
 
+// The hypothesis of this block and the offsets of its operands: its grid
+// (res^3 values), its coarse table (`table_floats`), its pose (14 floats)
+// and its outputs (n values each).
+struct Hyp {
+  size_t grid, table, pose, rays;
+};
+
+// Blocks of 256 the warm march keeps resident per SM: the register budget
+// of 5 (at most 51 registers, 48 allocated) for the fp32 instance and of 4
+// for the bf16 one, what each took before the hypothesis offsets.  Left to
+// itself ptxas gave both 56 registers, and the fp32 instance fell to 4
+// blocks: a launch of short blocks (a frame where every ray is skipped)
+// went from 6.4 to 7.5 us on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+// section 6).  march_kernel takes no bound: the same bound of 5 slowed its
+// fp32 instances by 0.5-0.8 us at the 48 registers they take anyway.
+constexpr int kWarmBlocks = 5;
+
+__device__ __forceinline__ Hyp hypothesis(int n, int res, int table_floats) {
+  const size_t z = blockIdx.z;
+  return {z * res * res * res, z * table_floats, z * 14, z * n};
+}
+
 __device__ __forceinline__ int pixel_index(int n, int h, int w) {
   if (h == 0) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -329,9 +364,15 @@ __global__ void march_kernel(const float* __restrict__ sdf,
                              int culling, int adaptive, float relaxation) {
   extern __shared__ __align__(128) float4 dynamic_smem[];
   const TableView<kBf16> table{reinterpret_cast<float*>(dynamic_smem)};
+  const Hyp hyp = hypothesis(n, res, TableView<kBf16>::kFloats);
+  sdf += hyp.grid;
+  if (kBf16) sdf_b += hyp.grid;
   const bool cull = kBf16 || culling;
+  if (cull) coarse += hyp.table;
+  pose += hyp.pose;
   const bool adapt = !kBf16 && adaptive;
   const int i = pixel_index(n, h, w);
+  const size_t row = hyp.rays + i;  // the ray's depth of this hypothesis
 
   Ray r;
   bool marches = false;
@@ -342,7 +383,7 @@ __global__ void march_kernel(const float* __restrict__ sdf,
   if (cull) {
     // every thread of the block reaches the vote, ragged edge included
     if (!__syncthreads_or(marches)) {  // no ray of the tile meets the box
-      if (i >= 0) depth[i] = 0.0f;
+      if (i >= 0) depth[row] = 0.0f;
       return;
     }
     table.load(coarse);
@@ -420,7 +461,7 @@ __global__ void march_kernel(const float* __restrict__ sdf,
       if (!(t < r.t_max)) break;
     }
   }
-  depth[i] = result;
+  depth[row] = result;
 }
 
 // Warm/aux corridor march (temporal coherence).  Replaces the aux branch of
@@ -465,15 +506,20 @@ __global__ void march_kernel(const float* __restrict__ sdf,
 // What bounds it on the H100: as march_kernel, the longest dependent step
 // chain of the launch; it moves 2 more inputs and 5 more outputs per ray
 // (13.6 MB at 640x480 against 5 MB, a bound of 4.07 us).  Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W at 640x480 (PERF.md section 6): a frame
-// where every ray is skipped takes 6.4-6.7 us (9.9-10.1 with the table
-// copied into every block); cold and mid-refinement inputs both 17.7-18.1
-// us (20.3-20.7).  In the middle of a refinement a third of the steps go,
-// skipped rays and warm starts near the surface, but 114 of the 124
-// active tiles stay and the longest ray's chain stays at ~29 of ~30
-// steps, so mid-refinement still reads what cold reads.
+// NVIDIA H100 80GB HBM3 at 700 W at 640x480 (PERF.md section 6), one
+// hypothesis: a frame where every ray is skipped takes 6.7 us (6.6-6.7
+// before the hypothesis axis, 9.9-10.1 with the table copied into every
+// block); cold and mid-refinement inputs 18.1-18.3 us (17.9-18.1 before,
+// 20.3-20.7).  8 hypotheses in one launch: 55.9 us cold against 8 x 18.2
+// and a byte bound of 24.8 us (83 MB, the directions read once).  In the
+// middle of a refinement a third of the steps go, skipped rays and warm
+// starts near the surface, but 114 of the 124 active tiles stay and the
+// longest ray's chain stays at ~29 of ~30 steps, so mid-refinement still
+// reads what cold reads.
 template <bool kBf16>
-__global__ void march_warm_kernel(
+__global__ void __launch_bounds__(sdfest::kThreads,
+                                  kBf16 ? kWarmBlocks - 1 : kWarmBlocks)
+march_warm_kernel(
     const float* __restrict__ sdf, const __nv_bfloat16* __restrict__ sdf_b,
     const float* __restrict__ coarse, const float* __restrict__ dirs,
     const float* __restrict__ pose, const float* __restrict__ t_init,
@@ -484,26 +530,38 @@ __global__ void march_warm_kernel(
     float threshold, int max_steps) {
   extern __shared__ __align__(128) float4 dynamic_smem[];
   const TableView<kBf16> table{reinterpret_cast<float*>(dynamic_smem)};
+  const Hyp hyp = hypothesis(n, res, TableView<kBf16>::kFloats);
+  coarse += hyp.table;
+  pose += hyp.pose;
+  // this hypothesis's grid (and bf16 grid) as a 32-bit offset of each
+  // cell's index, the grid pointers left as the launch passed them: a
+  // bumped 64-bit grid pointer, rebuilt on every fine step under the
+  // register bound, cost ~0.6 us of a one-hypothesis launch (PERF.md
+  // section 6); the wrapper keeps batch * res^3 below 2^31
+  const int grid = static_cast<int>(blockIdx.z) * res * res * res;
+  // the ray's row of this hypothesis in t_init, skip and the six outputs:
+  // one index, not eight bumped pointers live across the step loop
   const int i = pixel_index(n, h, w);
+  const size_t row = hyp.rays + i;
 
   Ray r;
   float t0 = 0.0f;
   bool marches = false;
   if (i >= 0) {
     r = setup_ray(dirs, pose, i);
-    const float ti = t_init[i];
+    const float ti = t_init[row];
     t0 = ti >= 0.0f ? fmaxf(r.t_min, ti) : r.t_min;
-    marches = r.hit && t0 < r.t_max && skip[i] <= 0.0f;
+    marches = r.hit && t0 < r.t_max && skip[row] <= 0.0f;
   }
   // every thread of the block reaches the vote, ragged edge included
   if (!__syncthreads_or(marches)) {  // no ray of the tile marches
     if (i >= 0) {
-      depth[i] = 0.0f;
-      t_out[i] = t0;
-      v0_out[i] = 0.0f;
-      min_dip_out[i] = 0.0f;
-      v_last_out[i] = 0.0f;
-      t_last_out[i] = t0;
+      depth[row] = 0.0f;
+      t_out[row] = t0;
+      v0_out[row] = 0.0f;
+      min_dip_out[row] = 0.0f;
+      v_last_out[row] = 0.0f;
+      t_last_out[row] = t0;
     }
     return;
   }
@@ -525,7 +583,8 @@ __global__ void march_warm_kernel(
       float v = cd;
       bool may_hit = false;
       if (!(cd >= threshold * t + 1e-5f)) {
-        const sdfest::Cell cell = sdfest::locate(px, py, pz, res);
+        sdfest::Cell cell = sdfest::locate(px, py, pz, res);
+        cell.idx += grid;
         may_hit = true;
         if constexpr (kBf16) {
           const Bf16Sample b = bf16_sample(sdf_b, cell, res, amax, r.scale);
@@ -553,18 +612,21 @@ __global__ void march_warm_kernel(
       if (!(t < r.t_max)) break;
     }
   }
-  depth[i] = result;
-  t_out[i] = t;
-  v0_out[i] = have ? v0 : 0.0f;
-  min_dip_out[i] = have ? min_dip : 0.0f;
-  v_last_out[i] = have ? v_prev : 0.0f;
-  t_last_out[i] = t_prev;
+  depth[row] = result;
+  t_out[row] = t;
+  v0_out[row] = have ? v0 : 0.0f;
+  min_dip_out[row] = have ? min_dip : 0.0f;
+  v_last_out[row] = have ? v_prev : 0.0f;
+  t_last_out[row] = t_prev;
 }
 
-// The launch grid of both marches (see pixel_index).
-dim3 grid_of(int n, int h, int w) {
-  return h > 0 ? dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile)
-               : dim3((n + sdfest::kThreads - 1) / sdfest::kThreads);
+// The launch grid of both marches (see pixel_index), one z slice per
+// hypothesis.
+dim3 grid_of(int n, int h, int w, int batch) {
+  return h > 0 ? dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile,
+                      batch)
+               : dim3((n + sdfest::kThreads - 1) / sdfest::kThreads, 1,
+                      batch);
 }
 
 // The dynamic shared memory of a culling launch: the table and its
@@ -582,14 +644,16 @@ size_t table_smem(bool bf16) {
 // the min table (read when culling; the warm march always culls).
 // The rays: n = h * w in raster order when h > 0 (one block per 16x16
 // tile; the wrappers pass h > 0 only for a culling march), else a set of
-// n in 1-D blocks.  coarse is 16-byte aligned (the source of a TMA copy).
+// n in 1-D blocks.  batch hypotheses, each with its own grid, table, pose
+// and outputs, contiguous one after the other; every hypothesis's coarse
+// table is 16-byte aligned (the source of a TMA copy).
 extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
                             const float* coarse, const float* dirs,
                             const float* pose, float* depth, int n, int h,
-                            int w, int res, float threshold, int max_steps,
-                            int culling, int adaptive, float relaxation,
-                            int bf16, void* stream) {
-  if (n <= 0) return 0;
+                            int w, int batch, int res, float threshold,
+                            int max_steps, int culling, int adaptive,
+                            float relaxation, int bf16, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
   const bool relaxed = relaxation > 1.0f;
   auto kernel = bf16 ? (relaxed ? march_kernel<true, true>
                                 : march_kernel<false, true>)
@@ -597,7 +661,8 @@ extern "C" int sdfest_march(const float* sdf, const void* sdf_b,
                                 : march_kernel<false, false>);
   // shared memory only for a culling march
   const size_t smem = bf16 || culling ? table_smem(bf16) : 0;
-  kernel<<<grid_of(n, h, w), sdfest::kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid_of(n, h, w, batch), sdfest::kThreads, smem,
+           (cudaStream_t)stream>>>(
       sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
       depth, n, h, w, res, threshold, max_steps, culling, adaptive,
       relaxation);
@@ -609,12 +674,12 @@ extern "C" int sdfest_march_warm(const float* sdf, const void* sdf_b,
                                  const float* pose, const float* t_init,
                                  const float* skip, float* depth, float* t,
                                  float* v0, float* min_dip, float* v_last,
-                                 float* t_last, int n, int h, int w, int res,
-                                 float threshold, int max_steps, int bf16,
-                                 void* stream) {
-  if (n <= 0) return 0;
+                                 float* t_last, int n, int h, int w,
+                                 int batch, int res, float threshold,
+                                 int max_steps, int bf16, void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
   auto kernel = bf16 ? march_warm_kernel<true> : march_warm_kernel<false>;
-  kernel<<<grid_of(n, h, w), sdfest::kThreads, table_smem(bf16),
+  kernel<<<grid_of(n, h, w, batch), sdfest::kThreads, table_smem(bf16),
            (cudaStream_t)stream>>>(
       sdf, static_cast<const __nv_bfloat16*>(sdf_b), coarse, dirs, pose,
       t_init, skip, depth, t, v0, min_dip, v_last, t_last, n, h, w, res,

@@ -19,6 +19,11 @@
 //  3. when res is even, a leader whose cell has an even z index adds each
 //     z-pair of corners with one 8-byte float2 atomicAdd (sm_90): 4
 //     atomics instead of 8 (an odd res or z index takes 8 scalar ones).
+// 4. blockIdx.z is the hypothesis: its points and cotangents (n rows) and
+//    its grid (res^3 values) are its own, and since a block holds rows of
+//    one hypothesis only, no warp aggregates across two (8 x 614,400 rows:
+//    20.9-21.2 us with the fill against 8 x 7.7, on an NVIDIA H100 80GB
+//    HBM3 at 700 W; PERF.md section 6).
 // NOT DETERMINISTIC: the order of the float atomics across warps changes
 // from run to run, so the last bits of the sums do.  The JAX kernel is
 // deterministic (a matmul transpose accumulated over sequential grid steps,
@@ -49,6 +54,10 @@ __global__ void scatter_kernel(const float* __restrict__ points,
                                const float* __restrict__ cot,
                                float* __restrict__ grad, int n, int res) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t z = blockIdx.z;
+  points += z * 3 * n;
+  cot += z * n;
+  grad += z * res * res * res;
   const float g = i < n ? cot[i] : 0.0f;
   const bool live = g != 0.0f;
   // every lane of the warp stays until the shuffles: no exit before here
@@ -105,11 +114,14 @@ __global__ void scatter_kernel(const float* __restrict__ points,
 
 }  // namespace
 
-// grad: 8-byte aligned (the float2 atomics of an even res).
+// grad: 8-byte aligned (the float2 atomics of an even res; res^3 floats per
+// hypothesis keep every hypothesis's grid so).  batch hypotheses of n rows
+// each, one after the other in every operand.
 extern "C" int sdfest_scatter(const float* points, const float* cot,
-                              float* grad, int n, int res, void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + sdfest::kThreads - 1) / sdfest::kThreads;
+                              float* grad, int n, int batch, int res,
+                              void* stream) {
+  if (n <= 0 || batch <= 0) return 0;
+  const dim3 blocks((n + sdfest::kThreads - 1) / sdfest::kThreads, 1, batch);
   scatter_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
       points, cot, grad, n, res);
   return (int)cudaGetLastError();

@@ -36,10 +36,15 @@ reads the probe (:class:`NoDepthError` and the plan).  Early stop
 one host read per check of each phase: every ``early_stop_interval``
 iterations, at most 5 per 50-iteration call at the default interval of 10.
 
-Not ported, and raising ``NotImplementedError``: ``refine_batch``,
-``generate_mesh`` and ``generate_depth``; ``__call__`` has no ``log_path``,
-``animation_path`` or ``visualize`` outputs (they need the evaluation
-modules).
+:meth:`SDFPipeline.refine_batch` refines ``N`` hypotheses against shared
+views with ONE launch of each kernel per view and iteration for all of
+them (the kernels take the hypothesis as a launch dimension): full frame,
+multires + ROI, adaptive chunks and temporal, each hypothesis on the
+trajectory of its own ``_refine``.
+
+Not ported, and raising ``NotImplementedError``: ``generate_mesh`` and
+``generate_depth``; ``__call__`` has no ``log_path``, ``animation_path`` or
+``visualize`` outputs (they need the evaluation modules).
 """
 from __future__ import annotations
 
@@ -68,6 +73,47 @@ from sdfest_torch.utils.device import resolve_device
 from sdfest_torch.utils.weights import load_flax_into, resolve_model_path
 
 _STATE_KEYS = ("position", "orientation", "scale", "latent")
+# the log's entries with one value per hypothesis and iteration
+_LOSS_KEYS = ("loss", "loss_depth", "loss_pc", "inlier_ratio")
+
+
+def _unit(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions ``(..., 4)``, each divided by its own norm."""
+    return q / torch.sqrt(torch.sum(q ** 2, dim=-1, keepdim=True))
+
+
+def _per_row(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-hypothesis ``(B,)`` mask shaped to select rows of ``x (B,
+    ...)``."""
+    return mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim))
+
+
+def _hypothesis_states(states: Dict, device) -> Dict[str, torch.Tensor]:
+    """``refine_batch``'s states (``position (N, 1, 3)``, ``orientation (N,
+    1, 4)``, ``scale (N, 1)``, ``latent (N, 1, L)``) as the hypothesis rows
+    ``(N, 3)``, ``(N, 4)``, ``(N,)``, ``(N, L)`` of
+    :meth:`SDFPipeline._refine_hypotheses`."""
+    out = {k: torch.as_tensor(states[k], dtype=torch.float32, device=device)
+           for k in _STATE_KEYS}
+    n = out["position"].shape[0]
+    return {k: x.reshape(n) if k == "scale" else x.reshape(n, -1)
+            for k, x in out.items()}
+
+
+def _batch_result(states, best, logs):
+    """``refine_batch``'s ``(states, best, log)`` in the JAX package's
+    shapes from hypothesis rows and the phases' iteration-major logs: a
+    state ``(N, ...)`` becomes ``(N, 1, ...)``, the logs are concatenated
+    over the phases and each entry goes hypothesis-major, ``(N, T)`` or
+    ``(N, T, 1, ...)``."""
+    n = states["position"].shape[0]
+    log = {k: torch.cat([lg[k] for lg in logs]) for k in logs[-1]}
+    log = {k: (v.expand(n, -1) if k == "active" else
+               v.transpose(0, 1) if k in _LOSS_KEYS else
+               v.transpose(0, 1).unsqueeze(2)) for k, v in log.items()}
+    return ({k: states[k].unsqueeze(1) for k in _STATE_KEYS},
+            dict({k: best[k].unsqueeze(1) for k in _STATE_KEYS},
+                 inlier_ratio=best["inlier_ratio"]), log)
 
 
 class NoDepthError(ValueError):
@@ -216,7 +262,7 @@ class SDFPipeline:
     # ------------------------------------------------------------------
 
     def _decode(self, latent: torch.Tensor) -> torch.Tensor:
-        """Latent ``(1, L)`` -> SDF ``(1, 1, D, D, D)``."""
+        """Latents ``(B, L)`` -> SDFs ``(B, 1, D, D, D)``, one batch."""
         return self.decoder(latent)
 
     def _preprocess_depth(self, depth: torch.Tensor, mask: torch.Tensor
@@ -494,8 +540,12 @@ class SDFPipeline:
         roi: Optional[Tuple[int, int]] = None,
         ds_factor: int = 1,
         point_constraint: Optional[Tuple] = None,
+        allow_early_stop: bool = True,
+        opt_state: Optional[dict] = None,
+        best: Optional[Dict[str, torch.Tensor]] = None,
+        return_full: bool = False,
     ):
-        """One refinement phase over one or more views.
+        """One refinement phase of one hypothesis over one or more views.
 
         ``state`` holds ``position (1, 3)``, ``orientation (1, 4)``, ``scale
         (1,)`` and ``latent (1, L)`` in the world frame.  ``depth_image`` is
@@ -513,22 +563,79 @@ class SDFPipeline:
         ``points``/``point_mask`` are ignored and may be None
         (``pipeline.py:445-474``).  ``point_constraint=(source, target,
         weight)`` adds ``weight * point_constraint_loss`` of the raw
-        orientation parameter.  Adam starts afresh (zero moments, step 1).
-        Under temporal coherence (full frame only) each view renders through
-        the warm march with its own warm state, the motion bound shared, and
-        the pc loss is sampled apart from it.  With ``early_stop_delta > 0``
-        the phase stops once an interval of ``early_stop_interval``
-        iterations improves the loss by less than that share (one host read
-        per check); the remaining log rows repeat the last one with
-        ``active`` 0, and state and best stay as they were.  Returns
-        ``(state, best, log)``: the final state, the state with the best
-        inlier ratio of the last view's pre-step render, and the
-        per-iteration log (each entry stacked over iterations, ``active`` 1
-        on the iterations that ran).
+        orientation parameter.  Under temporal coherence (full frame only)
+        each view renders through the warm march with its own warm state,
+        the motion bound shared, and the pc loss is sampled apart from it.
+        With ``early_stop_delta > 0`` and ``allow_early_stop`` the phase
+        stops once an interval of ``early_stop_interval`` iterations
+        improves the loss by less than that share (one host read per
+        check); the remaining log rows repeat the last one with ``active``
+        0, and state and best stay as they were.
+
+        Adam starts afresh (zero moments, step 1) unless ``opt_state``, the
+        optimizer state a ``return_full`` call returned, carries on from
+        it (its step count included); ``best`` likewise carries the best
+        tracker on, so a phase run in chunks equals the phase run at once
+        (``pipeline.py:372-377``).  Returns ``(state, best, log)``, or with
+        ``return_full`` ``(state, opt_state, best, log)``: the final state,
+        the state with the best inlier ratio of the last view's pre-step
+        render, and the per-iteration log (each entry stacked over
+        iterations, ``active`` 1 on the iterations that ran).
+        """
+        if len(state["position"]) != 1:
+            raise ValueError("_refine refines one hypothesis; refine_batch "
+                             "takes a batch")
+        if best is not None:
+            best = dict(best, inlier_ratio=torch.as_tensor(
+                best["inlier_ratio"], dtype=torch.float32,
+                device=self.device).reshape(1))
+        state, opt_state, best, log = self._refine_hypotheses(
+            state, depth_image, points, point_mask, camera_position,
+            camera_orientation, shape_optimization, num_iterations, roi,
+            ds_factor, point_constraint, allow_early_stop, opt_state, best)
+        best = dict(best, inlier_ratio=best["inlier_ratio"][0])
+        log = {k: v[:, 0] if k in _LOSS_KEYS else v for k, v in log.items()}
+        if return_full:
+            return state, opt_state, best, log
+        return state, best, log
+
+    def _refine_hypotheses(
+        self,
+        state: Dict[str, torch.Tensor],
+        depth_image: torch.Tensor,
+        points: Optional[torch.Tensor],
+        point_mask: Optional[torch.Tensor],
+        camera_position: Optional[torch.Tensor],
+        camera_orientation: Optional[torch.Tensor],
+        shape_optimization: bool,
+        num_iterations: Optional[int],
+        roi: Optional[Tuple[int, int]],
+        ds_factor: int,
+        point_constraint: Optional[Tuple],
+        allow_early_stop: bool,
+        opt_state: Optional[dict],
+        best: Optional[Dict[str, torch.Tensor]],
+    ):
+        """:meth:`_refine` of ``B`` hypotheses at once: ``state`` holds
+        ``position (B, 3)``, ``orientation (B, 4)``, ``scale (B,)`` and
+        ``latent (B, L)``; the views are shared.
+
+        Each iteration decodes the ``B`` latents as one batch and renders
+        each view once for all hypotheses (one launch of each kernel per
+        view, :func:`render_depth_with_pc_values` or the warm march); the
+        losses are ``(B,)``, the step differentiates their sum (the
+        hypotheses share no parameter, so each gets its own gradient), and
+        every quaternion, the best tracker and the warm state are per
+        hypothesis.  Early stop takes one hypothesis only.  Returns
+        ``(state, opt_state, best, log)`` with ``best["inlier_ratio"]
+        (B,)`` and the log's entries stacked iteration-major: ``(T, B)``
+        for the losses and ratio, ``(T, B, ...)`` for the state, ``(T,)``
+        for ``active``.
         """
         dev = self.device
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
         state = {k: f32(state[k]).detach().clone() for k in _STATE_KEYS}
+        n_hyps = state["position"].shape[0]
         depth_image = f32(depth_image)
         depth_image = depth_image.reshape(-1, *depth_image.shape[-2:])
         n_views = depth_image.shape[0]
@@ -545,11 +652,15 @@ class SDFPipeline:
         if use_warm and ds_factor != 1:
             raise ValueError("multires refinement and temporal_coherence "
                              "are mutually exclusive")
-        early_delta = float(self.config.get("early_stop_delta", 0.0) or 0.0)
+        early_delta = (float(self.config.get("early_stop_delta", 0.0) or 0.0)
+                       if allow_early_stop else 0.0)
         early_interval = int(self.config.get("early_stop_interval", 10))
         if early_delta > 0.0 and early_interval < 1:
             raise ValueError(
                 f"early_stop_interval must be >= 1, got {early_interval}")
+        if early_delta > 0.0 and n_hyps != 1:
+            raise ValueError("early stop freezes one hypothesis; a batch "
+                             "stops per chunk (refine_batch, adaptive=True)")
         if camera_position is None:
             camera_position = torch.zeros(n_views, 3, device=dev)
         if camera_orientation is None:
@@ -591,54 +702,60 @@ class SDFPipeline:
             device=dev,
         )
         adam = self._make_adam()
-        moments = {k: (torch.zeros_like(v), torch.zeros_like(v))
-                   for k, v in state.items()}
-        best = {"inlier_ratio": f32(-1.0),
-                **{k: state[k].clone() for k in _STATE_KEYS}}
+        if opt_state is None:
+            count = 0
+            moments = {k: (torch.zeros_like(v), torch.zeros_like(v))
+                       for k, v in state.items()}
+        else:
+            count, moments = opt_state["count"], dict(opt_state["moments"])
+        if best is None:
+            best = {"inlier_ratio": f32([-1.0] * n_hyps),
+                    **{k: state[k].clone() for k in _STATE_KEYS}}
+        else:
+            best = {k: f32(best[k]) for k in ("inlier_ratio", *_STATE_KEYS)}
         if use_warm:
-            warm0 = init_warm_views(n_views, camera.height, camera.width, dev)
+            warm0 = init_warm_views(n_views, camera.height, camera.width,
+                                    n_hyps, dev)
             view_warms = [{k: x[v] for k, x in warm0.items()}
                           for v in range(n_views)]
             shared = {
-                "position": state["position"][0],
-                "orientation": state["orientation"][0] / torch.sqrt(
-                    torch.sum(state["orientation"][0] ** 2)),
-                "scale": state["scale"][0],
-                "sdf": torch.zeros((self.resolution,) * 3, device=dev),
+                "position": state["position"],
+                "orientation": _unit(state["orientation"]),
+                "scale": state["scale"],
+                "sdf": torch.zeros((n_hyps,) + (self.resolution,) * 3,
+                                   device=dev),
             }
         ref_loss = f32(1e30)  # early stop: the first check always improves
         logs = []
         for it in range(n_iter):
             params = {k: state[k].detach().requires_grad_(True)
                       for k in _STATE_KEYS}
-            norm_q = params["orientation"] / torch.sqrt(
-                torch.sum(params["orientation"] ** 2)
-            )
+            norm_q = _unit(params["orientation"])
             latent = params["latent"]
             if not shape_optimization:
                 latent = latent.detach()
-            sdf = self._decode(latent)[0, 0]
+            sdf = self._decode(latent)[:, 0]
             if use_warm:
-                motion = motion_bound(params["position"][0], norm_q[0],
-                                      params["scale"][0], sdf, shared)
+                motion = motion_bound(params["position"], norm_q,
+                                      params["scale"], sdf, shared)
             view_losses = []
             for v, (depth_v, points_v, mask_v, rays_v) in enumerate(views):
                 position_c = quaternion.apply(
-                    q_w2c[v], params["position"][0] - camera_position[v])
-                orientation_c = quaternion.multiply(q_w2c[v], norm_q[0])
+                    q_w2c[v], params["position"] - camera_position[v])
+                orientation_c = quaternion.multiply(q_w2c[v], norm_q)
                 if use_warm:
                     depth_estimate, view_warms[v] = warm_render_step(
-                        sdf, position_c, orientation_c, params["scale"][0],
+                        sdf, position_c, orientation_c, params["scale"],
                         view_warms[v], motion, it % refresh_k == 0, camera,
                         threshold, device=dev,
                     )
                     loss_pc = losses.masked_pc_loss(
                         points_v, mask_v, position_c, orientation_c,
-                        params["scale"][0], sdf,
+                        params["scale"], sdf,
                     )
                 else:
                     depth_estimate, pc_values = render_depth_with_pc_values(
-                        sdf, position_c, orientation_c, params["scale"][0],
+                        sdf, position_c, orientation_c, params["scale"],
                         points_v, mask_v, rays=rays_v, **render_kwargs,
                     )
                     loss_pc = losses.masked_mean_abs(pc_values, mask_v)
@@ -651,22 +768,22 @@ class SDFPipeline:
             loss = depth_weight * loss_depth + pc_weight * loss_pc
             if point_constraint is not None:
                 loss = loss + pc_w * losses.point_constraint_loss(
-                    params["orientation"][0], source, target)
+                    params["orientation"], source, target)
             if use_warm:
-                shared = {"position": params["position"][0].detach(),
-                          "orientation": norm_q[0].detach(),
-                          "scale": params["scale"][0].detach(),
+                shared = {"position": params["position"].detach(),
+                          "orientation": norm_q.detach(),
+                          "scale": params["scale"].detach(),
                           "sdf": sdf.detach()}
             wanted = [k for k in _STATE_KEYS
                       if k != "latent" or shape_optimization]
-            got = torch.autograd.grad(loss, [params[k] for k in wanted])
+            got = torch.autograd.grad(loss.sum(),
+                                      [params[k] for k in wanted])
             grads = {k: torch.zeros_like(state[k]) for k in _STATE_KEYS}
             grads.update(zip(wanted, got))
             with torch.no_grad():
-                state = adam(state, grads, moments, it + 1)
-                state["orientation"] = state["orientation"] / torch.sqrt(
-                    torch.sum(state["orientation"] ** 2)
-                )
+                count += 1
+                state = adam(state, grads, moments, count)
+                state["orientation"] = _unit(state["orientation"])
                 # the last view's observation and pre-step render
                 ratio = losses.inlier_ratio(
                     views[-1][0], depth_estimate,
@@ -676,7 +793,8 @@ class SDFPipeline:
                 best = {
                     "inlier_ratio": torch.where(is_better, ratio,
                                                 best["inlier_ratio"]),
-                    **{k: torch.where(is_better, state[k], best[k])
+                    **{k: torch.where(_per_row(is_better, state[k]),
+                                      state[k], best[k])
                        for k in _STATE_KEYS},
                 }
                 logs.append({
@@ -693,13 +811,13 @@ class SDFPipeline:
                     improved = (ref_loss - loss) >= early_delta * torch.clamp(
                         torch.abs(ref_loss), min=1e-8)
                     ref_loss = loss.detach()
-                    if not bool(improved):  # the check's host read
+                    if not bool(improved.all()):  # the check's host read
                         break
         if logs:
             logs += [dict(logs[-1], active=f32(0.0))] * (n_iter - len(logs))
         log = {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]} if (
             logs) else {}
-        return state, best, log
+        return state, {"count": count, "moments": moments}, best, log
 
     # ------------------------------------------------------------------
     # public API
@@ -836,8 +954,180 @@ class SDFPipeline:
         return (chosen["position"], chosen["orientation"], chosen["scale"],
                 chosen["latent"])
 
-    def refine_batch(self, *args, **kwargs):
-        raise NotImplementedError("refine_batch is not ported yet")
+    # ------------------------------------------------------------------
+    # hypothesis batches
+    # ------------------------------------------------------------------
+
+    def refine_batch(
+        self,
+        states: Dict[str, torch.Tensor],
+        depth_images: torch.Tensor,
+        points: torch.Tensor,
+        point_masks: torch.Tensor,
+        camera_positions: torch.Tensor,
+        camera_orientations: torch.Tensor,
+        shape_optimization: bool = True,
+        roi: Optional[Tuple[int, int]] = None,
+        multires=None,
+        adaptive: bool = False,
+    ):
+        """Refine a batch of hypotheses together (``pipeline.py:1448-1528``).
+
+        ``states`` hold ``position (N, 1, 3)``, ``orientation (N, 1, 4)``,
+        ``scale (N, 1)`` and ``latent (N, 1, L)``; the views are shared:
+        ``depth_images (V, H, W)``, ``points (V, H*W, 3)``, ``point_masks
+        (V, H*W)``, ``camera_positions (V, 3)``, ``camera_orientations (V,
+        4)``.  Every iteration renders each view ONCE for all ``N``
+        hypotheses (one launch of each kernel per view and iteration,
+        whatever ``N``: the kernels take the hypothesis as a launch
+        dimension), where the JAX package maps ``_refine`` over them.  Each
+        hypothesis follows the trajectory of its own :meth:`_refine`.
+
+        ``roi`` as in :meth:`_refine` (``self._roi_for(depth_images)``
+        applies the config policy).  ``multires=(factor, iters)``, or a
+        list of such levels coarsest first (``self._multires_for()``), runs
+        the coarse-to-fine schedule, each coarse level against its strided
+        sub-observation with its own stride-scaled ROI; the log then
+        concatenates all phases.  Early stop does not act inside a phase;
+        ``adaptive=True`` with ``early_stop_delta`` configured runs the
+        full-resolution phase in chunks of ``early_stop_interval``
+        iterations, chained through the Adam state and the best tracker
+        (so the trajectory equals the unchunked one), with one host read
+        per chunk, and stops once no hypothesis's chunk-final loss improved
+        by ``early_stop_delta`` on the previous chunk's; the log then covers
+        the executed iterations only.  Under temporal coherence every
+        hypothesis keeps its own warm state (not with ``adaptive``).
+
+        Returns ``(states, best, log)`` in the shapes of the JAX package:
+        final and best states as ``states``, ``best["inlier_ratio"] (N,)``,
+        and the log's entries ``(N, T, ...)`` (``log["loss"] (N, T)``).
+        """
+        early_delta = float(self.config.get("early_stop_delta", 0.0) or 0.0)
+        if adaptive and early_delta > 0.0:
+            return self._refine_batch_adaptive(
+                states, depth_images, points, point_masks, camera_positions,
+                camera_orientations, shape_optimization, roi, multires,
+                early_delta)
+        states, logs, executed = self._run_coarse_levels_batched(
+            states, depth_images, camera_positions, camera_orientations,
+            shape_optimization, multires)
+        fine_iters = (int(self.config["max_iterations"]) - executed
+                      if executed else None)
+        states, _, best, log = self._refine_hypotheses(
+            states, depth_images, points, point_masks, camera_positions,
+            camera_orientations, shape_optimization, fine_iters, roi, 1,
+            None, False, None, None)
+        return _batch_result(states, best, logs + [log])
+
+    def _run_coarse_levels_batched(self, states, depth_images,
+                                   camera_positions, camera_orientations,
+                                   shape_optimization: bool, multires):
+        """The coarse levels of a batched refinement
+        (``pipeline.py:1530-1576``): ``(states, per-level logs, executed
+        coarse iterations)``, the states as :meth:`_refine_hypotheses`
+        takes them.  A level not viable for these inputs is skipped, its
+        iterations folding into the full-resolution phase."""
+        schedule = _normalize_multires(multires)
+        max_iterations = int(self.config["max_iterations"])
+        if sum(n for _, n in schedule) >= max_iterations:
+            raise ValueError(
+                "multires schedule must leave at least one full-resolution "
+                f"iteration (got {schedule} for max_iterations="
+                f"{max_iterations})")
+        states = _hypothesis_states(states, self.device)
+        depth_images = torch.as_tensor(depth_images, dtype=torch.float32,
+                                       device=self.device)
+        logs, executed = [], 0
+        for factor, n_iters in schedule:
+            phase = self._coarse_phase(depth_images, factor)
+            if phase is None:
+                continue
+            depth_c, points_c, point_masks_c, roi_c = phase
+            states, _, _, log = self._refine_hypotheses(
+                states, depth_c, points_c, point_masks_c, camera_positions,
+                camera_orientations, shape_optimization, n_iters, roi_c,
+                factor, None, False, None, None)
+            logs.append(log)
+            executed += n_iters
+        return states, logs, executed
+
+    def _refine_batch_adaptive(self, states, depth_images, points,
+                               point_masks, camera_positions,
+                               camera_orientations, shape_optimization: bool,
+                               roi, multires, early_delta: float):
+        """Batched early stop through chained chunks (see
+        :meth:`refine_batch`, ``pipeline.py:1578-1663``): the coarse levels
+        run whole, the full-resolution phase in ``early_stop_interval``
+        chunks with one host read of the chunk-final losses each."""
+        interval = int(self.config.get("early_stop_interval", 10))
+        if interval < 1:
+            raise ValueError(
+                f"early_stop_interval must be >= 1, got {interval}")
+        if self._use_temporal_coherence():
+            # the warm state would restart at every chunk, so chunked would
+            # no longer equal unchunked
+            raise ValueError("adaptive refine_batch and temporal_coherence "
+                             "are mutually exclusive")
+        states, logs, executed = self._run_coarse_levels_batched(
+            states, depth_images, camera_positions, camera_orientations,
+            shape_optimization, multires)
+        fine_iters = int(self.config["max_iterations"]) - executed
+        opt_state = best = ref_loss = None
+        done = 0
+        while done < fine_iters:
+            n = min(interval, fine_iters - done)
+            states, opt_state, best, log = self._refine_hypotheses(
+                states, depth_images, points, point_masks, camera_positions,
+                camera_orientations, shape_optimization, n, roi, 1, None,
+                False, opt_state, best)
+            logs.append(log)
+            done += n
+            last_loss = log["loss"][-1]
+            if ref_loss is not None:
+                improved = (ref_loss - last_loss) >= early_delta * torch.clamp(
+                    torch.abs(ref_loss), min=1e-8)
+                if not bool(improved.any()):  # the chunk's one host read
+                    break
+            ref_loss = last_loss
+        return _batch_result(states, best, logs)
+
+    def _roi_for(self, depth_images, factor: int = 1
+                 ) -> Optional[Tuple[int, int]]:
+        """The refinement ROI of these views ``(V, H, W)`` (strided by
+        ``factor`` for a coarse level), or None for full frame
+        (``pipeline.py:741-770``): :meth:`_roi_from_spans` of the observed
+        pixels' bbox spans, read on the host once."""
+        depth = torch.as_tensor(depth_images, device=self.device)
+        probe = _probe(depth.reshape(-1, *depth.shape[-2:])).tolist()
+        return self._roi_from_spans(
+            [(sy, sx) for valid, sy, sx in probe if valid], factor)
+
+    def _multires_inputs(self, depth_images: torch.Tensor, factor: int):
+        """``(depth, points, point_masks)`` of a coarse level: the exact
+        ``[::f, ::f]`` sub-observation of the views ``(V, H, W)`` and its
+        tile-order clouds lifted with ``camera.strided(f)``
+        (``pipeline.py:813-827``)."""
+        depth_c = depth_images[:, ::factor, ::factor].contiguous()
+        return (depth_c, *self._lift(depth_c, factor))
+
+    def _strided_needs_roi(self, factor: int) -> bool:
+        """Whether a ``factor``-strided raster needs an ROI to reach the
+        kernels (``pipeline.py:922-933``): never in the port, whose march
+        takes any ray set; it plans as the JAX package's XLA backend does
+        (see :meth:`_multires_for`)."""
+        return False
+
+    def _coarse_phase(self, depth_images: torch.Tensor, factor: int):
+        """``(depth, points, point_masks, roi)`` of a coarse level for these
+        views, or None when the level is not viable for them
+        (``pipeline.py:935-951``; never None in the port, see
+        :meth:`_strided_needs_roi`)."""
+        depth_c, points_c, point_masks_c = self._multires_inputs(
+            depth_images, factor)
+        roi_c = self._roi_for(depth_c, factor)
+        if roi_c is None and self._strided_needs_roi(factor):
+            return None
+        return depth_c, points_c, point_masks_c, roi_c
 
     def generate_mesh(self, *args, **kwargs):
         raise NotImplementedError("generate_mesh is not ported yet")

@@ -16,6 +16,14 @@
 
 The same code runs on both devices; only the kernels differ (CUDA tensors
 launch the hand-written kernels, CPU tensors take their plain versions).
+
+Hypotheses.  Every op takes a batch of hypotheses: a grid ``(B, R, R, R)``
+with poses ``(B, 3)``, ``(B, 4)`` and scales ``(B,)`` renders the shared
+rays once per hypothesis and gives depth ``(B, H, W)`` (and pc values
+``(B, M)`` of the shared cloud), through ONE launch of each kernel forward
+and one sample-grad and one scatter backward, for all hypotheses.  Each
+quaternion is normalized on its own.  An unbatched call is the batch of
+one.
 """
 from __future__ import annotations
 
@@ -55,7 +63,7 @@ class _SampleOp(torch.autograd.Function):
     def forward(ctx, sdf, points, mask):
         value, grad = kernels.sample_grad(sdf, points, mask)
         ctx.save_for_backward(points, mask, grad)
-        ctx.res = sdf.shape[0]
+        ctx.res = sdf.shape[-1]
         return value
 
     @staticmethod
@@ -67,14 +75,15 @@ class _SampleOp(torch.autograd.Function):
                 points, (cot * mask).contiguous(), ctx.res
             )
         if ctx.needs_input_grad[1]:
-            grad_points = grad * cot[:, None]
+            grad_points = grad * cot[..., None]
         return grad_sdf, grad_points, None
 
 
 def sample_sdf_masked_extrapolating(
     sdf: torch.Tensor, points: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
-    """Masked, extrapolating trilinear samples ``(N,)``, differentiable
+    """Masked, extrapolating trilinear samples ``(N,)`` (or ``(B, N)`` of a
+    batch of grids ``(B, R, R, R)`` and rows ``(B, N, 3)``), differentiable
     w.r.t. ``sdf`` and ``points``; the mask selects and is not
     differentiated."""
     mask = mask.detach().to(torch.float32).contiguous()
@@ -138,11 +147,14 @@ class Rays(NamedTuple):
         return tuple(self.march.shape[:2])
 
     def order(self, x: torch.Tensor) -> torch.Tensor:
-        """An ``(Hr, Wr)`` raster, flat in the surrogate's query order."""
+        """Rasters ``(..., Hr, Wr)``, flat in the surrogate's query order
+        ``(..., Hr*Wr)``."""
         h, w = self.shape
+        lead = x.shape[:-2]
         if _tiled(h, w):
-            return kernels.tile_image(x[..., None], h, w).reshape(-1)
-        return x.reshape(-1)
+            t = kernels.TILE
+            x = x.reshape(*lead, h // t, t, w // t, t).transpose(-3, -2)
+        return x.reshape(*lead, h * w)
 
 
 def ray_set(camera: Camera, device, roi: Optional[Tuple[int, int]] = None,
@@ -171,16 +183,20 @@ def ray_set(camera: Camera, device, roi: Optional[Tuple[int, int]] = None,
 
 
 def _surrogate_queries(position, orientation, inv_scale, depth, rays):
-    """Object-frame queries, mask and ``|d_z|`` of the depth surrogate in
-    the ray set's query order (``api.py:339-364``)."""
+    """Object-frame queries ``(..., N, 3)``, mask ``(..., N)`` and ``|d_z|``
+    ``(N,)`` of the depth surrogate in the ray set's query order
+    (``api.py:339-364``), for a pose ``(3,)``, ``(4,)``, ``()`` and depth
+    ``(Hr, Wr)``, or hypotheses' ``(B, 3)``, ``(B, 4)``, ``(B,)`` and
+    ``(B, Hr, Wr)``; each quaternion's ``|q|^2`` divides its own queries."""
     dirs = rays.surrogate
     dz = dirs[:, 2]
     depth_o = rays.order(depth)
     t = -depth_o / dz
-    x = t[:, None] * dirs
-    o = quaternion.apply(quaternion.invert(orientation), x - position)
-    o = o / torch.sum(orientation * orientation)
-    return o * inv_scale, depth_o > 0, torch.abs(dz)
+    x = t[..., None] * dirs
+    o = quaternion.apply(quaternion.invert(orientation)[..., None, :],
+                         x - position[..., None, :])
+    o = o / torch.sum(orientation * orientation, dim=-1)[..., None, None]
+    return o * inv_scale[..., None, None], depth_o > 0, torch.abs(dz)
 
 
 def _render_forward(sdf, position, orientation, inv_scale, static):
@@ -234,7 +250,7 @@ def _surrogate_backward(ctx, grad_depth):
             (sdf, position, orientation, inv_scale), needs))
         sur, mask, abs_dz = _surrogate_queries(p, q, i, depth, rays)
         vals = sample_sdf_masked_extrapolating(s, sur, mask)
-        sur_val = vals / i * abs_dz
+        sur_val = vals / i[..., None] * abs_dz
         return _grads([sur_val], [rays.order(grad_depth)], [s, p, q, i],
                       needs)
 
@@ -282,10 +298,19 @@ def render_depth(
     static = (ray_set(camera, device, roi, roi_offset), float(threshold),
               int(max_steps), bool(culling), bool(adaptive),
               float(relaxation), bool(bf16))
-    return _RenderDepth.apply(
-        _f32(sdf, device), _f32(position, device), _f32(orientation, device),
-        _f32(inv_scale, device), static,
-    )
+    return _RenderDepth.apply(*_posed(sdf, position, orientation, inv_scale,
+                                      device), static)
+
+
+def _posed(sdf, position, orientation, scale, device):
+    """``sdf``, ``position``, ``orientation`` and ``scale`` as float32
+    tensors on ``device``, shaped ``(R, R, R)``, ``(3,)``, ``(4,)``, ``()``
+    or, for a grid ``(B, R, R, R)``, ``(B, 3)``, ``(B, 4)``, ``(B,)``."""
+    sdf = _f32(sdf, device)
+    lead = sdf.shape[:-3]
+    return (sdf, _f32(position, device).reshape(*lead, 3),
+            _f32(orientation, device).reshape(*lead, 4),
+            _f32(scale, device).reshape(lead))
 
 
 # ---------------------------------------------------------------------------
@@ -295,11 +320,16 @@ def render_depth(
 
 def _pc_object_points(position, orientation, inv_scale, points, point_mask,
                       res):
-    """Object-frame pc queries and their validity (the pc-loss transform,
-    ``api.py:270-285``; the quaternion is normalized explicitly)."""
-    q = orientation / torch.sqrt(torch.sum(orientation * orientation))
-    obj = quaternion.apply(quaternion.invert(q), points - position)
-    obj = obj * inv_scale
+    """Object-frame pc queries ``(..., M, 3)`` of points ``(M, 3)`` and their
+    validity ``(..., M)`` (the pc-loss transform, ``api.py:270-285``) for a
+    pose or hypotheses' poses (leading dims as in
+    :func:`_surrogate_queries`); each quaternion is normalized on its
+    own."""
+    q = orientation / torch.sqrt(torch.sum(orientation * orientation,
+                                           dim=-1, keepdim=True))
+    obj = quaternion.apply(quaternion.invert(q)[..., None, :],
+                           points - position[..., None, :])
+    obj = obj * inv_scale[..., None, None]
     _, _, inside = _base_and_frac(obj, res)
     return obj, torch.logical_and(inside, point_mask != 0)
 
@@ -314,7 +344,8 @@ class _RenderPC(torch.autograd.Function):
                 point_mask, static):
         depth = _render_forward(sdf, position, orientation, inv_scale, static)
         obj, mask = _pc_object_points(
-            position, orientation, inv_scale, points, point_mask, sdf.shape[0]
+            position, orientation, inv_scale, points, point_mask,
+            sdf.shape[-1]
         )
         values = kernels.sample(sdf.contiguous(), obj.contiguous(),
                                 mask.to(torch.float32))
@@ -328,7 +359,7 @@ class _RenderPC(torch.autograd.Function):
         (sdf, position, orientation, inv_scale, points, point_mask,
          depth) = ctx.saved_tensors
         needs = ctx.needs_input_grad[:5]
-        res = sdf.shape[0]
+        res = sdf.shape[-1]
         with torch.enable_grad():
             s, p, q, i, pts = (_leaf(x, n) for x, n in zip(
                 (sdf, position, orientation, inv_scale, points), needs))
@@ -337,14 +368,14 @@ class _RenderPC(torch.autograd.Function):
             )
             obj, pc_mask = _pc_object_points(p, q, i, pts, point_mask, res)
             vals = sample_sdf_masked_extrapolating(
-                s, torch.cat([sur, obj], dim=0),
-                torch.cat([sur_mask, pc_mask], dim=0),
+                s, torch.cat([sur, obj], dim=-2),
+                torch.cat([sur_mask, pc_mask], dim=-1),
             )
-            n_sur = sur.shape[0]
-            sur_val = vals[:n_sur] / i * abs_dz
+            n_sur = sur.shape[-2]
+            sur_val = vals[..., :n_sur] / i[..., None] * abs_dz
             grads = _grads(
-                [sur_val, vals[n_sur:]], [ctx.rays.order(grad_depth),
-                                          grad_vals],
+                [sur_val, vals[..., n_sur:]], [ctx.rays.order(grad_depth),
+                                               grad_vals],
                 [s, p, q, i, pts], needs,
             )
         return (*grads, None, None)
@@ -382,9 +413,15 @@ def render_depth_with_pc_values(
     :func:`ray_set` of ``(camera, roi, roi_offset)`` instead, built once by
     a caller that renders the same crop many times.  ``relaxation`` and
     ``bf16`` as in :func:`render_depth`.
+
+    Hypotheses: a grid ``(B, R, R, R)`` with ``position (B, 3)``,
+    ``orientation (B, 4)`` and ``scale (B,)`` gives ``depth (B, Hr, Wr)``
+    and ``pc_values (B, M)`` of the shared ``points``, from one launch of
+    each kernel.
     """
     device = resolve_device(device)
-    scale = _f32(scale, device)
+    sdf, position, orientation, scale = _posed(sdf, position, orientation,
+                                               scale, device)
     inv_scale = 1.0 / scale
     if rays is None:
         if roi_offset is not None:
@@ -395,11 +432,10 @@ def render_depth_with_pc_values(
     static = (rays, float(threshold), int(max_steps), bool(culling),
               bool(adaptive), float(relaxation), bool(bf16))
     depth, values = _RenderPC.apply(
-        _f32(sdf, device), _f32(position, device), _f32(orientation, device),
-        inv_scale, _f32(points, device),
+        sdf, position, orientation, inv_scale, _f32(points, device),
         torch.as_tensor(point_mask, device=device), static,
     )
-    return depth, values * scale
+    return depth, values * scale[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -454,16 +490,20 @@ def render_depth_warm(
     fields ``t``, ``v0``, ``min_dip``, ``v_last``, ``t_last`` (see
     ``csrc/march.cu``) and the ray setup ``t0`` (the actual start),
     ``t_min``, ``t_max`` (the box interval), none of them differentiable.
+    Hypotheses: a grid ``(B, R, R, R)`` with poses ``(B, ...)`` and
+    ``t_init``/``skip`` ``(B, H, W)`` gives ``(B, H, W)`` everywhere, from
+    one launch of the warm march.
     """
     device = resolve_device(device)
     rays = ray_set(camera, device)
-    args = [_f32(x, device) for x in (sdf, position, orientation, inv_scale)]
+    args = _posed(sdf, position, orientation, inv_scale, device)
+    lead = args[0].shape[:-3]
     t_init = _f32(t_init, device).contiguous()
     skip = _f32(skip, device).contiguous()
     with torch.no_grad():
         pose = kernels.pose_params(*args[1:])
-        _, t_min, t_max = (x.reshape(rays.shape) for x in ray_interval(
-            rays.march.reshape(-1, 3), pose))
+        _, t_min, t_max = (x.reshape(*lead, *rays.shape) for x in
+                           ray_interval(rays.march.reshape(-1, 3), pose))
         t0 = torch.where(t_init >= 0.0, torch.maximum(t_min, t_init), t_min)
     outs = _RenderDepthWarm.apply(
         *args, t_init, skip, (rays, pose, float(threshold), int(max_steps)))

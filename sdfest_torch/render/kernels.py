@@ -25,6 +25,16 @@ Every branch of the TPU kernels has its counterpart.  The bf16 branches are
 template instances of the march kernels; ``march.bf16_launches`` and
 ``march_warm.bf16_launches`` count their launches.
 
+Hypotheses.  Every wrapper takes a leading hypothesis dim ``B`` on its
+per-hypothesis operands (grid ``(B, R, R, R)``, pose ``(B, 14)``, rows
+``(B, N, 3)``/``(B, N)``, warm inputs ``(B, ...)``) and serves all of them
+with ONE launch of its kernel (the hypothesis is ``blockIdx.z``); the rays
+of a march are shared.  An unbatched call is the launch with one
+hypothesis.  ``<wrapper>.launches`` counts launches, and
+``<wrapper>.hypotheses`` the hypotheses they served (so
+``hypotheses / launches`` is the batch per launch).  On the CPU a batched
+call runs the plain version once per hypothesis.
+
 What bounds each kernel on the H100 and what its design does about it is
 noted at the top of its source.
 """
@@ -48,6 +58,7 @@ from sdfest_torch.render.plain import (
     coarse_pair_table,
     march_plain,
     march_warm_plain,
+    per_hypothesis,
 )
 
 TILE = 16  # pixel tile edge of the tile-major query order
@@ -58,13 +69,13 @@ _F = ctypes.c_float
 # wrapper -> (library, C entry, argument types)
 _SIGNATURES = {
     "march": ("march", "sdfest_march",
-              [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _F, _I, _P]),
+              [_P] * 6 + [_I] * 5 + [_F, _I, _I, _I, _F, _I, _P]),
     "march_warm": ("march", "sdfest_march_warm",
-                   [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P]),
-    "sample": ("sample", "sdfest_sample", [_P, _P, _P, _P, _I, _I, _P]),
+                   [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P]),
+    "sample": ("sample", "sdfest_sample", [_P] * 4 + [_I] * 3 + [_P]),
     "sample_grad": ("sample_grad", "sdfest_sample_grad",
-                    [_P, _P, _P, _P, _P, _I, _I, _P]),
-    "scatter": ("scatter", "sdfest_scatter", [_P, _P, _P, _I, _I, _P]),
+                    [_P] * 5 + [_I] * 3 + [_P]),
+    "scatter": ("scatter", "sdfest_scatter", [_P] * 3 + [_I] * 3 + [_P]),
 }
 _FUNCS = {}
 
@@ -107,17 +118,28 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
 
 
-def _check_grid(sdf: torch.Tensor) -> int:
-    res = sdf.shape[0]
-    if sdf.shape != (res, res, res):
-        raise ValueError(f"expected a cubic grid, got {tuple(sdf.shape)}")
-    return res
+def _check_grid(sdf: torch.Tensor) -> Tuple[int, tuple]:
+    """``(res, lead)`` of a grid ``(R, R, R)`` (``lead = ()``) or a batch of
+    hypotheses' grids ``(B, R, R, R)`` (``lead = (B,)``)."""
+    res = sdf.shape[-1]
+    lead = tuple(sdf.shape[:-3])
+    if sdf.ndim not in (3, 4) or sdf.shape[-3:] != (res, res, res):
+        raise ValueError("expected a cubic grid (R, R, R) or a batch of "
+                         f"them (B, R, R, R), got {tuple(sdf.shape)}")
+    return res, lead
 
 
-def _check_points(points: torch.Tensor, *rows: torch.Tensor) -> int:
-    n = points.shape[0]
-    if points.shape != (n, 3) or any(r.shape != (n,) for r in rows):
-        raise ValueError("expected points (N, 3) with (N,) companions")
+def _batch(lead: tuple) -> int:
+    return lead[0] if lead else 1
+
+
+def _check_points(lead: tuple, points: torch.Tensor, *rows: torch.Tensor
+                  ) -> int:
+    n = points.shape[-2] if points.ndim >= 2 else -1
+    if points.shape != (*lead, n, 3) or any(r.shape != (*lead, n)
+                                           for r in rows):
+        raise ValueError(f"expected points {(*lead, 'N', 3)} with "
+                         f"{(*lead, 'N')} companions")
     return n
 
 
@@ -143,12 +165,18 @@ def pose_params(
     position: torch.Tensor, orientation: torch.Tensor, inv_scale: torch.Tensor
 ) -> torch.Tensor:
     """The march's pose operand ``[rot (9), origin_o (3), inv_scale,
-    scale]``, computed on the pose's device (no host round trip)."""
+    scale]`` of a pose, or ``(B, 14)`` of hypotheses' poses ``(B, 3)``,
+    ``(B, 4)``, ``(B,)``, computed on the pose's device (no host round
+    trip).  ``origin_o = R^T (-position)`` is written out elementwise, so a
+    hypothesis's row does not depend on the batch around it."""
+    lead = position.shape[:-1]
     rot = quaternion.to_rotation_matrix(orientation)
-    origin_o = rot.T @ (-position)
-    inv_scale = inv_scale.reshape(1)
+    p = -position
+    origin_o = (rot[..., 0, :] * p[..., 0:1] + rot[..., 1, :] * p[..., 1:2]
+                + rot[..., 2, :] * p[..., 2:3])
+    inv_scale = inv_scale.reshape(*lead, 1)
     return torch.cat(
-        [rot.reshape(9), origin_o, inv_scale, 1.0 / inv_scale]
+        [rot.reshape(*lead, 9), origin_o, inv_scale, 1.0 / inv_scale], dim=-1
     ).to(torch.float32).contiguous()
 
 
@@ -185,22 +213,28 @@ def march_geometry(raster: tuple, tiles: bool = True
     return h, w, (-(-w // TILE), -(-h // TILE))
 
 
-def _check_pose(pose: torch.Tensor) -> None:
-    if pose.shape != (14,):
-        raise ValueError("pose must be [rot (9), origin_o (3), inv_s, s]")
+def _check_pose(pose: torch.Tensor, lead: tuple) -> None:
+    if pose.shape != (*lead, 14):
+        raise ValueError("pose must be [rot (9), origin_o (3), inv_s, s], "
+                         "one per hypothesis of the grid")
 
 
 def _coarse_for(sdf: torch.Tensor, coarse: Optional[torch.Tensor],
                 bf16: bool = False) -> torch.Tensor:
     """The march's coarse table: :func:`coarse_min_table`, or with ``bf16``
-    :func:`coarse_pair_table` (built here when not given)."""
+    :func:`coarse_pair_table` (built here when not given), one per
+    hypothesis of the grid.  Every hypothesis's table must be 16-byte
+    aligned, the source of the kernel's TMA copy: a contiguous batch of
+    16 KiB (32 KiB) tables on an aligned base is."""
     if coarse is None:
         coarse = coarse_pair_table(sdf) if bf16 else coarse_min_table(sdf)
-    shape = (NC, NC, NC, 2) if bf16 else (NC, NC, NC)
+    shape = (*sdf.shape[:-3], NC, NC, NC, *((2,) if bf16 else ()))
     if (coarse.shape != shape or not coarse.is_contiguous()
             or coarse.device != sdf.device):
         raise ValueError(f"coarse table must be a contiguous {shape} tensor "
                          "on the grid's device")
+    if coarse.data_ptr() % 16:
+        raise ValueError("the coarse table must be 16-byte aligned")
     return coarse
 
 
@@ -250,41 +284,57 @@ def march(
     ``march.bf16_launches`` those of the bf16 instances (included in
     ``march.launches``).  ``coarse`` may pass the precomputed table of
     :func:`_coarse_for` and ``sdf_bf16`` the bf16 grid (built here when
-    needed and not given)."""
-    res = _check_grid(sdf)
+    needed and not given).
+
+    Hypotheses: a grid ``(B, R, R, R)`` with poses ``(B, 14)`` marches the
+    shared rays once per hypothesis in ONE launch and gives ``(B, ...)``
+    (``coarse`` and ``sdf_bf16`` then also per hypothesis)."""
+    res, lead = _check_grid(sdf)
     raster, flat = _rays(dirs)
-    _check_pose(pose)
+    _check_pose(pose, lead)
     bf16 = bool(bf16 and culling)
     if _on_cpu(sdf, dirs, pose):
         return march_plain(sdf, flat, pose, threshold, max_steps, culling,
                            adaptive, relaxation=relaxation,
-                           bf16=bf16).reshape(raster)
+                           bf16=bf16).reshape(*lead, *raster)
     if culling:
         coarse = _coarse_for(sdf, coarse, bf16)
-        if coarse.data_ptr() % 16:
-            raise ValueError("the coarse table must be 16-byte aligned")
     grid_b = _bf16_grid(sdf, sdf_bf16) if bf16 else None
-    depth = torch.empty(raster, dtype=torch.float32, device=sdf.device)
+    depth = torch.empty((*lead, *raster), dtype=torch.float32,
+                        device=sdf.device)
     n = flat.shape[0]
     h, w, blocks = march_geometry(raster, tiles=bool(culling))
-    if n >= 2 ** 31 or (h and blocks[1] > 65535):
-        raise ValueError(f"too many rays for one launch: {raster}")
+    _check_launch(raster, n, h, blocks, lead)
     if n:
         _launch(
             "march", sdf.device, sdf.data_ptr(),
             grid_b.data_ptr() if bf16 else None,
             coarse.data_ptr() if culling else None, flat.data_ptr(),
-            pose.data_ptr(), depth.data_ptr(), n, h, w, res,
+            pose.data_ptr(), depth.data_ptr(), n, h, w, _batch(lead), res,
             float(threshold), int(max_steps), int(bool(culling)),
             int(bool(adaptive) and not bf16), float(relaxation), int(bf16),
         )
-        march.launches += 1
+        _count(march, lead)
         march.bf16_launches += bf16
         march.rasters[raster] = march.rasters.get(raster, 0) + 1
     return depth
 
 
-march.launches = 0
+def _check_launch(raster: tuple, n: int, h: int, blocks: tuple,
+                  lead: tuple) -> None:
+    if (n >= 2 ** 31 or (h and blocks[1] > 65535)
+            or _batch(lead) > 65535 or _batch(lead) * n >= 2 ** 31):
+        raise ValueError(f"too many rays for one launch: {lead} x {raster}")
+
+
+def _count(wrapper, lead: tuple) -> None:
+    """One launch of ``wrapper``'s kernel, serving the hypotheses of
+    ``lead``."""
+    wrapper.launches += 1
+    wrapper.hypotheses += _batch(lead)
+
+
+march.launches = march.hypotheses = 0
 march.bf16_launches = 0
 march.rasters = {}
 
@@ -315,40 +365,45 @@ def march_warm(
     branch of ``render_depth_pallas_fwd(aux=True, bf16=True)``; no pipeline
     path takes it, as the JAX package's ``render_depth_warm`` passes no
     bf16); ``march_warm.bf16_launches`` counts its launches.  ``coarse``
-    and ``sdf_bf16`` as in :func:`march`."""
-    res = _check_grid(sdf)
+    and ``sdf_bf16`` as in :func:`march`.  Hypotheses as in :func:`march`:
+    a grid ``(B, R, R, R)``, poses ``(B, 14)`` and ``t_init``/``skip``
+    ``(B, ...)`` give ``(B, ...)`` outputs from one launch."""
+    res, lead = _check_grid(sdf)
     raster, flat = _rays(dirs)
-    _check_pose(pose)
-    if t_init.shape != raster or skip.shape != raster:
-        raise ValueError("t_init and skip must be shaped like the rays")
+    _check_pose(pose, lead)
+    if t_init.shape != (*lead, *raster) or skip.shape != t_init.shape:
+        raise ValueError("t_init and skip must be shaped like the rays, one "
+                         "set per hypothesis")
     bf16 = bool(bf16)
     if _on_cpu(sdf, dirs, pose, t_init, skip):
-        return tuple(x.reshape(raster) for x in march_warm_plain(
-            sdf, flat, pose, t_init.reshape(-1), skip.reshape(-1), threshold,
-            max_steps, bf16=bf16))
+        n = flat.shape[0]
+        return tuple(x.reshape(*lead, *raster) for x in march_warm_plain(
+            sdf, flat, pose, t_init.reshape(*lead, n),
+            skip.reshape(*lead, n), threshold, max_steps, bf16=bf16))
     coarse = _coarse_for(sdf, coarse, bf16)
-    if coarse.data_ptr() % 16:
-        raise ValueError("the coarse table must be 16-byte aligned")
     grid_b = _bf16_grid(sdf, sdf_bf16) if bf16 else None
-    outs = torch.empty((6, *raster), dtype=torch.float32, device=sdf.device)
+    outs = torch.empty((6, *lead, *raster), dtype=torch.float32,
+                       device=sdf.device)
     n = flat.shape[0]
     h, w, blocks = march_geometry(raster)
-    if n >= 2 ** 31 or (h and blocks[1] > 65535):
-        raise ValueError(f"too many rays for one launch: {raster}")
+    _check_launch(raster, n, h, blocks, lead)
+    if _batch(lead) * res ** 3 >= 2 ** 31:  # the kernel's 32-bit cell index
+        raise ValueError(f"too many grid values for one launch: {lead} x "
+                         f"{res}^3")
     if n:
         _launch(
             "march_warm", sdf.device, sdf.data_ptr(),
             grid_b.data_ptr() if bf16 else None, coarse.data_ptr(),
             flat.data_ptr(), pose.data_ptr(), t_init.data_ptr(),
-            skip.data_ptr(), *(o.data_ptr() for o in outs), n, h, w, res,
-            float(threshold), int(max_steps), int(bf16),
+            skip.data_ptr(), *(o.data_ptr() for o in outs), n, h, w,
+            _batch(lead), res, float(threshold), int(max_steps), int(bf16),
         )
-        march_warm.launches += 1
+        _count(march_warm, lead)
         march_warm.bf16_launches += bf16
     return tuple(outs)
 
 
-march_warm.launches = 0
+march_warm.launches = march_warm.hypotheses = 0
 march_warm.bf16_launches = 0
 
 
@@ -360,7 +415,12 @@ march_warm.bf16_launches = 0
 def sample_plain(
     sdf: torch.Tensor, points: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
-    """Masked extrapolating trilinear values; masked rows give 0."""
+    """Masked extrapolating trilinear values; masked rows give 0.  A grid
+    ``(B, R, R, R)`` with rows ``(B, N, 3)``/``(B, N)``: each hypothesis
+    alone."""
+    if sdf.ndim == 4:
+        return per_hypothesis(sdf.shape[0], lambda b: sample_plain(
+            sdf[b], points[b], mask[b]))
     value = sample_sdf(sdf, points)
     return torch.where(mask != 0, value * mask, torch.zeros_like(value))
 
@@ -378,28 +438,37 @@ def sample(
     """Values ``(N,)`` at points ``(N, 3)`` times ``mask (N,)``
     (``csrc/sample.cu``; plain version :func:`sample_plain`).  On CUDA one
     thread per row (:func:`sample_blocks`) loads its point and its mask
-    together."""
-    res = _check_grid(sdf)
-    n = _check_points(points, mask)
+    together.  A grid ``(B, R, R, R)`` with rows ``(B, N, 3)``/``(B, N)``
+    gives ``(B, N)`` from one launch."""
+    res, lead = _check_grid(sdf)
+    n = _check_points(lead, points, mask)
     if _on_cpu(sdf, points, mask):
         return sample_plain(sdf, points, mask)
-    if 3 * n >= 2 ** 31:
-        raise ValueError(f"too many rows for one launch: {n}")
-    out = torch.empty(n, dtype=torch.float32, device=sdf.device)
+    _check_rows(n, 3, lead)
+    out = torch.empty((*lead, n), dtype=torch.float32, device=sdf.device)
     if n:
         _launch("sample", sdf.device, sdf.data_ptr(), points.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), n, res)
-        sample.launches += 1
+                mask.data_ptr(), out.data_ptr(), n, _batch(lead), res)
+        _count(sample, lead)
     return out
 
 
-sample.launches = 0
+def _check_rows(n: int, width: int, lead: tuple) -> None:
+    if width * n >= 2 ** 31 or _batch(lead) > 65535:
+        raise ValueError(f"too many rows for one launch: {lead} x {n}")
+
+
+sample.launches = sample.hypotheses = 0
 
 
 def sample_grad_plain(
     sdf: torch.Tensor, points: torch.Tensor, mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked value and gradient w.r.t. the normalized point."""
+    """Masked value and gradient w.r.t. the normalized point (batched as
+    :func:`sample_plain`)."""
+    if sdf.ndim == 4:
+        return per_hypothesis(sdf.shape[0], lambda b: sample_grad_plain(
+            sdf[b], points[b], mask[b]))
     value, grad = sample_sdf_value_and_grad(sdf, points)
     keep = mask != 0
     value = torch.where(keep, value * mask, torch.zeros_like(value))
@@ -412,21 +481,25 @@ def sample_grad(
     sdf: torch.Tensor, points: torch.Tensor, mask: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value ``(N,)`` and spatial gradient ``(N, 3)``, each times the mask
-    once (``csrc/sample_grad.cu``; plain version :func:`sample_grad_plain`)."""
-    res = _check_grid(sdf)
-    n = _check_points(points, mask)
+    once (``csrc/sample_grad.cu``; plain version :func:`sample_grad_plain`).
+    Batched as :func:`sample`: ``(B, N)`` and ``(B, N, 3)`` from one
+    launch."""
+    res, lead = _check_grid(sdf)
+    n = _check_points(lead, points, mask)
     if _on_cpu(sdf, points, mask):
         return sample_grad_plain(sdf, points, mask)
-    value = torch.empty(n, dtype=torch.float32, device=sdf.device)
-    grad = torch.empty((n, 3), dtype=torch.float32, device=sdf.device)
+    _check_rows(n, 3, lead)
+    value = torch.empty((*lead, n), dtype=torch.float32, device=sdf.device)
+    grad = torch.empty((*lead, n, 3), dtype=torch.float32, device=sdf.device)
     if n:
         _launch("sample_grad", sdf.device, sdf.data_ptr(), points.data_ptr(),
-                mask.data_ptr(), value.data_ptr(), grad.data_ptr(), n, res)
-        sample_grad.launches += 1
+                mask.data_ptr(), value.data_ptr(), grad.data_ptr(), n,
+                _batch(lead), res)
+        _count(sample_grad, lead)
     return value, grad
 
 
-sample_grad.launches = 0
+sample_grad.launches = sample_grad.hypotheses = 0
 
 
 # ---------------------------------------------------------------------------
@@ -437,7 +510,11 @@ sample_grad.launches = 0
 def scatter_plain(
     points: torch.Tensor, cotangents: torch.Tensor, res: int
 ) -> torch.Tensor:
-    """Gradient of sampling w.r.t. the grid: corner weights x cotangent."""
+    """Gradient of sampling w.r.t. the grid: corner weights x cotangent
+    (rows ``(B, N, 3)``/``(B, N)``: one grid per hypothesis)."""
+    if points.ndim == 3:
+        return per_hypothesis(points.shape[0], lambda b: scatter_plain(
+            points[b], cotangents[b], res))
     idx, w = trilinear_weights(points, res)
     grad = torch.zeros(res ** 3, dtype=cotangents.dtype,
                        device=cotangents.device)
@@ -453,32 +530,37 @@ def scatter(
     :func:`scatter_plain`).  On CUDA the lanes of a warp that share a base
     cell sum their contributions first, and one lane adds them with float
     atomics (float2 atomics on the z-pairs of even cells when ``res`` is
-    even): the sums are not deterministic in their last bits."""
-    n = _check_points(points, cotangents)
+    even): the sums are not deterministic in their last bits.  Rows ``(B, N,
+    3)``/``(B, N)`` give ``(B, res, res, res)``, zero-filled once for the
+    batch, from one launch; a warp never spans two hypotheses."""
+    lead = tuple(points.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError("expected points (N, 3) or (B, N, 3)")
+    n = _check_points(lead, points, cotangents)
     if _on_cpu(points, cotangents):
         return scatter_plain(points, cotangents, res)
-    if n >= 2 ** 31:
-        raise ValueError(f"too many rows for one launch: {n}")
-    grad = torch.zeros((res, res, res), dtype=torch.float32,
+    _check_rows(n, 1, lead)
+    grad = torch.zeros((*lead, res, res, res), dtype=torch.float32,
                        device=points.device)
     if n:
         _launch("scatter", points.device, points.data_ptr(),
-                cotangents.data_ptr(), grad.data_ptr(), n, res)
-        scatter.launches += 1
+                cotangents.data_ptr(), grad.data_ptr(), n, _batch(lead), res)
+        _count(scatter, lead)
     return grad
 
 
-scatter.launches = 0
+scatter.launches = scatter.hypotheses = 0
 
 KERNELS = {"march": march, "march_warm": march_warm, "sample": sample,
            "sample_grad": sample_grad, "scatter": scatter}
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0 (and the marches' counts of
-    bf16 launches and the march's launch count per raster)."""
+    """Set every kernel's launch and hypothesis counts to 0 (and the
+    marches' counts of bf16 launches and the march's launch count per
+    raster)."""
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.hypotheses = 0
     march.bf16_launches = march_warm.bf16_launches = 0
     march.rasters = {}
 
@@ -486,3 +568,8 @@ def reset_launches() -> None:
 def launches() -> dict:
     """Current launch count of every kernel."""
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def hypotheses() -> dict:
+    """Hypotheses served by every kernel's launches since the reset."""
+    return {name: fn.hypotheses for name, fn in KERNELS.items()}

@@ -10,6 +10,14 @@ while-loop.  :func:`march_warm_plain` is the same for the warm/aux corridor
 march.  A bf16 sample rounds the grid's values to bf16 and interpolates them
 in float32 (:func:`bf16_corners`), as the kernel does, so the two agree to
 the bit.
+
+Hypotheses.  The coarse tables, :func:`bf16_corners`, :func:`object_rays`
+and :func:`ray_interval` take leading hypothesis dims on the grid
+``(B, R, R, R)`` and the pose ``(B, 14)``, elementwise, so each hypothesis
+gets the bits it gets alone.  The plain marches take a batched grid and
+pose (and per-hypothesis ``t_init``/``skip``) by running the unbatched
+march once per hypothesis (:func:`per_hypothesis`): the twins of the
+batched kernels equal a loop of unbatched twins by construction.
 """
 from __future__ import annotations
 
@@ -78,15 +86,30 @@ def obb_interval(
     return hit, torch.clamp(t_min, min=0.0), t_max
 
 
+def per_hypothesis(n: int, fn):
+    """``fn(b)`` for each hypothesis ``b < n``, stacked (a tuple of results
+    element by element): the plain version of a batched kernel."""
+    outs = [fn(b) for b in range(n)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(xs) for xs in zip(*outs))
+    return torch.stack(outs)
+
+
+def _no_steps(steps) -> None:
+    if steps is not None:
+        raise ValueError("steps are counted for one hypothesis at a time")
+
+
 def _coarse_pool(vol: torch.Tensor, nc: int, reduce: str, fill: float
                  ) -> torch.Tensor:
-    """``(nc, nc, nc)`` reduction of ``vol`` over the fine vertices that the
-    interpolation of any point of each coarse cell can touch.
+    """``(..., nc, nc, nc)`` reduction of ``vol (..., res, res, res)`` over
+    the fine vertices that the interpolation of any point of each coarse
+    cell can touch (a min or max: exact, whatever the leading dims).
 
     Coarse cell ``i`` covers fine coordinates ``u in [i, i+1] * (res-1)/nc``;
     the trilinear corners of such ``u`` are ``floor(u)`` and ``floor(u)+1``.
     """
-    res = vol.shape[0]
+    res = vol.shape[-1]
     i = torch.arange(nc, device=vol.device)
     lo = (i * (res - 1)) // nc
     hi = torch.clamp(((i + 1) * (res - 1)) // nc + 1, max=res - 1)
@@ -94,13 +117,14 @@ def _coarse_pool(vol: torch.Tensor, nc: int, reduce: str, fill: float
     m = (v[None, :] >= lo[:, None]) & (v[None, :] <= hi[:, None])  # (nc, res)
     big = vol.new_full((), fill)
     red = getattr(torch, reduce)
-    t1 = red(torch.where(m[:, :, None, None], vol[None], big), 1)
-    t2 = red(torch.where(m[None, :, :, None], t1[:, None], big), 2)
-    return red(torch.where(m[None, None, :, :], t2[:, :, None, :], big), 3)
+    t1 = red(torch.where(m[:, :, None, None], vol[..., None, :, :, :], big),
+             -3)
+    t2 = red(torch.where(m[:, :, None], t1[..., None, :, :], big), -2)
+    return red(torch.where(m, t2[..., None, :], big), -1)
 
 
 def coarse_min_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
-    """Conservative ``(nc, nc, nc)`` lower bound of the interpolant per
+    """Conservative ``(..., nc, nc, nc)`` lower bound of the interpolant per
     coarse cell (``pallas_kernel.coarse_min_table``, min block): an
     interpolant is bounded below by its corners' minimum."""
     return (_coarse_pool(sdf, nc, "amin", float("inf"))
@@ -108,15 +132,16 @@ def coarse_min_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
 
 
 def coarse_max_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
-    """``(nc, nc, nc)`` maximum ``|value|`` over the same window per coarse
+    """``(..., nc, nc, nc)`` maximum ``|value|`` over the same window per coarse
     cell, without margin (``pallas_kernel.coarse_min_table``, second block):
     the scale of the bf16 sample's error."""
     return _coarse_pool(torch.abs(sdf), nc, "amax", 0.0).contiguous()
 
 
 def coarse_pair_table(sdf: torch.Tensor, nc: int = NC) -> torch.Tensor:
-    """``(nc, nc, nc, 2)``: the min and max-|value| tables interleaved per
-    coarse cell, the table of the bf16 marches (one ``float2`` per cell)."""
+    """``(..., nc, nc, nc, 2)``: the min and max-|value| tables interleaved
+    per coarse cell, the table of the bf16 marches (one ``float2`` per
+    cell)."""
     return torch.stack([coarse_min_table(sdf, nc), coarse_max_table(sdf, nc)],
                        dim=-1).contiguous()
 
@@ -158,19 +183,22 @@ class _Bf16Step:
 
 
 def object_rays(dirs: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
-    """``R^T d`` per ray ``(N, 3)``, written out in the CUDA kernels' order:
-    every ray's result depends on its own direction only (no matmul
-    blocking), so an ROI render is the full render's crop bit for bit."""
-    rot = pose[:9].reshape(3, 3)
-    return (dirs[:, 0:1] * rot[0] + dirs[:, 1:2] * rot[1]
-            + dirs[:, 2:3] * rot[2])
+    """``R^T d`` per ray ``(..., N, 3)`` of rays ``(N, 3)`` at poses ``(...,
+    14)``, written out in the CUDA kernels' order: every ray's result
+    depends on its own direction only (no matmul blocking), so an ROI
+    render is the full render's crop bit for bit."""
+    rot = pose[..., None, :9]
+    return (dirs[:, 0:1] * rot[..., 0:3] + dirs[:, 1:2] * rot[..., 3:6]
+            + dirs[:, 2:3] * rot[..., 6:9])
 
 
 def ray_interval(dirs: torch.Tensor, pose: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(hit, t_min, t_max)`` of rays ``(N, 3)`` against the posed box, as
-    the CUDA kernels compute them (bit for bit)."""
-    return obb_interval(object_rays(dirs, pose), -pose[9:12], pose[13])
+    """``(hit, t_min, t_max)``, each ``(..., N)``, of rays ``(N, 3)``
+    against the box at poses ``(..., 14)``, as the CUDA kernels compute them
+    (bit for bit)."""
+    return obb_interval(object_rays(dirs, pose), -pose[..., None, 9:12],
+                        pose[..., None, 13:14])
 
 
 def _point(pose, dirs_o, t):
@@ -244,7 +272,15 @@ def march_plain(
     ``cells`` the fine steps read (the work the march does on these
     inputs), and the steps of the ``longest`` ray; with bf16 also the
     ``fast`` steps and ``cells_bf16``.
+
+    A grid ``(B, R, R, R)`` with poses ``(B, 14)`` marches each hypothesis
+    alone and gives ``(B, N)`` (``steps`` not taken then).
     """
+    if sdf.ndim == 4:
+        _no_steps(steps)
+        return per_hypothesis(sdf.shape[0], lambda b: march_plain(
+            sdf[b], dirs, pose[b], threshold, max_steps, culling, adaptive,
+            relaxation=relaxation, bf16=bf16))
     scale = pose[13]
     dirs_o = object_rays(dirs, pose)
     hit, t, t_max = obb_interval(dirs_o, -pose[9:12], scale)
@@ -347,8 +383,15 @@ def march_warm_plain(
     Returns the ``(N,)`` tensors named by :data:`WARM_OUTPUTS`: depth,
     terminal ``t``, the corridor's first value ``v0``, ``min_dip``, last
     value ``v_last`` (zeros for a ray that took no step) and ``t_last``.
-    ``steps`` as in :func:`march_plain`.
+    ``steps`` as in :func:`march_plain`.  A grid ``(B, R, R, R)`` with
+    poses ``(B, 14)`` and ``t_init``/``skip`` ``(B, N)`` marches each
+    hypothesis alone and gives ``(B, N)`` tensors.
     """
+    if sdf.ndim == 4:
+        _no_steps(steps)
+        return per_hypothesis(sdf.shape[0], lambda b: march_warm_plain(
+            sdf[b], dirs, pose[b], t_init[b], skip[b], threshold, max_steps,
+            bf16=bf16))
     scale = pose[13]
     dirs_o = object_rays(dirs, pose)
     hit, t_min, t_max = obb_interval(dirs_o, -pose[9:12], scale)

@@ -18,6 +18,11 @@ A periodic full refresh (``full_refresh`` every
 ``temporal_refresh_interval`` iterations) caps what the bound does not
 cover.  Everything here is device tensor ops: no value is read on the
 host.
+
+Hypotheses: every function takes leading hypothesis dims (a pose ``(B,
+...)``, a grid ``(B, R, R, R)``, a view's warm rasters ``(B, H, W)``) and
+keeps the state of each (hypothesis, view) apart; the motion bound is one
+per hypothesis.
 """
 from __future__ import annotations
 
@@ -36,12 +41,14 @@ WARM_VIEW_KEYS = ("t", "hit", "t0", "v0", "min_dip", "v_last", "t_last",
                   "macc")
 
 
-def init_warm_views(n_views: int, height: int, width: int, device="cuda"
-                    ) -> Dict[str, torch.Tensor]:
-    """Zero-initialized per-view warm state (forces a full first march)."""
+def init_warm_views(n_views: int, height: int, width: int, hypotheses: int,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """Zero-initialized warm state ``(V, B, H, W)`` of ``V`` views and ``B``
+    hypotheses (forces a full first march)."""
     device = resolve_device(device)
-    return {k: torch.zeros((n_views, height, width), dtype=torch.float32,
-                           device=device) for k in WARM_VIEW_KEYS}
+    return {k: torch.zeros((n_views, hypotheses, height, width),
+                           dtype=torch.float32, device=device)
+            for k in WARM_VIEW_KEYS}
 
 
 def motion_bound(
@@ -57,16 +64,18 @@ def motion_bound(
     moves by at most ``|dp| + 2 sqrt(3) |ds| + 2 sqrt(3) s |dq|``; a change
     of the (1-Lipschitz) field moves its zero set by at most ``s
     max|dSDF|``.  ``orientation`` is normalized; no gradient flows.
+    Hypotheses ``(B, 3)``, ``(B, 4)``, ``(B,)``, ``(B, R, R, R)`` (and
+    ``prev`` alike) give one bound each, ``(B,)``.
     """
     with torch.no_grad():
-        dp = torch.linalg.norm(position - prev["position"])
+        dp = torch.linalg.norm(position - prev["position"], dim=-1)
         # q and -q are the same rotation
         dq = torch.minimum(
-            torch.linalg.norm(orientation - prev["orientation"]),
-            torch.linalg.norm(orientation + prev["orientation"]),
+            torch.linalg.norm(orientation - prev["orientation"], dim=-1),
+            torch.linalg.norm(orientation + prev["orientation"], dim=-1),
         )
         ds = torch.abs(scale - prev["scale"])
-        dsdf = torch.amax(torch.abs(sdf - prev["sdf"]))
+        dsdf = torch.amax(torch.abs(sdf - prev["sdf"]), dim=(-3, -2, -1))
         s_max = torch.maximum(scale, prev["scale"])
         sqrt3 = math.sqrt(3.0)
         return (dp + 2.0 * sqrt3 * ds + 2.0 * sqrt3 * s_max * dq
@@ -84,11 +93,15 @@ def warm_inputs(
     """``(t_init, skip, macc)`` of the next warm march: per-ray warm start
     (``-1``: from the box entry) and skip flag of the rays ``(H, W, 3)`` at
     the new ``pose`` (:func:`sdfest_torch.render.kernels.pose_params`), and
-    the motion accumulated since each ray last marched."""
+    the motion accumulated since each ray last marched.  Hypotheses: poses
+    ``(B, 14)``, motions ``(B,)`` and warm rasters ``(B, H, W)``."""
     w = view_warm
     with torch.no_grad():
-        _, t_min_new, t_max_new = (x.reshape(rays.shape[:2]) for x in
-                                   ray_interval(rays.reshape(-1, 3), pose))
+        lead = pose.shape[:-1]
+        motion = motion[..., None, None]
+        _, t_min_new, t_max_new = (
+            x.reshape(*lead, *rays.shape[:2])
+            for x in ray_interval(rays.reshape(-1, 3), pose))
         macc_new = w["macc"] + motion
         if full_refresh:
             return (torch.full_like(macc_new, -1.0),
@@ -128,7 +141,9 @@ def warm_render_step(
     ``view_warm`` holds the :data:`WARM_VIEW_KEYS` rasters ``(H, W)`` of one
     view; ``motion`` is this iteration's :func:`motion_bound`.  The pose is
     in the camera frame; the depth is differentiable w.r.t. the SDF and the
-    pose through the surrogate of :func:`render_depth_warm`.
+    pose through the surrogate of :func:`render_depth_warm`.  Hypotheses: a
+    grid ``(B, R, R, R)``, poses ``(B, ...)``, rasters ``(B, H, W)`` and
+    motions ``(B,)``, one warm march for all.
     """
     device = resolve_device(device)
     w = view_warm

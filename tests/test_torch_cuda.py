@@ -509,3 +509,143 @@ def test_sampler_equals_its_twin_bit_for_bit(dev, mug, case):
         assert not bool(got.any())
     else:
         assert bool(got.any())
+
+
+# ---------------------------------------------------------------------------
+# hypotheses: one launch for a batch equals one launch per hypothesis
+# ---------------------------------------------------------------------------
+
+
+def _hypotheses(dev, mug):
+    """Four hypotheses on the 640x480 mug: their grids (B, R, R, R) and
+    poses (B, 14); hypothesis 2 has the mug behind the camera (it misses
+    the frame) beside three that hit."""
+    sdf, _ = mug
+    grids = torch.stack([sdf, sdf * 1.02 + 1e-3, sdf, sdf * 0.98])
+    poses = torch.stack([
+        _mug_pose(dev), _mug_pose(dev, dp=(0.01, -0.005, 0.02), scale=0.11),
+        _mug_pose(dev, dp=(0.0, 0.0, 1.0)),
+        _mug_pose(dev, dp=(-0.01, 0.01, -0.02), scale=0.09)])
+    return grids.contiguous(), poses.contiguous()
+
+
+def _hyp_rays(dev, cam, case):
+    full = api.ray_set(cam, dev).march
+    if case == "frame":
+        return full
+    if case == "roi":
+        return api.ray_set(cam, dev, (240, 320),
+                           torch.tensor([120, 160], device=dev)).march
+    if case == "strided":
+        return api.ray_set(cam.strided(2), dev).march
+    return full.reshape(-1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame", "roi", "strided", "flat"])
+@pytest.mark.parametrize("instance", list(MARCHES) + ["plain"])
+def test_batched_march_equals_unbatched_launches(dev, mug, instance, case):
+    """Every march instance: one launch of a batch of 4 hypotheses (one
+    missing the frame) equals 4 launches of one, and the batched twin, bit
+    for bit, on the frame, an ROI crop, a strided raster and a flat set."""
+    culling, adaptive, relaxation, bf16 = MARCHES.get(
+        instance, (False, False, 1.0, False))
+    kw = dict(relaxation=relaxation, bf16=bf16)
+    grids, poses = _hypotheses(dev, mug)
+    rays = _hyp_rays(dev, mug[1], case)
+    kernels.reset_launches()
+    got = kernels.march(grids, rays, poses, 0.005, 500, culling, adaptive,
+                        **kw)
+    torch.cuda.synchronize()
+    assert kernels.march.launches == 1 and kernels.march.hypotheses == 4
+    assert got.shape == (4, *rays.shape[:-1])
+    for b in range(4):
+        want = kernels.march(grids[b], rays, poses[b], 0.005, 500, culling,
+                             adaptive, **kw)
+        assert torch.equal(got[b], want), (b, float((got[b] - want).abs()
+                                                    .max()))
+    twin = plain.march_plain(grids, rays.reshape(-1, 3), poses, 0.005, 500,
+                             culling, adaptive, **kw)
+    assert torch.equal(got.reshape(4, -1), twin)
+    assert not bool(got[2].any()) and int((got[0] > 0).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", ["cold", "mid_refinement", "all_skip"])
+def test_batched_warm_march_equals_unbatched_launches(dev, mug, case, bf16):
+    """The warm march of 4 hypotheses (one missing the frame) with their
+    own t_init/skip: one launch equals 4 launches of one and the batched
+    twin, all six outputs bit for bit."""
+    from sdfest_torch.render import warm
+
+    sdf, cam = mug
+    grids, poses = _hypotheses(dev, mug)
+    rays = api.ray_set(cam, dev).march
+    shape = (4, *rays.shape[:2])
+    t_init = torch.full(shape, -1.0, device=dev)
+    skip = torch.zeros(shape, device=dev)
+    if case == "all_skip":
+        skip = torch.ones(shape, device=dev)
+    elif case == "mid_refinement":
+        outs = kernels.march_warm(grids, rays, poses, t_init, skip, 0.005,
+                                  500)
+        _, t_min, _ = (x.reshape(shape) for x in plain.ray_interval(
+            rays.reshape(-1, 3), poses))
+        state = dict(zip(plain.WARM_OUTPUTS[1:], outs[1:]),
+                     hit=(outs[0] > 0).float(), t0=t_min,
+                     macc=torch.zeros(shape, device=dev))
+        moved = poses.clone()
+        moved[:, 9:12] += torch.tensor([1e-3, -6e-4, 8e-4], device=dev)
+        t_init, skip, _ = warm.warm_inputs(
+            state, rays, moved, torch.full((4,), 3e-3, device=dev), False,
+            0.005)
+        poses = moved
+        assert int(skip.sum()) > 1000 and int((t_init >= 0).sum()) > 1000
+    t_init, skip = t_init.contiguous(), skip.contiguous()
+    kernels.reset_launches()
+    got = kernels.march_warm(grids, rays, poses, t_init, skip, 0.005, 500,
+                             bf16=bf16)
+    torch.cuda.synchronize()
+    assert kernels.march_warm.launches == 1
+    assert kernels.march_warm.hypotheses == 4
+    twin = plain.march_warm_plain(grids, rays.reshape(-1, 3), poses,
+                                  t_init.reshape(4, -1),
+                                  skip.reshape(4, -1), 0.005, 500, bf16=bf16)
+    for b in range(4):
+        want = kernels.march_warm(grids[b], rays, poses[b], t_init[b],
+                                  skip[b], 0.005, 500, bf16=bf16)
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w)
+    for g, w in zip(got, twin):
+        assert torch.equal(g.reshape(4, -1), w)
+    assert not bool(got[0][2].any())
+
+
+@pytest.mark.cuda
+def test_batched_samplers_and_scatter_equal_unbatched_launches(dev, mug):
+    """Sample and sample-grad of 4 hypotheses: one launch equals 4 launches
+    of one bit for bit; the scatter within 1e-3 of max(1, max|want|) (float
+    atomics in no fixed order), one launch each."""
+    grids, _ = _hypotheses(dev, mug)
+    g = torch.Generator().manual_seed(9)
+    n = 307_200
+    pts = (torch.rand(4, n, 3, generator=g) * 2.2 - 1.1).to(dev)
+    mask = (torch.rand(4, n, generator=g) < 0.1).float().to(dev)
+    cot = (torch.randn(4, n, generator=g).to(dev) * mask).contiguous()
+    kernels.reset_launches()
+    value = kernels.sample(grids, pts, mask)
+    v, gr = kernels.sample_grad(grids, pts, mask)
+    acc = kernels.scatter(pts, cot, 64)
+    torch.cuda.synchronize()
+    for name in ("sample", "sample_grad", "scatter"):
+        assert kernels.KERNELS[name].launches == 1
+        assert kernels.KERNELS[name].hypotheses == 4
+    for b in range(4):
+        assert torch.equal(value[b], kernels.sample(grids[b], pts[b],
+                                                    mask[b]))
+        want_v, want_g = kernels.sample_grad(grids[b], pts[b], mask[b])
+        assert torch.equal(v[b], want_v) and torch.equal(gr[b], want_g)
+        want = kernels.scatter(pts[b], cot[b], 64)
+        err = float((acc[b] - want).abs().max())
+        assert err <= 1e-3 * max(1.0, float(want.abs().max())), (b, err)

@@ -245,7 +245,7 @@ def test_empty_observation_raises():
 
 def test_unported_call_paths_raise():
     pipe = SDFPipeline(_config(), device="cpu")
-    for method in (pipe.refine_batch, pipe.generate_mesh, pipe.generate_depth):
+    for method in (pipe.generate_mesh, pipe.generate_depth):
         with pytest.raises(NotImplementedError):
             method()
     with pytest.raises(ValueError, match="nn_weight"):

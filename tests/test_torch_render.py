@@ -384,3 +384,150 @@ def test_prebuilt_ray_set_equals_roi_arguments():
     with pytest.raises(ValueError, match="fit"):
         render_depth(SDFS["sphere"], ROI_POSITION, ROI_QUAT, 5.0, camera=cam,
                      device="cpu", roi=(80, 48))
+
+
+# ---------------------------------------------------------------------------
+# hypotheses: a leading batch dim through the wrappers and the render ops
+# ---------------------------------------------------------------------------
+
+MARCHES = {"culling_adaptive": dict(culling=True, adaptive=True),
+           "plain": dict(culling=False, adaptive=False),
+           "relaxed": dict(culling=True, adaptive=True, relaxation=1.5),
+           "bf16": dict(culling=True, adaptive=True, bf16=True)}
+# three hypotheses: the test pose, a moved and turned one, one behind the
+# camera (it misses the frame)
+HYP_POSITIONS = np.asarray([POSITION, POSITION + [0.02, 0.01, 0.03],
+                            POSITION * [1, 1, -1]], np.float32)
+HYP_QUATS = np.asarray([QUAT, (Rotation.from_euler("XYZ", [5, -8, 4],
+                                                    degrees=True)
+                               * Rotation.from_quat(QUAT)).as_quat(), QUAT],
+                       np.float32)
+HYP_SCALES = np.asarray([0.18, 0.16, 0.18], np.float32)
+
+
+def _hyp_grids():
+    return torch.stack([_t(SDFS["sphere"]), _t(SDFS["box"]),
+                        _t(SDFS["box"]) * 1.05])
+
+
+def _hyp_poses():
+    return kernels.pose_params(_t(HYP_POSITIONS), _t(HYP_QUATS),
+                               1.0 / _t(HYP_SCALES))
+
+
+def test_batched_pose_params_equal_each_alone():
+    poses = _hyp_poses()
+    assert poses.shape == (3, 14)
+    for b in range(3):
+        assert torch.equal(poses[b], kernels.pose_params(
+            _t(HYP_POSITIONS[b]), _t(HYP_QUATS[b]),
+            1.0 / _t(HYP_SCALES[b])))
+
+
+@pytest.mark.parametrize("name", list(MARCHES))
+def test_batched_march_equals_each_hypothesis_alone(name):
+    """The march of a batch (grid (B, R, R, R), poses (B, 14), shared rays,
+    full frame and an ROI crop) equals each hypothesis marched alone, bit
+    for bit; the hypothesis behind the camera gives zeros."""
+    from sdfest_torch.render import api
+
+    grids, poses = _hyp_grids(), _hyp_poses()
+    for rays in (api.ray_set(CAM, "cpu").march,
+                 api.ray_set(CAM, "cpu", (32, 48), torch.tensor([8, 4])
+                             ).march):
+        got = kernels.march(grids, rays, poses, 0.005, 500, **MARCHES[name])
+        assert got.shape == (3, *rays.shape[:2])
+        for b in range(3):
+            assert torch.equal(got[b], kernels.march(
+                grids[b], rays, poses[b], 0.005, 500, **MARCHES[name]))
+        assert int((got[0] > 0).sum()) > 50 and not bool(got[2].any())
+
+
+def test_batched_samplers_and_scatter_equal_each_hypothesis_alone():
+    grids = _hyp_grids()
+    g = torch.Generator().manual_seed(0)
+    pts = torch.rand(3, 700, 3, generator=g) * 2.2 - 1.1
+    mask = (torch.rand(3, 700, generator=g) < 0.6).float()
+    cot = torch.randn(3, 700, generator=g) * mask
+    value = kernels.sample(grids, pts, mask)
+    v, gr = kernels.sample_grad(grids, pts, mask)
+    acc = kernels.scatter(pts, cot, 64)
+    assert value.shape == v.shape == (3, 700) and gr.shape == (3, 700, 3)
+    assert acc.shape == (3, 64, 64, 64)
+    for b in range(3):
+        assert torch.equal(value[b], kernels.sample(grids[b], pts[b],
+                                                    mask[b]))
+        want_v, want_g = kernels.sample_grad(grids[b], pts[b], mask[b])
+        assert torch.equal(v[b], want_v) and torch.equal(gr[b], want_g)
+        assert torch.equal(acc[b], kernels.scatter(pts[b], cot[b], 64))
+
+
+def test_batched_coarse_tables_equal_each_grid_alone():
+    grids = _hyp_grids()
+    for fn in (plain.coarse_min_table, plain.coarse_max_table,
+               plain.coarse_pair_table, plain.bf16_corners):
+        got = fn(grids)
+        for b in range(3):
+            assert torch.equal(got[b], fn(grids[b])), fn.__name__
+
+
+def _render_hypotheses(grids, positions, quats, scales, points, mask):
+    """The fused render of hypotheses ``(B, ...)`` and the gradients of a
+    fixed weighting of its outputs w.r.t. every input."""
+    leaves = [x.clone().requires_grad_() for x in
+              (grids, positions, quats, scales)]
+    depth, values = render_depth_with_pc_values(
+        *leaves, points, mask, CAM, threshold=0.005, device="cpu")
+    w_d = torch.linspace(0.5, 1.5, H_W)
+    loss = (depth.reshape(*depth.shape[:-2], -1) * w_d).sum() + (
+        values * torch.linspace(1.0, 2.0, values.shape[-1])).sum()
+    return depth, values, torch.autograd.grad(loss, leaves)
+
+
+H_W = CAM.height * CAM.width
+
+
+def test_batched_render_op_equals_each_hypothesis_alone():
+    """The fused render + pc values of three hypotheses (one missing the
+    frame) equal each hypothesis rendered alone: depth and values bit for
+    bit, every gradient within 1e-6 (one backward of one sample-grad and one
+    scatter for all)."""
+    grids = _hyp_grids()
+    points = _t(POSITION + np.random.default_rng(3).normal(
+        scale=0.1, size=(200, 3)))
+    mask = torch.ones(200)
+    batch = _render_hypotheses(grids, _t(HYP_POSITIONS), _t(HYP_QUATS),
+                               _t(HYP_SCALES), points, mask)
+    assert batch[0].shape == (3, 48, 64) and batch[1].shape == (3, 200)
+    for b in range(3):
+        alone = _render_hypotheses(grids[b], _t(HYP_POSITIONS[b]),
+                                   _t(HYP_QUATS[b]), _t(HYP_SCALES[b]),
+                                   points, mask)
+        assert torch.equal(batch[0][b], alone[0])
+        assert torch.equal(batch[1][b], alone[1])
+        for got, want in zip(batch[2], alone[2]):
+            _close(got[b].numpy(), want.numpy(), 1e-6)
+
+
+def test_quaternion_is_normalized_per_hypothesis():
+    """A batch of a unit quaternion and the same scaled by 3 renders each
+    row as that quaternion alone (depth, pc values, gradients: |q| and
+    |q|^2 are taken per hypothesis), and the pc values of both rows agree
+    (they normalize)."""
+    grids = torch.stack([_t(SDFS["sphere"])] * 2)
+    quats = torch.stack([_t(QUAT), 3.0 * _t(QUAT)])
+    positions = torch.stack([_t(POSITION)] * 2)
+    scales = _t([0.18, 0.18])
+    points = _t(POSITION + np.random.default_rng(4).normal(
+        scale=0.1, size=(200, 3)))
+    mask = torch.ones(200)
+    batch = _render_hypotheses(grids, positions, quats, scales, points, mask)
+    for b in range(2):
+        alone = _render_hypotheses(grids[b], positions[b], quats[b],
+                                   scales[b], points, mask)
+        assert torch.equal(batch[0][b], alone[0])
+        assert torch.equal(batch[1][b], alone[1])
+        for got, want in zip(batch[2], alone[2]):
+            _close(got[b].numpy(), want.numpy(), 1e-6)
+    np.testing.assert_allclose(batch[1][1].detach().numpy(),
+                               batch[1][0].detach().numpy(), atol=1e-6)

@@ -74,7 +74,8 @@ def _pose(position, quat, scale):
 
 def _warm_state(sdf, position=POSITION, quat=QUAT, scale=SCALE):
     """The port's warm state after one full-refresh render at a pose."""
-    views = {k: v[0] for k, v in warm.init_warm_views(1, H, W, "cpu").items()}
+    views = {k: v[0, 0]
+             for k, v in warm.init_warm_views(1, H, W, 1, "cpu").items()}
     _, state = warm.warm_render_step(
         _t(sdf), _t(position), _t(quat), _t(scale), views, torch.zeros(()),
         True, CAM, THR, device="cpu")
@@ -325,3 +326,68 @@ def test_render_depth_warm_gradients_match_jax(sdfs):
     (depth * _t(w)).sum().backward()
     for leaf, g, tol in zip(leaves, want, (1e-3, 1e-4, 1e-4, 1e-4)):
         _grad_close(leaf.grad.numpy(), g, tol)
+
+
+# ---------------------------------------------------------------------------
+# hypotheses: the warm march and the warm bookkeeping with a batch dim
+# ---------------------------------------------------------------------------
+
+
+def _hyp_inputs(sdfs):
+    """Three hypotheses (mug, sphere, and the mug behind the camera): their
+    grids, poses, and per-hypothesis warm inputs of a real warm step (the
+    first two) and a cold start (the third)."""
+    grids = torch.stack([_t(sdfs["mug"]), _t(sdfs["sphere"]),
+                         _t(sdfs["mug"])])
+    behind = POSITION * np.asarray([1, 1, -1], np.float32)
+    poses = torch.stack([_pose(STEP_POSITION, STEP_QUAT, STEP_SCALE),
+                         _pose(STEP_POSITION, STEP_QUAT, STEP_SCALE),
+                         _pose(behind, QUAT, SCALE)])
+    steps = [_step_inputs(sdfs["mug"]), _step_inputs(sdfs["sphere"])]
+    t_init = torch.stack([s[0] for s in steps] + [torch.full((H, W), -1.0)])
+    skip = torch.stack([s[1] for s in steps] + [torch.zeros(H, W)])
+    return grids, poses, t_init, skip
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_batched_warm_march_equals_each_hypothesis_alone(sdfs, bf16):
+    grids, poses, t_init, skip = _hyp_inputs(sdfs)
+    rays = api.ray_set(CAM, "cpu").march
+    assert int(skip[0].sum()) > 100 and int((t_init[0] >= 0).sum()) > 50
+    got = kernels.march_warm(grids, rays, poses, t_init, skip, THR, 500,
+                             bf16=bf16)
+    for b in range(3):
+        want = kernels.march_warm(grids[b], rays, poses[b], t_init[b],
+                                  skip[b], THR, 500, bf16=bf16)
+        for g, w in zip(got, want):
+            assert g.shape == (3, H, W) and torch.equal(g[b], w)
+    assert not bool(got[0][2].any())
+
+
+def test_batched_warm_step_keeps_each_hypothesis_state(sdfs):
+    """motion_bound, warm_inputs and warm_render_step of a batch equal each
+    hypothesis alone: one bound and one warm state per hypothesis."""
+    grids, _, _, _ = _hyp_inputs(sdfs)
+    positions = _t([STEP_POSITION, STEP_POSITION + 0.01, STEP_POSITION])
+    quats = _t([STEP_QUAT, QUAT, STEP_QUAT])
+    scales = _t([STEP_SCALE, SCALE, 0.17])
+    states = [_warm_state(sdfs[k]) for k in ("mug", "sphere", "mug")]
+    batch_state = {k: torch.stack([s[k] for s in states]) for k in states[0]}
+    prev = {"position": _t([POSITION] * 3), "orientation": _t([QUAT] * 3),
+            "scale": _t([SCALE] * 3), "sdf": grids * 0.99}
+    motion = warm.motion_bound(positions, quats, scales, grids, prev)
+    assert motion.shape == (3,)
+    depth, new = warm.warm_render_step(grids, positions, quats, scales,
+                                       batch_state, motion, False, CAM, THR,
+                                       device="cpu")
+    for b in range(3):
+        prev_b = {k: v[b] for k, v in prev.items()}
+        m_b = warm.motion_bound(positions[b], quats[b], scales[b], grids[b],
+                                prev_b)
+        assert torch.equal(motion[b], m_b)
+        d_b, new_b = warm.warm_render_step(grids[b], positions[b], quats[b],
+                                           scales[b], states[b], m_b, False,
+                                           CAM, THR, device="cpu")
+        assert torch.equal(depth[b], d_b)
+        for k in warm.WARM_VIEW_KEYS:
+            assert torch.equal(new[k][b], new_b[k]), k
