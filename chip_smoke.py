@@ -10,6 +10,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check,temporal   # warm refinement
     python3 chip_smoke.py --phases build,check,bf16,multiview   # slice 4
     python3 chip_smoke.py --phases build,check,batch   # refine_batch
+    python3 chip_smoke.py --phases build,check,mesh,evaluate   # slice 8
 
 Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
@@ -66,6 +67,25 @@ Phases:
             FINAL_SHARE of its run's fall; the final state printed beside
             what two sequential runs differ by); every hypothesis's loss
             finite and falling
+  mesh      with the decoded mug at the first ground-truth pose:
+            generate_depth (one march launch) bit for bit against its
+            plain version; generate_mesh (complete_mesh off and on)
+            against the CPU port's: the same face count, vertices through
+            the faces within 1e-4, with the count of grid values within
+            1e-5 of the level; a full-frame call with log_path, its pickle
+            loaded with play_log.load_log (numpy only, 50 losses equal to
+            last_log's); play_log._render_frames at stride 25 (one march
+            launch per frame) and export_meshes at stride 25 (two .obj)
+  evaluate  the port's make_procedural_dataset (seed 777, 64^3, meshes) for
+            the first EVAL_MESHES held-out mugs, then the port's Evaluator
+            on the card with rendering_evaluation.yaml's keys, one view,
+            pose metrics, the standard and production (roi auto, [4, 2]
+            multires) ablations: per file and ablation the metrics, the
+            host seconds of rasterizing, the call, generate_mesh and the
+            metrics, each kernel's launches per call (50 of each fused
+            kernel; production marches 20 / 20 / 10 at strides 4 / 2 / 1),
+            the loss falling; the means beside the JAX package's 20-mesh
+            means (context, not a bound)
   time      each kernel and its plain twin over 30 distinct inputs (CUDA
             events), with the least time the card could take (bound); the
             march also at the three ROI shapes of the fast plan, plain,
@@ -99,7 +119,7 @@ import sys
 import time
 
 PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
-          "bf16", "multiview", "batch", "time", "profile")
+          "bf16", "multiview", "batch", "mesh", "evaluate", "time", "profile")
 HYPOTHESES = 8  # refine_batch's batch (bench.py's --hypotheses default)
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
@@ -155,6 +175,49 @@ FINAL_SHARE = 0.25
 # warm march's mid-refinement inputs are made: positions ~1e-3, the
 # quaternion ~1e-2, the scale ~1e-3 relative
 STEP_POSITION, STEP_QUAT, STEP_SCALE = 1e-3, 1e-2, 1e-3
+# the evaluate phase: the first EVAL_MESHES meshes of the held-out set of
+# rendering_evaluation_mug_procedural.yaml (make_procedural_dataset --seed
+# 777 --export_meshes), one view each, under rendering_evaluation.yaml's
+# keys and two of its ablations
+EVAL_MESHES = 2
+EVAL_CONFIG = {
+    "camera_distance": 0.3, "mesh_scale": 0.1, "rel_scale": False,
+    "samples": 20000, "seed": 0, "shape_optimization": True,
+    "num_views": [1], "pose_metrics": True, "out_folder": None,
+    "metrics": {
+        "chamfer": {"f": "sdfest_tpu.pipeline.metrics.symmetric_chamfer",
+                    "kwargs": {}},
+        "mean_accuracy": {"f": "sdfest_tpu.pipeline.metrics.mean_accuracy",
+                          "kwargs": {}},
+        "mean_completeness": {
+            "f": "sdfest_tpu.pipeline.metrics.mean_completeness",
+            "kwargs": {}},
+        "completeness_0.01": {
+            "f": "sdfest_tpu.pipeline.metrics.completeness_thresh",
+            "kwargs": {"threshold": 0.01}},
+        "accuracy_0.01": {"f": "sdfest_tpu.pipeline.metrics.accuracy_thresh",
+                          "kwargs": {"threshold": 0.01}},
+    },
+    "ablation_configs": {
+        "standard": {},
+        "production": {"roi_size": "auto", "multires_factor": [4, 2],
+                       "multires_iterations": "auto"},
+    },
+}
+# the JAX package's means over the 20 held-out meshes, one view (its TPU run
+# with the init_mug_procedural network, not this script's init_v3)
+JAX_EVAL_SOURCE = ("results/rend_eval_rendering_evaluation_mug_procedural_"
+                   "2026-08-21_04-41-58.yaml")
+JAX_EVAL_MEANS = {
+    "standard": {"chamfer": 0.015005340714031415,
+                 "mean_accuracy": 0.010287968052409054,
+                 "mean_completeness": 0.019722713375653775,
+                 "completeness_0.01": 0.46139, "accuracy_0.01": 0.64439},
+    "production": {"chamfer": 0.014430986890705277,
+                   "mean_accuracy": 0.010286557362328252,
+                   "mean_completeness": 0.0185754164190823,
+                   "completeness_0.01": 0.47758, "accuracy_0.01": 0.63532},
+}
 GT_POSES = [  # (position, half-width, quaternion xyzw), tilted views
     ((0.02, -0.01, -0.5), 0.1, (0.25, 0.35, 0.1, 0.895)),
     ((-0.03, 0.02, -0.55), 0.11, (-0.2, 0.4, 0.15, 0.88)),
@@ -1683,6 +1746,215 @@ class Smoke:
                 self.report[name].setdefault("batch", {})[
                     "launches_per_iteration"] = per_it[name]
 
+    def mesh(self):
+        """generate_depth, generate_mesh, the flight recorder and its
+        playback on the card, with the decoded mug at GT_POSES[0]."""
+        import os
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from sdfest_torch.pipeline.pipeline import SDFPipeline
+        from sdfest_torch.render import api, kernels, plain
+        from sdfest_torch.scripts import play_log
+        from sdfest_torch.utils.presets import preset
+
+        pipe, cfg = self.pipe, self.pipe.config
+        pos, half, q = GT_POSES[0]
+        pos_t = torch.tensor(pos, device=self.dev)
+        q_t = unit_quat(q, self.dev)
+        # generate_depth: one march launch, bit for bit its plain version
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        depth = pipe.generate_depth(pos_t, q_t, half, self.latent)
+        torch.cuda.synchronize()
+        depth_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launches()
+        want = dict.fromkeys(counts, 0)
+        want["march"] = 1
+        assert counts == want, f"generate_depth launches {counts}"
+        with torch.no_grad():
+            sdf = pipe._decode(self.latent)[0, 0]
+        rays = api.ray_set(self.camera, self.dev).march
+        inv_s = 1.0 / torch.tensor(half, device=self.dev)
+        twin = plain.march_plain(
+            sdf, rays.reshape(-1, 3), kernels.pose_params(pos_t, q_t, inv_s),
+            cfg["threshold"], 500, cfg.get("coarse_culling", True),
+            cfg.get("adaptive_relaxation", True)).reshape(depth.shape)
+        equal = torch.equal(depth, twin)
+        print(f"mesh generate_depth: {tuple(depth.shape)}, hits "
+              f"{int((depth > 0).sum())}, launches {counts}, bit for bit "
+              f"its plain version {equal}, {depth_ms:.3f} ms (first call)")
+        assert equal, "generate_depth differs from its plain version"
+        # generate_mesh on the card against the CPU port's
+        cpu_pipe = SDFPipeline(preset("mug_procedural"), device="cpu")
+        level = cfg["iso_threshold"]
+        near = int((sdf - level).abs().lt(1e-5).sum())
+        meshes = {}
+        for complete in (False, True):
+            t0 = time.perf_counter()
+            got = pipe.generate_mesh(self.latent, half, complete)
+            mesh_s = time.perf_counter() - t0
+            ref = cpu_pipe.generate_mesh(self.latent.cpu(), half, complete)
+            same_faces = len(got.faces) == len(ref.faces)
+            dv = float(np.abs(got.vertices[got.faces]
+                              - ref.vertices[ref.faces]).max()) if (
+                same_faces) else float("inf")
+            print(f"mesh generate_mesh complete_mesh={complete}: card "
+                  f"{len(got.vertices)} vertices {len(got.faces)} faces, "
+                  f"CPU {len(ref.vertices)} / {len(ref.faces)}; max|dvertex| "
+                  f"through the faces {dv:.3e} (< 1e-4); grid values within "
+                  f"1e-5 of the level {level}: {near}; {mesh_s:.3f} s")
+            assert same_faces and dv < 1e-4, "generate_mesh differs on the card"
+            meshes[str(complete)] = dict(vertices=len(got.vertices),
+                                         faces=len(got.faces), max_err=dv,
+                                         seconds=mesh_s)
+        # the flight recorder of a full-frame call, then its playback
+        obs = self.observe(GT_POSES[0])
+        n_iter = cfg["max_iterations"]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "call.pkl")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            pipe(obs, obs > 0, log_path=path)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+            expect_launches(kernels.launches(), n_iter)
+            data = play_log.load_log(path)
+            log = data["log"]
+            leaves = [v for v in log.values()] + list(data["config"].values())
+            assert not any(isinstance(v, torch.Tensor) for v in leaves), (
+                "the flight recorder pickled a tensor")
+            assert len(log["loss"]) == n_iter
+            assert np.array_equal(log["loss"],
+                                  pipe.last_log["loss"].cpu().numpy())
+            shapes = {k: list(np.shape(v)) for k, v in log.items()}
+            print(f"mesh flight recorder: {os.path.getsize(path)} bytes, "
+                  f"call with log_path {call_ms:.3f} ms, log shapes {shapes}")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            _, frames, indices = play_log._render_frames(data, 25,
+                                                         pipeline=pipe)
+            frames_s = time.perf_counter() - t0
+            counts = kernels.launches()
+            want = dict.fromkeys(counts, 0)
+            want["march"] = len(indices)
+            print(f"mesh _render_frames stride 25: frames {indices}, "
+                  f"launches {counts}, {frames_s:.3f} s")
+            assert indices == [0, 25] and counts == want
+            assert all(isinstance(f, np.ndarray) and (f > 0).any()
+                       for f in frames)
+            t0 = time.perf_counter()
+            play_log.export_meshes(data, os.path.join(tmp, "meshes"), 25,
+                                   pipeline=pipe)
+            export_s = time.perf_counter() - t0
+            written = sorted(os.listdir(os.path.join(tmp, "meshes")))
+            print(f"mesh export_meshes stride 25: {written}, "
+                  f"{export_s:.3f} s")
+            assert written == ["00000.obj", "00025.obj"]
+        self.report["march"]["mesh"] = dict(
+            launches_generate_depth=1,
+            launches_render_frames_stride25=want["march"])
+        self.report["_mesh"] = dict(
+            generate_depth_bit_for_bit=equal, generate_depth_ms=depth_ms,
+            generate_mesh=meshes, near_level_values=near,
+            call_with_log_ms=call_ms, render_frames_s=frames_s,
+            export_meshes_s=export_s)
+
+    def evaluate(self):
+        """The synthetic rendering evaluation on the card: the first
+        EVAL_MESHES held-out procedural mugs (seed 777, 64^3), one view
+        each, the standard and production ablations."""
+        import tempfile
+
+        import torch
+
+        from sdfest_torch.render import kernels
+        from sdfest_torch.scripts import make_procedural_dataset
+        from sdfest_torch.scripts.rendering_evaluation import Evaluator
+        from sdfest_torch.utils.presets import preset
+
+        calls, file_metrics = [], []
+
+        class CountingEvaluator(Evaluator):
+            """Reads each call's launches (counts set to 0 just before) and
+            each file's metrics."""
+
+            def _evaluate_file(self, path, num_views, config):
+                metrics = super()._evaluate_file(path, num_views, config)
+                file_metrics.append(metrics)
+                return metrics
+
+            def _estimate(self, inputs, log_path, config):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                out = super()._estimate(inputs, log_path, config)
+                torch.cuda.synchronize()
+                loss = self.pipeline.last_log["loss"]
+                calls.append(dict(
+                    launches=kernels.launches(),
+                    rasters=dict(kernels.march.rasters),
+                    plan=self.pipeline.last_plan,
+                    loss=[float(loss[0]), float(loss[-1])]))
+                return out
+
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            make_procedural_dataset.generate(tmp, n=EVAL_MESHES, res=64,
+                                             seed=777, export_meshes=True)
+            gen_s = time.perf_counter() - t0
+            config = preset("mug_procedural")
+            config.update(EVAL_CONFIG, data_path=tmp)
+            evaluator = CountingEvaluator(config, device=self.dev)
+            results = evaluator.run()
+        n_iter = config["max_iterations"]
+        h, w = self.camera.height, self.camera.width
+        names = list(config["ablation_configs"])
+        per_file = []
+        for i, (call, secs, metrics) in enumerate(zip(
+                calls, evaluator.timings, file_metrics)):
+            ablation = names[i // EVAL_MESHES]
+            levels, fine_roi, fine_iters = call["plan"]
+            # each level's march raster: its ROI, else the strided frame
+            want = {}
+            for shape, n in [(roi or (h // f, w // f), n)
+                             for f, n, roi in levels] + [
+                    (fine_roi or (h, w), fine_iters or n_iter)]:
+                want[tuple(shape)] = want.get(tuple(shape), 0) + n
+            iters = [n for _, n, _ in levels] + [fine_iters or n_iter]
+            print(f"evaluate {ablation} file {i % EVAL_MESHES}: launches "
+                  f"{call['launches']}, iterations per level {iters}, march "
+                  f"rasters {call['rasters']}; loss {call['loss'][0]:.6f} -> "
+                  f"{call['loss'][1]:.6f}; host s {secs}; metrics "
+                  f"{json.dumps(metrics)}")
+            expect_launches(call["launches"], n_iter)
+            assert call["rasters"] == want, (call["rasters"], want)
+            assert iters == ([n_iter] if ablation == "standard"
+                             else [20, 20, 10]), iters
+            assert math.isfinite(call["loss"][1]) and (
+                call["loss"][1] < call["loss"][0]), "the loss did not fall"
+            assert all(math.isfinite(v) for v in metrics.values()), metrics
+            per_file.append(dict(ablation=ablation, seconds=secs,
+                                 iterations=iters, loss=call["loss"],
+                                 launches=call["launches"], metrics=metrics))
+        for ablation, by_views in results.items():
+            for views, stats in by_views.items():
+                means = {k: v["mean"] for k, v in stats.items()}
+                assert all(math.isfinite(v) for v in means.values()), means
+                print(f"evaluate {ablation} views={views}: means over "
+                      f"{EVAL_MESHES} meshes {json.dumps(means)}; the JAX "
+                      f"package's 20-mesh means (context, not a bound; "
+                      f"{JAX_EVAL_SOURCE}): "
+                      f"{json.dumps(JAX_EVAL_MEANS[ablation])}")
+        print(f"evaluate: data set {gen_s:.3f} s")
+        self.report["_evaluate"] = dict(
+            meshes=EVAL_MESHES, dataset_s=gen_s, files=per_file,
+            results={a: {v: {k: s["mean"] for k, s in st.items()}
+                         for v, st in r.items()} for a, r in results.items()})
+
     def time(self):
         import torch
 
@@ -2351,7 +2623,7 @@ def kernels_line(report) -> str:
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
                     "active_tiles", "all_miss", "flat", "zero_cotangents",
-                    "hot", "empty", "all_skip", "batch"):
+                    "hot", "empty", "all_skip", "batch", "mesh"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -2396,7 +2668,7 @@ def main(argv=None) -> int:
 
     smoke = Smoke()
     if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "bf16",
-                      "multiview", "batch"}:
+                      "multiview", "batch", "mesh", "evaluate"}:
         phases = ["check"] + [p for p in phases if p != "check"]
     for phase in PHASES[1:]:
         if phase in phases:
@@ -2411,6 +2683,8 @@ def main(argv=None) -> int:
         "bf16": smoke.report.get("_bf16"),
         "multiview": smoke.report.get("_multiview"),
         "batch": smoke.report.get("_batch"),
+        "mesh": smoke.report.get("_mesh"),
+        "evaluate": smoke.report.get("_evaluate"),
         "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
                     if k.startswith("_profile_")},
         "card": card}))

@@ -42,14 +42,24 @@ them (the kernels take the hypothesis as a launch dimension): full frame,
 multires + ROI, adaptive chunks and temporal, each hypothesis on the
 trajectory of its own ``_refine``.
 
-Not ported, and raising ``NotImplementedError``: ``generate_mesh`` and
-``generate_depth``; ``__call__`` has no ``log_path``, ``animation_path`` or
-``visualize`` outputs (they need the evaluation modules).
+:meth:`SDFPipeline.generate_depth` renders an estimate with the pipeline's
+camera (one march launch on the card) and :meth:`SDFPipeline.generate_mesh`
+extracts its mesh (the decoder on the device, marching tetrahedra on the
+host).  ``__call__``'s flight recorder (``log_path``) pickles the
+per-iteration log as numpy, in the JAX package's keys and shapes, so a log
+of either package plays back in the other's ``play_log``;
+``animation_path`` exports its animation through
+:mod:`sdfest_torch.scripts.play_log` and ``visualize`` saves a figure of
+the optimization.  Plots and movies need matplotlib (and ffmpeg for an
+mp4), which the card's machine lacks: there they run on the CPU side only.
 """
 from __future__ import annotations
 
+import pickle
+import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sdfest_torch.models.pose_net import create_pose_net
@@ -61,6 +71,7 @@ from sdfest_torch.pipeline import losses
 from sdfest_torch.render.api import (
     crop,
     ray_set,
+    render_depth,
     render_depth_with_pc_values,
 )
 from sdfest_torch.render.warm import (
@@ -264,6 +275,20 @@ class SDFPipeline:
     def _decode(self, latent: torch.Tensor) -> torch.Tensor:
         """Latents ``(B, L)`` -> SDFs ``(B, 1, D, D, D)``, one batch."""
         return self.decoder(latent)
+
+    def render(self, sdf, position, orientation, inv_scale) -> torch.Tensor:
+        """Render a depth image ``(H, W)`` with the pipeline's camera and
+        march options (differentiable; ``pipeline.py:147-170``): one launch
+        of the march on the card."""
+        return render_depth(
+            sdf, position, orientation, inv_scale, camera=self.camera,
+            threshold=self.config["threshold"],
+            relaxation=self.config.get("relaxation", 1.0),
+            culling=self.config.get("coarse_culling", True),
+            bf16=self.config.get("bf16_march", False),
+            adaptive=self.config.get("adaptive_relaxation", True),
+            device=self.device,
+        )
 
     def _preprocess_depth(self, depth: torch.Tensor, mask: torch.Tensor
                           ) -> torch.Tensor:
@@ -851,11 +876,21 @@ class SDFPipeline:
                 one view ``(H, W)``; masked and far-field-cut internally.
             masks: Binary object masks of the same shape.
             color_images: Unused, as in the reference (visualization only).
-            visualize / log_path / animation_path / animation_mode: The
-                reference's plots, flight recorder and animation.  Not
-                ported yet (ROADMAP section 1, item 4): ``visualize=True``,
-                a ``log_path`` or an ``animation_path`` raises
-                ``NotImplementedError`` before any device work.
+            visualize: Save a figure of the optimization (input and
+                estimated depth, their error, the loss and inlier-ratio
+                trajectories) to the config's ``visualization_path``, or
+                ``visualization_<time>.png``; needs matplotlib.
+            log_path: Pickle the flight recorder's log here: ``{"config",
+                "log"}``, the log holding each iteration's losses, inlier
+                ratio, state and ``active`` flag, ``timestamp`` (seconds of
+                the call), ``depth_input`` (the preprocessed views) and,
+                when coarse levels ran, ``multires_boundary`` /
+                ``multires_boundaries`` (the iterations at each level's
+                end); numpy only.
+            animation_path / animation_mode: Export an animation of the
+                optimization (``play_log.export_animation``, mode "depth",
+                "error" or "mesh"); needs matplotlib, and ffmpeg for an
+                mp4 (else the frames go to an ``.npz``).
             camera_positions / camera_orientations: The cameras' world poses
                 ``(V, 3)``/``(V, 4)`` (``(3,)``/``(4,)`` with one view);
                 identity when None.
@@ -880,13 +915,7 @@ class SDFPipeline:
         previous call's plan and runs no probe, so it cannot raise
         :class:`NoDepthError` up front (``pipeline.py:1208-1216``).
         """
-        unported = [name for name, given in (
-            ("visualize", visualize), ("log_path", log_path is not None),
-            ("animation_path", animation_path is not None)) if given]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: not ported yet (the evaluation "
-                "modules, ROADMAP section 1, item 4)")
+        start_time = time.time()
         dev = self.device
         depth = torch.as_tensor(depth_images, dtype=torch.float32, device=dev)
         mask = torch.as_tensor(masks, device=dev)
@@ -949,10 +978,80 @@ class SDFPipeline:
         )
         logs.append(log)
         self.last_log = {k: torch.cat([lg[k] for lg in logs]) for k in log}
+        if log_path is not None or animation_path is not None:
+            data = self._flight_record(depth, levels, start_time)
+            if log_path is not None:
+                with open(log_path, "wb") as f:
+                    pickle.dump(data, f)
+            if animation_path is not None:
+                from sdfest_torch.scripts.play_log import export_animation
+
+                export_animation(data, animation_path, mode=animation_mode,
+                                 pipeline=self)
         chosen = state if self.result_selection_strategy == "last_iteration" \
             else best
+        if visualize:
+            # the estimate the caller receives (under best_inlier_ratio that
+            # may differ from the final state)
+            self._visualize_optimization(chosen, depth, self.last_log)
         return (chosen["position"], chosen["orientation"], chosen["scale"],
                 chosen["latent"])
+
+    def _flight_record(self, depth: torch.Tensor, levels,
+                       start_time: float) -> dict:
+        """The flight recorder's ``{"config", "log"}`` of the last call
+        (``pipeline.py:1355-1370``), numpy only: the tensors of
+        :attr:`last_log` move to the host once, after the loop."""
+        log = {k: v.cpu().numpy() for k, v in self.last_log.items()}
+        log["timestamp"] = time.time() - start_time
+        # the preprocessed inputs travel with the log, so playback can draw
+        # error images without the data set
+        log["depth_input"] = depth.cpu().numpy()
+        boundaries = np.cumsum([n for _, n, _ in levels]).tolist()
+        if boundaries:
+            # iterations before this index ran on strided coarse
+            # observations (their losses reduce over fewer pixels)
+            log["multires_boundary"] = boundaries[-1]
+            log["multires_boundaries"] = boundaries
+        return {"config": _plain_config(self.config), "log": log}
+
+    def _visualize_optimization(self, state: Dict[str, torch.Tensor],
+                                depth_images: torch.Tensor, log) -> None:
+        """Save a figure of the optimization (``pipeline.py:1400-1446``):
+        input depth, the estimate's depth, their error on the overlap, and
+        the loss and inlier-ratio trajectories.  Written to the config's
+        ``visualization_path``, or ``visualization_<time>.png`` in the
+        working directory; needs matplotlib."""
+        from sdfest_torch.ops.sdf_vis import agg_pyplot
+
+        plt = agg_pyplot()
+        with torch.no_grad():
+            est = self.generate_depth(
+                state["position"][0], state["orientation"][0],
+                state["scale"][0], state["latent"]).cpu().numpy()
+        inp = depth_images[-1].cpu().numpy()
+        fig, axes = plt.subplots(2, 2, figsize=(10, 8))
+        im0 = axes[0, 0].imshow(inp)
+        axes[0, 0].set_title("input depth")
+        fig.colorbar(im0, ax=axes[0, 0])
+        im1 = axes[0, 1].imshow(est)
+        axes[0, 1].set_title("estimated depth")
+        fig.colorbar(im1, ax=axes[0, 1])
+        both = (inp > 0) & (est > 0)
+        im2 = axes[1, 0].imshow(np.where(both, np.abs(inp - est), np.nan))
+        axes[1, 0].set_title("abs depth error (overlap)")
+        fig.colorbar(im2, ax=axes[1, 0])
+        axes[1, 1].plot(log["loss"].cpu().numpy(), label="loss")
+        axes[1, 1].plot(log["inlier_ratio"].cpu().numpy(),
+                        label="inlier ratio")
+        axes[1, 1].set_xlabel("iteration")
+        axes[1, 1].legend()
+        axes[1, 1].set_yscale("log")
+        fig.tight_layout()
+        path = self.config.get(
+            "visualization_path", f"visualization_{int(time.time())}.png")
+        fig.savefig(path)
+        plt.close(fig)
 
     # ------------------------------------------------------------------
     # hypothesis batches
@@ -1129,8 +1228,59 @@ class SDFPipeline:
             return None
         return depth_c, points_c, point_masks_c, roi_c
 
-    def generate_mesh(self, *args, **kwargs):
-        raise NotImplementedError("generate_mesh is not ported yet")
+    def generate_depth(self, position, orientation, scale, latent
+                       ) -> torch.Tensor:
+        """Depth image ``(H, W)`` of an estimate (``pipeline.py:1664-1673``):
+        ``position (3,)``, ``orientation (4,)`` and ``scale`` (one value) in
+        the camera frame, ``latent (1, L)``; the decoder, then one march
+        launch (:meth:`render`)."""
+        latent = torch.as_tensor(latent, dtype=torch.float32,
+                                 device=self.device)
+        scale = torch.as_tensor(scale, dtype=torch.float32,
+                                device=self.device)
+        sdf = self._decode(latent.reshape(1, -1))[0, 0]
+        return self.render(sdf, position, orientation,
+                           1.0 / scale.reshape(()))
 
-    def generate_depth(self, *args, **kwargs):
-        raise NotImplementedError("generate_depth is not ported yet")
+    def generate_mesh(self, latent, scale, complete_mesh: bool = False):
+        """The estimate's mesh at its scale (``pipeline.py:1675-1703``):
+        the decoder on the device, then on the host marching tetrahedra at
+        ``iso_threshold`` (of the grid padded with 1 when
+        ``complete_mesh``), centred on the grid.  Returns a
+        :class:`sdfest_torch.pipeline.synthetic.Mesh`, or None when the
+        level lies outside the grid's values."""
+        from sdfest_torch.ops import marching_cubes as mc
+        from sdfest_torch.pipeline.synthetic import Mesh
+
+        with torch.no_grad():
+            latent = torch.as_tensor(latent, dtype=torch.float32,
+                                     device=self.device).reshape(1, -1)
+            sdf = self._decode(latent)[0, 0].cpu().numpy()
+        inc = 0
+        if complete_mesh:
+            inc = 2
+            sdf = np.pad(sdf, 1, constant_values=1.0)
+        s = 2.0 / (self.resolution - 1)
+        vertices, faces = mc.marching_cubes(
+            sdf, level=self.config["iso_threshold"], spacing=(s, s, s))
+        if vertices is None or len(vertices) == 0:
+            return None
+        c = s * (self.resolution + inc - 1) / 2.0
+        vertices = vertices - np.array([[c, c, c]])
+        return Mesh(vertices=vertices, faces=faces,
+                    scale=float(torch.as_tensor(scale).reshape(-1)[0]),
+                    rel_scale=True)
+
+
+def _plain_config(config: dict) -> dict:
+    """A copy of a config with its tensors as numpy arrays, for the flight
+    recorder's pickle (``pipeline.py:1706-1716``)."""
+    out = {}
+    for k, v in config.items():
+        if isinstance(v, dict):
+            out[k] = _plain_config(v)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu().numpy()
+        else:
+            out[k] = v
+    return out
