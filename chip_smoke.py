@@ -11,6 +11,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check,bf16,multiview   # slice 4
     python3 chip_smoke.py --phases build,check,batch   # refine_batch
     python3 chip_smoke.py --phases build,check,mesh,evaluate   # slice 8
+    python3 chip_smoke.py --phases build,check,train   # slice 9: training
 
 Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
@@ -86,6 +87,29 @@ Phases:
             kernel; production marches 20 / 20 / 10 at strides 4 / 2 / 1),
             the loss falling; the means beside the JAX package's 20-mesh
             means (context, not a bound)
+  train     16 procedural mugs (seed 0, 64^3); the VAE trainer of preset
+            vae_mug_procedural (batch 8, pc loss at 640x480): at step 0 from
+            the committed mug VAE, the pc march bit for bit its plain
+            version, the pc values (1e-4) and the pc loss's grid gradient
+            (1e-5 of its largest value) against the plain versions on the same
+            rows, the loss terms against the CPU port on the same inputs,
+            eps, quaternions and depth (rtol 1e-5, loss_pc 1e-4); then 20
+            steps from a seeded fresh initialisation (each one march, one
+            sample-grad and one scatter launch; losses finite, the last 5
+            below the first 5; ms/step the median of steps 5-20) and one
+            step past the KLD warm-up.  The init trainer of preset
+            init_mug_procedural_v3 on views of the committed mug VAE: the
+            full 131,072-sample bf16 ring on the card, the first generation
+            batch's march (B = 16, 320x240) bit for bit its plain version
+            and its labels against the CPU port's from the same draws and
+            depth, 20 replay units from a fresh initialisation (one march
+            each, 10 optimizer steps at batch 64; losses finite, the
+            orientation CE of the last 5 units below the first 5) and 2
+            from the committed init_v3 weights and batch_stats; ms per
+            unit, views/s, steps/s; torch.profiler over one VAE step and
+            one replay unit.  Then the fresh VAE saved as flax msgpack +
+            YAML, loaded by SDFPipeline: its decoder equal to the trained
+            one on 4 latents within 1e-6, generate_depth finite
   time      each kernel and its plain twin over 30 distinct inputs (CUDA
             events), with the least time the card could take (bound); the
             march also at the three ROI shapes of the fast plan, plain,
@@ -94,7 +118,9 @@ Phases:
             16x16 tiles per render, the flat launch, all-miss poses of the
             default and bf16 marches; the scatter with zero cotangents; the
             sampler on hot inputs, an empty kernel at its launch geometry
-            and F.grid_sample (library yardstick); the
+            and F.grid_sample (library yardstick); sample-grad's and the
+            scatter's library yardsticks (aten.grid_sampler_3d_backward:
+            the point gradient, the grid gradient); the
             warm march's active tiles and an all-skip frame.  Runs without
             the check phase too (as on a parent tree, to time it in turns);
             each kernel family at B = 8 hypotheses on distinct inputs
@@ -119,7 +145,8 @@ import sys
 import time
 
 PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
-          "bf16", "multiview", "batch", "mesh", "evaluate", "time", "profile")
+          "bf16", "multiview", "batch", "mesh", "evaluate", "train", "time",
+          "profile")
 HYPOTHESES = 8  # refine_batch's batch (bench.py's --hypotheses default)
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
@@ -1955,6 +1982,348 @@ class Smoke:
             results={a: {v: {k: s["mean"] for k, s in st.items()}
                          for v, st in r.items()} for a, r in results.items()})
 
+    def train(self):
+        """The training path on the card: the VAE trainer (step-0 parity,
+        20 steps, the warm branch), the init trainer (the bf16 ring, the
+        first generation batch's parity, 20 replay units from a fresh
+        start, 2 from the committed weights) and the loop closing through
+        SDFPipeline (see the module docstring)."""
+        import os
+        import tempfile
+
+        import torch
+
+        from sdfest_torch.datasets.generated import SDFVAEViewDataset
+        from sdfest_torch.datasets.sdf_dataset import SDFDataset
+        from sdfest_torch.pipeline.pipeline import SDFPipeline
+        from sdfest_torch.scripts import make_procedural_dataset, train_init
+        from sdfest_torch.scripts.train_vae import make_trainer
+        from sdfest_torch.utils import checkpoint
+        from sdfest_torch.utils.presets import preset
+
+        out = self.report["_train"] = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            make_procedural_dataset.generate(os.path.join(tmp, "mugs"),
+                                             TRAIN_MUGS, res=64, seed=0)
+            data = SDFDataset(os.path.join(tmp, "mugs"))
+            print(f"train data: {len(data)} procedural mugs at 64^3, "
+                  f"{time.perf_counter() - t0:.1f} s")
+            batches = data.batches(8, shuffle=True, seed=0)
+            cfg = preset("vae_mug_procedural")
+            self.train_vae_step0(cfg, torch.from_numpy(next(batches)))
+            out["vae"], vae = self.train_vae_steps(cfg, batches,
+                                                   make_trainer)
+            out["init"] = self.train_init(train_init, SDFVAEViewDataset)
+            # the loop closes: the fresh VAE as flax msgpack + YAML, loaded
+            # by the port's pipeline from that file
+            model, config_path = checkpoint.save_model_and_config(
+                os.path.join(tmp, "model"), "chip_vae", vae.vae, cfg)
+            pipe_cfg = preset("mug_procedural")
+            pipe_cfg["vae"]["model"] = model
+            pipe = SDFPipeline(pipe_cfg, device=self.dev)
+            # the pipeline's decoder is the trained one: both on the same
+            # latents, within 1e-6
+            latents = torch.randn(4, 8, generator=torch.Generator()
+                                  .manual_seed(9)).to(self.dev)
+            with torch.no_grad():
+                decoded = pipe._decode(latents)
+                trained = vae.vae.decode(latents)
+            decoder_err = float((decoded - trained).abs().max())
+            pos, half, q = GT_POSES[0]
+            depth = pipe.generate_depth(
+                torch.tensor(pos, device=self.dev), unit_quat(q, self.dev),
+                half, self.latent)
+            finite = bool(torch.isfinite(depth).all())
+            print(f"train loop closed: {os.path.basename(model)} "
+                  f"({os.path.getsize(model)} bytes) and "
+                  f"{os.path.basename(config_path)}, loaded by SDFPipeline; "
+                  f"its decoder against the trainer's on 4 latents max|d| "
+                  f"{decoder_err:.3e} (tol 1e-6, |sdf| up to "
+                  f"{float(trained.abs().max()):.3f}); generate_depth "
+                  f"{tuple(depth.shape)} finite {finite}, hits "
+                  f"{int((depth > 0).sum())}")
+            assert decoder_err <= 1e-6, "the loaded decoder is not the trained"
+            assert finite, "generate_depth of the trained VAE is not finite"
+            out["loop_closed"] = dict(model_bytes=os.path.getsize(model),
+                                      decoder_err=decoder_err,
+                                      depth_finite=finite)
+
+    def train_vae_step0(self, cfg, batch):
+        """Step 0 from the committed mug VAE: the card's march, pc values,
+        pc grid gradient and loss terms against their plain versions on the
+        same inputs, eps and quaternions."""
+        import torch
+
+        from sdfest_torch.models.vae import fp32_convolutions
+        from sdfest_torch.ops import pointset, quaternion
+        from sdfest_torch.ops.interpolation import _base_and_frac
+        from sdfest_torch.render import api, kernels, plain
+        from sdfest_torch.training.vae_trainer import (
+            PC_DISTANCE,
+            PC_THRESHOLD,
+            VAETrainer,
+        )
+        from sdfest_torch.utils import msgpack_reader, weights
+
+        tree = msgpack_reader.load(VAE_WEIGHTS)
+        card = VAETrainer(cfg, device=self.dev)
+        weights.load_flax_into(card.vae, tree)
+        g = torch.Generator().manual_seed(5)
+        eps = torch.randn(8, 8, generator=g)
+        quats = quaternion.random_uniform((8,), g)
+        x = batch.to(self.dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with fp32_convolutions():
+            loss, terms = card.loss(x, 0, eps=eps.to(self.dev),
+                                    quats=quats.to(self.dev))
+            loss.backward()
+        torch.cuda.synchronize()
+        step0_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launches()
+        want = dict.fromkeys(counts, 0)
+        want.update(march=1, sample_grad=1, scatter=1)
+        assert counts == want, f"VAE step launches {counts}"
+        assert kernels.hypotheses()["scatter"] == 8
+        # the plain versions on the same inputs (these launches are not the
+        # main path's)
+        q = quats.to(self.dev)
+        depth = card.pc_depth(x, q)
+        pose = kernels.pose_params(
+            x.new_tensor([0.0, 0.0, -PC_DISTANCE]).expand(8, 3), q,
+            x.new_ones(8))
+        rays = api.ray_set(card.camera, self.dev).march
+        twin = plain.march_plain(x[:, 0].contiguous(), rays.reshape(-1, 3),
+                                 pose, PC_THRESHOLD, 500, True, True)
+        march_equal = torch.equal(depth.reshape(8, -1), twin)
+        with torch.no_grad():
+            recon = card.vae(x, eps=eps.to(self.dev))[0][:, 0].contiguous()
+        points, valid = pointset.depth_to_pointcloud_dense(depth, card.camera)
+        qi = quaternion.invert(quaternion.normalize(q))[:, None, :]
+        obj = quaternion.apply(qi, points - points.new_tensor(
+            [0.0, 0.0, -PC_DISTANCE])).contiguous()
+        _, _, inside = _base_and_frac(obj, 64)
+        mask = (inside & valid).float().contiguous()
+        value, _ = kernels.sample_grad(recon, obj, mask)
+        value_plain, _ = kernels.sample_grad_plain(recon, obj, mask)
+        err_value = float((value - value_plain).abs().max())
+        cot = (2 * value_plain * mask).contiguous()
+        grid = kernels.scatter(obj, cot, 64)
+        grid_plain = kernels.scatter_plain(obj, cot, 64)
+        err_grid = float((grid - grid_plain).abs().max())
+        grid_max = float(grid_plain.abs().max())
+        tol_grid = 1e-5 * grid_max
+        rows = int(mask.sum())
+        # the loss terms against the CPU port on the same inputs, eps,
+        # quaternions and depth
+        cpu = VAETrainer(cfg, device="cpu")
+        weights.load_flax_into(cpu.vae, tree)
+        with torch.no_grad():
+            _, cpu_terms = cpu.loss(batch, 0, eps=eps, quats=quats,
+                                    pc_depth=depth.cpu())
+        rel = {k: abs(float(terms[k].detach()) - float(v))
+               / max(abs(float(v)), 1e-30) for k, v in cpu_terms.items()}
+        print(f"train vae step 0 (committed mug VAE, batch 8, pc "
+              f"{card.camera.width}x{card.camera.height}): "
+              f"{step0_ms:.1f} ms, launches {counts}; pc march bit for bit "
+              f"its plain version {march_equal} ({int((depth > 0).sum())} "
+              f"hits); pc values max|d| {err_value:.3e} (tol 1e-4) on "
+              f"{rows} rows; pc grid gradient max|d| {err_grid:.3e} (tol "
+              f"{tol_grid:.3e} = 1e-5 of max|want| {grid_max:.3e}); "
+              f"loss terms rel. to the CPU port "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        assert march_equal, "the pc march differs from its plain version"
+        assert err_value <= 1e-4, "pc values differ from the plain version"
+        assert err_grid <= tol_grid, "pc grid gradient differs from plain"
+        for k, v in rel.items():
+            assert v <= (1e-4 if k == "loss_pc" else 1e-5), (k, v)
+        for name, err, tol in (("march", 0.0, "bit for bit"),
+                               ("sample_grad", err_value, 1e-4),
+                               ("scatter", err_grid, tol_grid)):
+            self.report[name]["train"] = dict(
+                launches_per_vae_step=counts[name], max_abs_err=err, tol=tol,
+                rows=rows if name != "march" else 8 * rays.shape[0]
+                * rays.shape[1])
+        self.report["_train"]["vae_step0"] = dict(
+            ms=step0_ms, march_bit_for_bit=march_equal, pc_rows=rows,
+            pc_value_err=err_value, pc_grid_err=err_grid,
+            pc_grid_tol=tol_grid, pc_grid_max=grid_max, loss_terms_rel=rel)
+
+    def train_vae_steps(self, cfg, batches, make_trainer):
+        """TRAIN_VAE_STEPS steps from a seeded fresh initialisation, then
+        one past the KLD warm-up; returns the report and the trainer."""
+        import statistics
+
+        import torch
+
+        from sdfest_torch.render import kernels
+
+        trainer = make_trainer(dict(cfg, seed=0), self.dev)
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        losses, times = [], []
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want.update(march=1, sample_grad=1, scatter=1)
+        for _ in range(TRAIN_VAE_STEPS):
+            batch = torch.from_numpy(next(batches))
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = kernels.launches()
+            assert counts == want, f"VAE step launches {counts}"
+            losses.append({k: float(v) for k, v in metrics.items()})
+        total = [m["loss"] for m in losses]
+        first, last = sum(total[:5]) / 5, sum(total[-5:]) / 5
+        ms = statistics.median(times[5:])
+        trainer.iteration = trainer.WARM_UP_ITERATIONS + 1
+        warm = {k: float(v) for k, v in trainer.step(
+            torch.from_numpy(next(batches)), generator=gen).items()}
+        finite = all(math.isfinite(v) for m in losses + [warm]
+                     for v in m.values())
+        print(f"train vae {TRAIN_VAE_STEPS} steps (fresh, seed 0): "
+              f"ms/step {ms:.2f} (median of steps 6-{TRAIN_VAE_STEPS}; "
+              f"first {times[0]:.1f}), launches per step "
+              f"{ {k: v for k, v in counts.items() if v} }; loss "
+              f"{total[0]:.2f} -> "
+              f"{total[-1]:.2f}, mean first 5 {first:.2f}, last 5 "
+              f"{last:.2f}; loss_pc {losses[0]['loss_pc']:.4f} -> "
+              f"{losses[-1]['loss_pc']:.4f}; warm step (iteration "
+              f"{trainer.WARM_UP_ITERATIONS + 1}): loss_kld "
+              f"{warm['loss_kld']:.3f}, loss {warm['loss']:.2f}")
+        assert finite, "a VAE loss is not finite"
+        assert last < first, "the VAE loss did not fall"
+        self._profile_run("train-vae-step", lambda: trainer.step(
+            torch.from_numpy(next(batches)), generator=gen), 1)
+        return dict(steps=TRAIN_VAE_STEPS, ms_per_step=ms,
+                    ms_first_step=times[0], loss_first5=first,
+                    loss_last5=last, launches_per_step={
+                        k: v for k, v in counts.items() if v},
+                    warm_step=warm), trainer
+
+    def train_init(self, train_init, view_dataset):
+        """The init trainer of init_mug_procedural_v3 on the card."""
+        import statistics
+
+        import torch
+
+        from sdfest_torch.render import api, kernels, plain
+        from sdfest_torch.utils import msgpack_reader, weights
+        from sdfest_torch.utils.presets import preset
+
+        cfg = preset("init_mug_procedural_v3")
+        runner = train_init.Trainer(cfg, device=self.dev)
+        loader = runner._create_dataset(
+            "generated_dataset", cfg["datasets"]["generated_dataset"])
+        ds = runner._generated_datasets["generated_dataset"]
+        trainer = runner.trainer
+        gen_batch = cfg["batch_size"]
+        t_train, train_batch = (cfg["replay_train_steps"],
+                                cfg["replay_train_batch"])
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+        ring = trainer.init_replay_buffer(cfg["replay_buffer_size"],
+                                          ds.config["num_points"], 8)
+        torch.cuda.synchronize()
+        ring_bytes = sum(v.numel() * v.element_size()
+                         for v in ring.store.values())
+        assert ring.store["pointset"].device.type == self.dev.type and \
+            ring.store["pointset"].dtype == torch.bfloat16
+        # the first generation batch: its march and labels
+        draws = ds.draw(gen_batch, loader.generator)
+        kernels.reset_launches()
+        depth = ds.render(draws)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        assert counts["march"] == 1 and sum(counts.values()) == 1, counts
+        with torch.no_grad():
+            sdf = ds.decoder(draws["latent"])[:, 0].contiguous()
+        pose = kernels.pose_params(ds.position(draws), draws["quaternion"],
+                                   1.0 / draws["scale"])
+        rays = api.ray_set(ds.camera, self.dev).march
+        twin = plain.march_plain(sdf, rays.reshape(-1, 3), pose,
+                                 ds.config["render_threshold"], 500, True,
+                                 True)
+        march_equal = torch.equal(depth.reshape(gen_batch, -1), twin)
+        batch = ds.views_from_depth(depth, draws)
+        cpu_ds = view_dataset(ds.config, ds.decoder, device="cpu")
+        cpu = cpu_ds.views_from_depth(depth.cpu(), {k: v.cpu() for k, v in
+                                                    draws.items()})
+        same_index = torch.equal(batch["orientation"].cpu(),
+                                 cpu["orientation"])
+        d_position = float((batch["position"].cpu() - cpu["position"])
+                           .abs().max())
+        d_scale = float((batch["scale"].cpu() - cpu["scale"]).abs().max())
+        print(f"train init ring: {cfg['replay_buffer_size']} samples x "
+              f"{ds.config['num_points']} bf16 points, {ring_bytes / 1e9:.3f}"
+              f" GB on the card (free before {free0 / 1e9:.1f} GB); first "
+              f"generation batch (B = {gen_batch}, {ds.camera.width}x"
+              f"{ds.camera.height}): 1 march launch, bit for bit its plain "
+              f"version {march_equal}, hits {int((depth > 0).sum())}; labels "
+              f"against the CPU port: orientation indices equal {same_index},"
+              f" max|dposition| {d_position:.2e} (tol 1e-4 m), max|dscale| "
+              f"{d_scale:.2e} (tol 1e-6)")
+        assert march_equal, "the generation march differs from plain"
+        assert same_index and d_position <= 1e-4 and d_scale <= 1e-6
+        # replay units from a fresh initialisation
+        gen = torch.Generator(device=self.dev).manual_seed(1)
+        units, times = [], []
+        for _ in range(TRAIN_INIT_UNITS):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            metrics = trainer.replay_unit(ring, ds, gen_batch, train_batch,
+                                          t_train, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = kernels.launches()
+            assert counts["march"] == 1 and sum(counts.values()) == 1, counts
+            units.append([{k: float(v) for k, v in m.items()}
+                          for m in metrics])
+        ce = [sum(m["loss_orientation"] for m in u) / len(u) for u in units]
+        total = [m["loss"] for u in units for m in u]
+        finite = all(math.isfinite(v) for u in units for m in u
+                     for v in m.values())
+        unit_s = statistics.median(times[1:])
+        # two units from the committed init_v3 weights and batch_stats
+        committed = train_init.Trainer(preset("init_mug_procedural_v3"),
+                                       device=self.dev).trainer
+        weights.load_flax_into(committed.net,
+                               msgpack_reader.load(INIT_V3_WEIGHTS))
+        committed_units = [committed.replay_unit(ring, ds, gen_batch,
+                                                 train_batch, t_train, gen)
+                           for _ in range(2)]
+        committed_ce = [sum(float(m["loss_orientation"]) for m in u) / len(u)
+                        for u in committed_units]
+        committed_finite = all(math.isfinite(float(v)) for u in
+                               committed_units for m in u for v in m.values())
+        first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
+        print(f"train init {TRAIN_INIT_UNITS} replay units (fresh, "
+              f"{TRAIN_INIT_UNITS * t_train} steps at batch {train_batch}, "
+              f"ring filled {ring.filled}): ms/unit {unit_s * 1e3:.2f} "
+              f"(median of units 2-{TRAIN_INIT_UNITS}; first "
+              f"{times[0] * 1e3:.1f}), views/s {gen_batch / unit_s:.1f}, "
+              f"optimizer steps/s {t_train / unit_s:.1f}; orientation CE "
+              f"mean of units 1-5 {first:.3f}, of the last 5 {last:.3f}; "
+              f"loss {total[0]:.2f} -> {total[-1]:.2f}; from the committed "
+              f"init_v3: orientation CE per unit {committed_ce}")
+        assert finite and committed_finite, "an init loss is not finite"
+        assert last < first, "the orientation CE did not fall"
+        self._profile_run("train-init-unit", lambda: trainer.replay_unit(
+            ring, ds, gen_batch, train_batch, t_train, gen), t_train)
+        return dict(ring_samples=cfg["replay_buffer_size"],
+                    ring_bytes=ring_bytes, march_bit_for_bit=march_equal,
+                    labels_equal=same_index, position_err=d_position,
+                    scale_err=d_scale, units=TRAIN_INIT_UNITS,
+                    ms_per_unit=unit_s * 1e3, ms_first_unit=times[0] * 1e3,
+                    views_per_s=gen_batch / unit_s,
+                    steps_per_s=t_train / unit_s, ce_first5=first,
+                    ce_last5=last, committed_ce=committed_ce,
+                    march_launches_per_unit=counts["march"])
+
     def time(self):
         import torch
 
@@ -1988,6 +2357,7 @@ class Smoke:
         pms = cuda_ms(lambda x: k.sample_grad_plain(self.sdf, *x), inp)
         nbytes = n * 20 + mean([gather_bytes(p, m != 0, res) for p, m in inp])
         self._timed("sample_grad", ms, pms, nbytes, active * OPS_SAMPLE_GRAD)
+        sample_grad_inp = inp
         gen = torch.Generator(device="cpu").manual_seed(3)
         inp = [(p, (torch.randn(n, generator=gen).to(self.dev) * m)
                 .contiguous()) for p, m in inp]
@@ -1996,6 +2366,7 @@ class Smoke:
         # cotangents in, the active rows' points in, the whole grid out
         nbytes = n * 4 + 12 * active + res ** 3 * 4
         self._timed("scatter", ms, pms, nbytes, active * OPS_SCATTER)
+        self.time_grad_library(sample_grad_inp, inp)
         # march at distinct poses (the coarse table is built once per grid,
         # outside the timed kernel)
         dirs = plain.pixel_directions(self.camera, self.dev)
@@ -2245,6 +2616,63 @@ class Smoke:
         r["empty"] = dict(blocks=blocks, ms=ms)
         print(f"time sample empty kernel at its launch geometry, {blocks} "
               f"blocks of 256: {ms:.4f} ms")
+
+    def time_grad_library(self, sample_grad_inp, scatter_inp):
+        """The library yardsticks of sample-grad and the scatter:
+        aten.grid_sampler_3d_backward (trilinear, zero padding, corners
+        aligned: the port's normalized coordinates) on the kernels' inputs,
+        the rows outside the volume masked off (zero padding and the
+        kernels' extrapolation differ only there).  output_mask [False,
+        True] with the mask as cotangent gives sample-grad's point
+        gradient (not its value: no single call gives both); [True, False]
+        with the scatter's cotangents gives the grid gradient.  Each held
+        against the plain version within 1e-5 * max(1, max|want|) first."""
+        import torch
+
+        from sdfest_torch.ops.interpolation import _base_and_frac
+        from sdfest_torch.render import kernels as k
+
+        res = self.sdf.shape[0]
+        grid = self.sdf[None, None].contiguous()
+        backward = torch.ops.aten.grid_sampler_3d_backward
+
+        def library(rows, cot, mask):
+            # sdf[x][y][z] is grid_sample's (D, H, W); coordinates (z, y, x)
+            coords = rows[:, [2, 1, 0]].reshape(1, 1, 1, -1, 3).contiguous()
+            in_volume = _base_and_frac(rows, res)[2]
+            return coords, (cot * in_volume).reshape(1, 1, 1, 1, -1) \
+                .contiguous(), (mask * in_volume).contiguous()
+
+        # sample-grad: the point gradient, cotangent = the in-volume mask
+        inp = [library(p, m, m) for p, m in sample_grad_inp]
+        call = lambda x: backward(x[1], grid, x[0], 0, 0, True,
+                                  [False, True])[1]
+        for (p, _), x in zip(sample_grad_inp, inp):
+            want = k.sample_grad_plain(self.sdf, p, x[2])[1]
+            got = call(x).reshape(-1, 3)[:, [2, 1, 0]]
+            err = float((got - want).abs().max())
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            assert err <= tol, f"grid_sampler_3d_backward point grad: {err}"
+        ms = cuda_ms(call, inp)
+        self.report["sample_grad"]["library_ms"] = ms
+        print(f"time sample_grad library aten.grid_sampler_3d_backward "
+              f"(point gradient, in-volume rows) {ms:.4f} ms (kernel "
+              f"{self.report['sample_grad']['ms']:.4f} ms, value and "
+              f"gradient)")
+        # the scatter: the grid gradient of the kernel's cotangents
+        inp = [library(p, c, torch.ones_like(c)) for p, c in scatter_inp]
+        call = lambda x: backward(x[1], grid, x[0], 0, 0, True,
+                                  [True, False])[0]
+        for (p, _), x in zip(scatter_inp, inp):
+            want = k.scatter_plain(p, x[1].reshape(-1), res)
+            err = float((call(x).reshape(want.shape) - want).abs().max())
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            assert err <= tol, f"grid_sampler_3d_backward grid grad: {err}"
+        ms = cuda_ms(call, inp)
+        self.report["scatter"]["library_ms"] = ms
+        print(f"time scatter library aten.grid_sampler_3d_backward (grid "
+              f"gradient, in-volume rows) {ms:.4f} ms (kernel "
+              f"{self.report['scatter']['ms']:.4f} ms)")
 
     def time_scatter_zeros(self, sets):
         """The scatter with all-zero cotangents (the floor of launch, read
@@ -2586,6 +3014,13 @@ def expect_launches(counts, n):
     assert counts == want, f"launches {counts}, expected {want}"
 
 
+# the train phase: its data set, steps and units
+TRAIN_MUGS, TRAIN_VAE_STEPS, TRAIN_INIT_UNITS = 16, 20, 20
+VAE_WEIGHTS = "trained_models/mug_procedural/mug_procedural.msgpack"
+INIT_V3_WEIGHTS = ("trained_models/init_mug_procedural_v3/"
+                   "init_mug_procedural_v3.msgpack")
+
+
 # (stride, ROI) of the fast plan on the GT_POSES observations at 640x480
 ROI_SHAPES = [(4, (64, 80)), (2, (128, 160)), (1, (240, 320))]
 
@@ -2623,7 +3058,7 @@ def kernels_line(report) -> str:
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
                     "active_tiles", "all_miss", "flat", "zero_cotangents",
-                    "hot", "empty", "all_skip", "batch", "mesh"):
+                    "hot", "empty", "all_skip", "batch", "mesh", "train"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -2668,7 +3103,7 @@ def main(argv=None) -> int:
 
     smoke = Smoke()
     if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "bf16",
-                      "multiview", "batch", "mesh", "evaluate"}:
+                      "multiview", "batch", "mesh", "evaluate", "train"}:
         phases = ["check"] + [p for p in phases if p != "check"]
     for phase in PHASES[1:]:
         if phase in phases:
@@ -2688,6 +3123,7 @@ def main(argv=None) -> int:
         "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
                     if k.startswith("_profile_")},
         "card": card}))
+    print(json.dumps({"train": smoke.report.get("_train"), "card": card}))
     print(kernels_line(smoke.report))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sdfest_torch.models.pointnet import VanillaPointNet
+from sdfest_torch.models.pointnet import (
+    BatchNorm,
+    GeneralizedIterativePointNet,
+    IterativePointNet,
+    VanillaPointNet,
+)
 from sdfest_torch.ops.so3grid import SO3Grid
 
 
@@ -34,9 +39,7 @@ class SDFPoseHead(nn.Module):
         for i, out_size in enumerate(mlp_out_sizes):
             self.add_module(f"linear_{i}", nn.Linear(in_features, out_size))
             if batchnorm:
-                self.add_module(
-                    f"bn_{i}", nn.BatchNorm1d(out_size, eps=1e-5, momentum=0.1)
-                )
+                self.add_module(f"bn_{i}", BatchNorm(out_size))
             in_features = out_size
         if orientation_repr == "quaternion":
             n_orientation = 4
@@ -79,12 +82,17 @@ class SDFPoseNet(nn.Module):
         return self.head(self.backbone(x))
 
 
+BACKBONE_TYPES = {
+    "VanillaPointNet": VanillaPointNet,
+    "IterativePointNet": IterativePointNet,
+    "GeneralizedIterativePointNet": GeneralizedIterativePointNet,
+}
+
+
 def create_pose_net(init_config: Dict[str, Any], shape_dimension: int
                     ) -> SDFPoseNet:
     """Build an :class:`SDFPoseNet` from a reference-format init config."""
-    backbone_type = init_config["backbone_type"]
-    if backbone_type != "VanillaPointNet":
-        raise NotImplementedError(f"{backbone_type} is not ported yet")
-    backbone = VanillaPointNet(**init_config["backbone"])
+    backbone = BACKBONE_TYPES[init_config["backbone_type"]](
+        **init_config["backbone"])
     head = SDFPoseHead(shape_dimension=shape_dimension, **init_config["head"])
     return SDFPoseNet(backbone, head)

@@ -1,18 +1,22 @@
-"""SDF VAE decoder (counterpart of ``SDFDecoder`` in
-``sdfest_tpu/models/vae.py``).
+"""SDF VAE (counterpart of ``sdfest_tpu/models/vae.py``).
 
-FC stack -> reshape to ``(N, C, D, D, D)`` -> before each Conv3d a trilinear
-resize to the layer's ``in_size`` when needed -> VALID (unpadded) Conv3d ->
-ReLU where configured.  The convolutions run in full fp32 on any device
-(:func:`fp32_convolutions`).  Submodule names follow flax (``fc_i``, ``conv_i``)
-so :func:`sdfest_torch.utils.weights.flax_to_torch` maps the committed
-weights directly.  The encoder is not ported yet.
+Decoder: FC stack -> reshape to ``(N, C, D, D, D)`` -> before each Conv3d a
+trilinear resize to the layer's ``in_size`` when needed -> VALID (unpadded)
+Conv3d -> ReLU where configured.  Encoder: the config's ``layer_infos``
+(Conv3d, ReLU, Flatten, MaxPool3d, Linear) on ``(N, 1, D, D, D)``, then the
+``linear_means`` / ``linear_log_var`` heads.  The convolutions run in full
+fp32 on any device (:func:`fp32_convolutions`; a training step runs its
+backward under it too).  Submodule names follow flax (``encoder.features_i``,
+``decoder.fc_i``, ``decoder.conv_i``), so
+:func:`sdfest_torch.utils.weights.flax_to_torch` maps the committed weights
+directly.  Randomness is an explicit ``eps`` or ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sdfest_torch.ops.interpolation import resize_trilinear
@@ -59,6 +63,7 @@ class SDFDecoder(nn.Module):
         if conv_layers[-1]["out_channels"] != 1:
             raise ValueError("the last conv layer must output one channel")
         self.volume_size = volume_size
+        self.latent_size = latent_size
         self.conv_layers = [dict(c) for c in conv_layers]
         self.tsdf = tsdf
         in_features = latent_size
@@ -94,15 +99,193 @@ class SDFDecoder(nn.Module):
         return out
 
 
+def _to_tuple3(v) -> Tuple[int, int, int]:
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v, v)
+
+
+def _same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax's ``"SAME"`` padding of one axis: output ``ceil(size /
+    stride)``, the odd pad element at the end."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SDFEncoder(nn.Module):
+    """SDF ``(N, 1, D, D, D)`` -> ``(means, log_var)``, each ``(N, L)``.
+
+    Layers ``{"type": ..., "args": ...}`` as in ``sdfest_tpu``: Conv3d
+    (``padding`` an int, a triple or flax's ``"SAME"`` / ``"VALID"``), ReLU,
+    Flatten, MaxPool3d (VALID windows), Linear.  The layout is NCDHW
+    throughout, so Flatten is PyTorch's own: flax moves the channels first
+    before it flattens, and the dense weights need no permutation.
+    """
+
+    def __init__(self, volume_size: int, latent_size: int,
+                 layer_infos: Sequence[Dict[str, Any]]):
+        super().__init__()
+        self.layers = []  # (kind, module name or args)
+        channels, size = 1, volume_size
+        features = None
+        for i, info in enumerate(layer_infos):
+            kind = info["type"].split(".")[-1].lower()
+            args = info.get("args", {})
+            if kind == "conv3d":
+                k = _to_tuple3(args.get("kernel_size", 3))
+                s = _to_tuple3(args.get("stride", 1))
+                pad = args.get("padding", 0)
+                if isinstance(pad, str):
+                    if pad.upper() == "SAME":
+                        pads = [_same_padding(size, k[a], s[a])
+                                for a in range(3)]
+                    elif pad.upper() == "VALID":
+                        pads = [(0, 0)] * 3
+                    else:
+                        raise ValueError(f"unsupported padding {pad}")
+                else:
+                    pads = [(p, p) for p in _to_tuple3(pad)]
+                self.add_module(f"features_{i}", nn.Conv3d(
+                    channels, args["out_channels"], k, stride=s))
+                # F.pad takes the last axis first
+                self.layers.append(("conv", f"features_{i}", tuple(
+                    p for lo_hi in reversed(pads) for p in lo_hi)))
+                channels = args["out_channels"]
+                size = (size + sum(pads[0]) - k[0]) // s[0] + 1
+            elif kind == "relu":
+                self.layers.append(("relu",))
+            elif kind == "flatten":
+                self.layers.append(("flatten",))
+                features = channels * size ** 3
+            elif kind == "maxpool3d":
+                k = _to_tuple3(args.get("kernel_size", 2))
+                s = _to_tuple3(args.get("stride", args.get("kernel_size", 2)))
+                self.layers.append(("maxpool", k, s))
+                size = (size - k[0]) // s[0] + 1
+            elif kind == "linear":
+                self.add_module(f"features_{i}", nn.Linear(
+                    features, args["out_features"]))
+                self.layers.append(("linear", f"features_{i}"))
+                features = args["out_features"]
+            else:
+                raise ValueError(
+                    f"Unsupported encoder layer type {info['type']}")
+        if features is None:
+            raise ValueError("the encoder's layers must flatten")
+        self.linear_means = nn.Linear(features, latent_size)
+        self.linear_log_var = nn.Linear(features, latent_size)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        out = x
+        with fp32_convolutions():
+            for layer in self.layers:
+                kind = layer[0]
+                if kind == "conv":
+                    if any(layer[2]):
+                        out = F.pad(out, layer[2])
+                    out = getattr(self, layer[1])(out)
+                elif kind == "relu":
+                    out = torch.relu(out)
+                elif kind == "flatten":
+                    out = out.reshape(out.shape[0], -1)
+                elif kind == "maxpool":
+                    out = F.max_pool3d(out, layer[1], layer[2])
+                else:
+                    out = getattr(self, layer[1])(out)
+        return self.linear_means(out), self.linear_log_var(out)
+
+
+class SDFVAE(nn.Module):
+    """VAE over ``(N, 1, D, D, D)`` SDF grids: ``forward`` returns
+    ``(recon, means, log_var, z)`` as the JAX package's ``__call__``."""
+
+    def __init__(self, sdf_size: int, latent_size: int,
+                 encoder: Dict[str, Any], decoder: Dict[str, Any],
+                 tsdf: Union[bool, float] = False):
+        super().__init__()
+        self.sdf_size = sdf_size
+        self.latent_size = latent_size
+        self.tsdf = tsdf
+        self.encoder = SDFEncoder(sdf_size, latent_size,
+                                  encoder["layer_infos"])
+        self.decoder = SDFDecoder(sdf_size, latent_size,
+                                  decoder["fc_layers"],
+                                  decoder["conv_layers"], tsdf)
+
+    def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                enforce_tsdf: bool = False):
+        z, means, log_var = self.encode(x, eps, generator)
+        return self.decoder(z, enforce_tsdf), means, log_var, z
+
+    def encode(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
+        """Reparameterized ``(z, means, log_var)``; ``eps`` (``(N, L)``)
+        or standard normals from ``generator``."""
+        means, log_var = self.encoder(x)
+        std = torch.exp(0.5 * log_var)
+        if eps is None:
+            eps = torch.randn(means.shape, generator=generator,
+                              device=means.device)
+        return eps * std + means, means, log_var
+
+    def encode_mean(self, x: torch.Tensor):
+        """Deterministic encoding ``(means, log_var)``."""
+        return self.encoder(x)
+
+    def decode(self, z: torch.Tensor, enforce_tsdf: bool = False
+               ) -> torch.Tensor:
+        """Latents ``(N, L)`` -> SDFs ``(N, 1, D, D, D)``."""
+        return self.decoder(z, enforce_tsdf)
+
+    def sample(self, n: int = 1, generator: Optional[torch.Generator] = None
+               ) -> torch.Tensor:
+        device = next(self.parameters()).device
+        return torch.randn(n, self.latent_size, generator=generator,
+                           device=device)
+
+    def inference(self, n: int = 1,
+                  generator: Optional[torch.Generator] = None,
+                  enforce_tsdf: bool = False):
+        """``(decoded prior samples, their latents)``."""
+        z = self.sample(n, generator)
+        return self.decoder(z, enforce_tsdf), z
+
+    def prepare_input(self, sdfs: torch.Tensor) -> torch.Tensor:
+        """Truncate SDF inputs to the configured TSDF band."""
+        if self.tsdf is False:
+            return sdfs
+        return torch.clamp(sdfs, -self.tsdf, self.tsdf)
+
+
+def str_to_tsdf(x) -> Union[bool, float]:
+    """A config's ``tsdf`` value: False, or the truncation distance as a
+    float; falsy strings (``"false"``, ``"no"``, ``"0"``, ...) are False
+    (``sdfest_tpu/utils/misc.py:39``)."""
+    if isinstance(x, bool):
+        return False if not x else float(x)
+    if isinstance(x, (int, float)):
+        return float(x)
+    if str(x).lower() in ("no", "false", "f", "n", "0"):
+        return False
+    return float(x)
+
+
+def create_vae_from_config(config: Dict[str, Any]) -> SDFVAE:
+    """Build an :class:`SDFVAE` from a reference-format VAE config dict."""
+    return SDFVAE(
+        sdf_size=config.get("sdf_size", 64),
+        latent_size=config["latent_size"],
+        encoder=config["encoder"],
+        decoder=config["decoder"],
+        tsdf=str_to_tsdf(config.get("tsdf", False)),
+    )
+
+
 def create_decoder_from_config(config: Dict[str, Any]) -> SDFDecoder:
     """Build the decoder of a reference-format VAE config dict."""
-    tsdf = config.get("tsdf", False)
-    if isinstance(tsdf, str):
-        raise NotImplementedError("string tsdf values are not ported yet")
     return SDFDecoder(
         volume_size=config.get("sdf_size", 64),
         latent_size=config["latent_size"],
         fc_layers=config["decoder"]["fc_layers"],
         conv_layers=config["decoder"]["conv_layers"],
-        tsdf=tsdf,
+        tsdf=str_to_tsdf(config.get("tsdf", False)),
     )

@@ -32,7 +32,8 @@ def depth_to_pointcloud_dense(
     order: str = "raster",
     pixel_offset: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Lift an ``(H, W)`` depth image to ``(H*W, 3)`` points and a mask.
+    """Lift an ``(H, W)`` depth image to ``(H*W, 3)`` points and a mask
+    (images ``(..., H, W)`` in raster order give ``(..., H*W, 3)``).
 
     ``order="tile"`` permutes the rows into 16x16-pixel tile-major order
     when both dims allow it (the order the JAX package's pc loss uses; the
@@ -45,7 +46,8 @@ def depth_to_pointcloud_dense(
     exactly the matching rows of the full lift.
     """
     fx, fy, cx, cy, _ = camera.get_pinhole_camera_parameters(0.0)
-    h, w = depth_image.shape
+    h, w = depth_image.shape[-2:]
+    lead = depth_image.shape[:-2]
     dev = depth_image.device
     rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
@@ -71,6 +73,8 @@ def depth_to_pointcloud_dense(
     if order == "tile":
         from sdfest_torch.render.kernels import TILE, tile_image
 
+        if lead:
+            raise ValueError("tile order lifts one (H, W) image")
         if h % TILE == 0 and w % TILE == 0:
             return (
                 tile_image(points, h, w),
@@ -78,7 +82,7 @@ def depth_to_pointcloud_dense(
             )
     elif order != "raster":
         raise ValueError(f"Unsupported point order {order}.")
-    return points.reshape(h * w, 3), valid.reshape(h * w)
+    return points.reshape(*lead, h * w, 3), valid.reshape(*lead, h * w)
 
 
 def _uniform(num_points: int, generator: Optional[torch.Generator],
@@ -104,10 +108,22 @@ def subsample_masked(
     sampled points ``(num_points, 3)`` and whether any valid row existed
     (a 0-d bool tensor).
     """
-    m = points.shape[0]
-    cnt = torch.cumsum(mask.to(torch.int64), dim=0)
-    n_valid = cnt[-1]
-    u = _uniform(num_points, generator, points.device)
+    return subsample_with_uniforms(
+        points, mask, _uniform(num_points, generator, points.device))
+
+
+def subsample_with_uniforms(
+    points: torch.Tensor, mask: torch.Tensor, u: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse-CDF pick of :func:`subsample_masked` for the uniforms
+    ``u``, shape ``(..., P)`` for points ``(..., M, 3)`` and a mask
+    ``(..., M)``: rows ``(..., P, 3)`` and whether any row was valid
+    ``(...)``."""
+    m = points.shape[-2]
+    cnt = torch.cumsum(mask.to(torch.int64), dim=-1)
+    n_valid = cnt[..., -1:]
     ranks = torch.floor(u * n_valid).to(torch.int64) + 1
     idx = torch.clamp(torch.searchsorted(cnt, ranks, side="left"), 0, m - 1)
-    return points[idx], n_valid > 0
+    rows = torch.gather(points, -2, idx[..., None].expand(
+        *idx.shape, points.shape[-1]))
+    return rows, n_valid[..., 0] > 0

@@ -5,6 +5,8 @@ term by term so results round the same way.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -59,3 +61,38 @@ def geodesic_distance(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Geodesic distance (radians) between quaternions ``(..., 4)``."""
     abs_q1q2 = torch.clamp(torch.abs(torch.sum(q1 * q2, dim=-1)), 0.0, 1.0)
     return 2.0 * torch.arccos(abs_q1q2)
+
+
+def normalize(q: torch.Tensor) -> torch.Tensor:
+    """Normalize quaternions ``(..., 4)`` to unit norm."""
+    return q / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+
+
+def simple_quaternion_loss(q1: torch.Tensor, q2: torch.Tensor
+                           ) -> torch.Tensor:
+    """Trig-free rotation distance: mean of ``1 - <q1, q2>^2``."""
+    return torch.mean(1.0 - torch.sum(q1 * q2, dim=-1) ** 2)
+
+
+def from_uniforms(u: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions ``(..., 4)`` from uniforms ``(..., 3)`` in ``[0, 1)``
+    (Shoemake 1992): uniformly distributed on SO(3)."""
+    u1, u2, u3 = torch.unbind(u, dim=-1)
+    two_pi = 2.0 * math.pi
+    return torch.stack(
+        [
+            torch.sqrt(1.0 - u1) * torch.sin(two_pi * u2),
+            torch.sqrt(1.0 - u1) * torch.cos(two_pi * u2),
+            torch.sqrt(u1) * torch.sin(two_pi * u3),
+            torch.sqrt(u1) * torch.cos(two_pi * u3),
+        ],
+        dim=-1,
+    )
+
+
+def random_uniform(shape: tuple = (), generator: torch.Generator = None,
+                   device=None) -> torch.Tensor:
+    """Uniformly distributed unit quaternions, shape ``shape + (4,)``,
+    drawn from ``generator`` (on ``device``)."""
+    return from_uniforms(torch.rand(*shape, 3, generator=generator,
+                                    device=device))

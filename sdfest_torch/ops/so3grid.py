@@ -8,13 +8,18 @@ s2_index``.
 
 All cell-center quaternions are precomputed into a table
 (:meth:`SO3Grid.quaternions`), so decoding a discretized orientation on the
-device is an argmax plus one gather.
+device is an argmax plus one gather.  :func:`quat_to_index` is the batched
+tensor counterpart of ``sdfest_tpu/ops/so3grid_jax.py`` (the generated
+views' labels), equal to it integer for integer.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import math
+
 import numpy as np
+import torch
 
 from sdfest_torch.ops import healpix
 
@@ -140,3 +145,71 @@ class SO3Grid:
         points = 12 * nside * nside
         theta, phi = healpix.pix2ang_nest(nside, np.arange(points))
         return theta, phi
+
+
+def _mod(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``x mod y`` for ``y > 0`` as ``jnp.mod`` computes it: the exact
+    ``fmod``, plus ``y`` where that is negative."""
+    r = torch.fmod(x, y)
+    return torch.where(r < 0, r + y, r)
+
+
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    v = v.to(torch.int64)
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    v = (v | (v << 1)) & 0x55555555
+    return v
+
+
+def _ang2pix_nest(nside: int, theta: torch.Tensor, phi: torch.Tensor
+                  ) -> torch.Tensor:
+    """Nested-scheme HEALPix ang2pix (power-of-two ``nside``) on tensors,
+    in float32 as ``so3grid_jax.ang2pix_nest`` computes it."""
+    z = torch.cos(theta)
+    za = torch.abs(z)
+    tt = _mod(phi, 2 * math.pi) / (0.5 * math.pi)
+    # equatorial
+    temp1 = nside * (0.5 + tt)
+    temp2 = nside * (z * 0.75)
+    jp = torch.floor(temp1 - temp2).to(torch.int64)
+    jm = torch.floor(temp1 + temp2).to(torch.int64)
+    shift = max(int(nside).bit_length() - 1, 0)
+    ifp, ifm = jp >> shift, jm >> shift
+    face_eq = torch.where(ifp == ifm, (ifp & 3) + 4,
+                          torch.where(ifp < ifm, ifp & 3, (ifm & 3) + 8))
+    ix_eq = jm & (nside - 1)
+    iy_eq = nside - (jp & (nside - 1)) - 1
+    # polar caps
+    ntt = torch.clamp(torch.floor(tt), max=3.0)
+    tp = tt - ntt
+    tmp = nside * torch.sqrt(3.0 * (1.0 - za))
+    jp_p = torch.clamp(torch.floor(tp * tmp).to(torch.int64), max=nside - 1)
+    jm_p = torch.clamp(torch.floor((1.0 - tp) * tmp).to(torch.int64),
+                       max=nside - 1)
+    north = z >= 0
+    face_pol = torch.where(north, ntt.to(torch.int64),
+                           ntt.to(torch.int64) + 8)
+    ix_pol = torch.where(north, nside - jm_p - 1, jp_p)
+    iy_pol = torch.where(north, nside - jp_p - 1, jm_p)
+    equatorial = za <= 2.0 / 3.0
+    face = torch.where(equatorial, face_eq, face_pol)
+    ix = torch.where(equatorial, ix_eq, ix_pol)
+    iy = torch.where(equatorial, iy_eq, iy_pol)
+    return face * nside * nside + (_spread_bits(ix) | (_spread_bits(iy) << 1))
+
+
+def quat_to_index(quat: torch.Tensor, resol: int) -> torch.Tensor:
+    """Grid cell indices (int64, shape ``(...)``) of float32 quaternions
+    ``(..., 4)``, scalar-last, on their device."""
+    x, y, z, w = torch.unbind(quat, dim=-1)
+    psi = _mod(2.0 * torch.atan2(x, w), 2 * math.pi)
+    theta = 2.0 * torch.atan2(torch.sqrt(z * z + y * y),
+                              torch.sqrt(w * w + x * x))
+    phi = _mod(torch.atan2(z * w - x * y, y * w + x * z), 2 * math.pi)
+    nside = 2 ** resol
+    n_s1 = 6 * nside
+    s1_index = torch.clamp(
+        torch.floor(psi / (2 * math.pi / n_s1)).to(torch.int64), 0, n_s1 - 1)
+    return s1_index * (12 * nside * nside) + _ang2pix_nest(nside, theta, phi)

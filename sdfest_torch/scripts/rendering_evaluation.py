@@ -18,14 +18,17 @@ by name to :mod:`sdfest_torch.pipeline.metrics`, importing nothing of the
 JAX package.  Each file's host seconds of rasterizing, the call,
 ``generate_mesh`` and the metrics are kept in :attr:`Evaluator.timings`.
 
-The script's command line (``main``) needs the YAML config files with
-includes, which are not ported yet (ROADMAP section 1, item 9); build the
-config as a dict, e.g. ``sdfest_torch.utils.presets.preset(
-"mug_procedural")`` plus the evaluation keys, and call
-``Evaluator(config, device=...).run()``.
+Command line (YAML with includes, PyYAML needed): ``python -m
+sdfest_torch.scripts.rendering_evaluation --config
+configs/estimation/rendering_evaluation_mug_procedural.yaml`` (the JAX
+package's configs resolve by their package-relative names).  Without
+PyYAML, build the config as a dict, e.g.
+``sdfest_torch.utils.presets.preset("mug_procedural")`` plus the evaluation
+keys, and call ``Evaluator(config, device=...).run()``.
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import glob
 import math
@@ -43,7 +46,11 @@ from sdfest_torch.ops import quaternion
 from sdfest_torch.ops.camera import Camera
 from sdfest_torch.pipeline import synthetic
 from sdfest_torch.pipeline.pipeline import SDFPipeline
-from sdfest_torch.utils.config import load_config, save_config_to_file
+from sdfest_torch.utils.config import (
+    load_config,
+    load_config_from_args,
+    save_config_to_file,
+)
 
 DEFAULT_METRICS = {
     "chamfer": {
@@ -329,3 +336,17 @@ class Evaluator:
             "rasterize_s": t1 - t0, "call_s": t2 - t1, "mesh_s": t3 - t2,
             "metrics_s": time.perf_counter() - t3})
         return metric_dict
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        description="Synthetic rendering evaluation.")
+    parser.add_argument("--config", nargs="+", required=False)
+    parser.add_argument("--device", default="cuda")
+    config = load_config_from_args(parser, argv)
+    device = config.pop("device")
+    Evaluator(config, device=device).run()
+
+
+if __name__ == "__main__":
+    main()

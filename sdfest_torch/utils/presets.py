@@ -10,8 +10,15 @@ updated by ``configs/estimation/default.yaml`` (both under
 early stop); ``MUG_PROCEDURAL_TEMPORAL`` is ``MUG_PROCEDURAL`` with
 ``temporal_coherence: true`` (warm-started refinement renders), and
 ``MUG_PROCEDURAL_BF16`` is ``MUG_PROCEDURAL`` with ``bf16_march: true``
-(default.yaml's switch: bf16-verified march samples).  CPU tests hold the
-dicts against the YAML files.
+(default.yaml's switch: bf16-verified march samples).
+
+The training presets are the resolved training configs:
+``VAE_MUG_PROCEDURAL`` is ``configs/vae/mug_procedural.yaml`` (the mug VAE:
+batch 8, 64^3, latent 8, pc loss at 640x480) and ``INIT_MUG_PROCEDURAL_V3``
+is ``configs/init/mug_procedural_v3.yaml`` (VanillaPointNet with the
+discretized head at grid resolution 1, generated views at 320x240, a
+generation batch of 16 into a replay ring of 131,072 samples, 10 steps at
+batch 64 per unit).  CPU tests hold every dict against its YAML files.
 """
 from __future__ import annotations
 
@@ -149,7 +156,113 @@ MUG_PROCEDURAL_BF16: Dict[str, Any] = {
     "bf16_march": True,
 }
 
+_MUG_DECODER = copy.deepcopy(MUG_PROCEDURAL["vae"]["decoder"])
+
+VAE_MUG_PROCEDURAL: Dict[str, Any] = {
+    "decoder": copy.deepcopy(_MUG_DECODER),
+    "latent_size": 8,
+    "tsdf": False,
+    "encoder": {"layer_infos": copy.deepcopy(_ENCODER_LAYERS)},
+    "dataset_path": "data/mug_procedural",
+    "iterations": 25000,
+    "batch_size": 8,
+    "l2_large_weight": 1.0,
+    "l2_small_weight": 10.0,
+    "l1_large_weight": 0.0,
+    "l1_small_weight": 0.0,
+    "pc_weight": 1.0,
+    "kld_weight": 3.0,
+    "learning_rate": 0.001,
+    "checkpoint_iteration": 5000,
+    "visualization_iteration": 0,
+    "run_name": "mug_procedural",
+    "model_dir": "trained_models/mug_procedural",
+    "scalar_csv": "trained_models/mug_procedural/scalars.csv",
+}
+
+_NOCS = {
+    "root_dir": "../data/nocs/", "mask_pointcloud": True,
+    "normalize_pointcloud": True, "scale_convention": "half_max",
+    "camera_convention": "opengl", "remap_y_axis": "y", "remap_x_axis": "-z",
+}
+_GENERATED_V3 = {
+    "width": 320, "height": 240, "fov_deg": 90, "pointcloud": True,
+    "normalize_pose": True, "render_threshold": 0.004, "z_min": 0.25,
+    "z_max": 0.7, "extent_mean": 0.11, "extent_std": 0.01,
+    "mask_noise": True, "mask_noise_min": 0.1, "mask_noise_max": 2.0,
+    "norm_noise": False, "norm_noise_min": -0.1, "norm_noise_max": 0.1,
+    "scale_to_unit_ball": False, "gaussian_noise_probability": 0.5,
+    "center_frac": 0.6,
+}
+
+INIT_MUG_PROCEDURAL_V3: Dict[str, Any] = {
+    "vae": {
+        "decoder": copy.deepcopy(_MUG_DECODER),
+        "latent_size": 8,
+        "tsdf": False,
+        "encoder": {"layer_infos": copy.deepcopy(_ENCODER_LAYERS)},
+        "iterations": 100000,
+        "batch_size": 16,
+        "l2_large_weight": 1.0,
+        "l2_small_weight": 10.0,
+        "l1_large_weight": 0.0,
+        "l1_small_weight": 0.0,
+        "pc_weight": 1.0,
+        "kld_weight": 3.0,
+        "learning_rate": 0.001,
+        "dataset_path": "./data/mug_procedural",
+        "model": "trained_models/mug_procedural/mug_procedural.msgpack",
+        "model_url": "https://github.com/roym899/sdfest/releases/download/"
+                     "v0.1.0/mug_vae.pt",
+    },
+    "datasets": {
+        "generated_dataset": {"config_dict": copy.deepcopy(_GENERATED_V3),
+                              "type": "SDFVAEViewDataset",
+                              "probability": 1.0},
+        "camera_train": {"config_dict": dict(_NOCS, split="camera_train"),
+                         "type": "NOCSDataset", "probability": 0.0},
+        "real_train": {"config_dict": dict(_NOCS, split="real_train"),
+                       "type": "NOCSDataset", "probability": 0.0},
+    },
+    "validation_datasets": {
+        "camera_val": {"config_dict": dict(_NOCS, split="camera_val"),
+                       "type": "NOCSDataset", "probability": 0.0},
+        "validation_generated": {"config_dict": copy.deepcopy(_GENERATED_V3),
+                                 "type": "SDFVAEViewDataset"},
+    },
+    "batch_size": 16,
+    "iterations": 600000,
+    "learning_rate": 0.001,
+    "position_weight": 1000,
+    "scale_weight": 1000,
+    "orientation_weight": 5,
+    "latent_weight": 1,
+    "visualization_iteration": 0,
+    "validation_iteration": 10000,
+    "checkpoint_iteration": 25000,
+    "orientation_repr": "discretized",
+    "orientation_grid_resolution": 1,
+    "category_str": "mug",
+    "backbone_type": "VanillaPointNet",
+    "backbone": {"in_size": 3, "mlp_out_sizes": [128, 128, 128, 128, 1024],
+                 "batchnorm": True, "dense": True, "residual": True},
+    "head_type": "SDFPoseHead",
+    "head": {"in_size": 1024, "mlp_out_sizes": [512, 256, 128],
+             "batchnorm": True},
+    "resume": True,
+    "replay_buffer_size": 131072,
+    "replay_train_steps": 10,
+    "replay_train_batch": 64,
+    "steps_per_dispatch": 10,
+    "validation_batches": 8,
+    "run_name": "init_mug_procedural_v3",
+    "model_dir": "trained_models/init_mug_procedural_v3",
+    "scalar_csv": "trained_models/init_mug_procedural_v3/scalars.csv",
+}
+
 PRESETS = {"mug_procedural": MUG_PROCEDURAL,
+           "vae_mug_procedural": VAE_MUG_PROCEDURAL,
+           "init_mug_procedural_v3": INIT_MUG_PROCEDURAL_V3,
            "mug_procedural_bf16": MUG_PROCEDURAL_BF16,
            "mug_procedural_fast": MUG_PROCEDURAL_FAST,
            "mug_procedural_fast_adaptive": MUG_PROCEDURAL_FAST_ADAPTIVE,

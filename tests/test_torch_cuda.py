@@ -649,3 +649,174 @@ def test_batched_samplers_and_scatter_equal_unbatched_launches(dev, mug):
         want = kernels.scatter(pts[b], cot[b], 64)
         err = float((acc[b] - want).abs().max())
         assert err <= 1e-3 * max(1.0, float(want.abs().max())), (b, err)
+
+
+# ---------------------------------------------------------------------------
+# slice 9: training
+# ---------------------------------------------------------------------------
+
+
+def _mug_vae(dev):
+    """The committed mug VAE (encoder and decoder) on ``dev``."""
+    from sdfest_torch.models.vae import create_vae_from_config
+    from sdfest_torch.utils import msgpack_reader, weights
+    from sdfest_torch.utils.presets import preset
+
+    vae = create_vae_from_config(preset("vae_mug_procedural"))
+    weights.load_flax_into(vae, msgpack_reader.load(
+        "trained_models/mug_procedural/mug_procedural.msgpack"))
+    return vae.to(dev)
+
+
+def _decoded_mugs(dev, n):
+    vae = _mug_vae(dev)
+    latent = torch.randn(n, 8, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        return vae.decoder(0.7 * latent.to(dev)).contiguous()
+
+
+@pytest.mark.cuda
+def test_pc_loss_sample_op_on_distinct_grids_matches_plain(dev):
+    """The VAE trainer's pc loss on 8 distinct grids, each rendered from its
+    own orientation at 640x480: one march, one sample-grad forward and one
+    scatter backward; the values within 1e-5 of the sample-grad twin, the
+    grid gradient within the scatter's 1e-3 * max(1, max|want|)."""
+    from sdfest_torch.ops import quaternion
+    from sdfest_torch.training.vae_trainer import VAETrainer
+    from sdfest_torch.utils.presets import preset
+
+    trainer = VAETrainer(preset("vae_mug_procedural"), device=dev)
+    x = _decoded_mugs(dev, 8)
+    quats = quaternion.random_uniform(
+        (8,), torch.Generator().manual_seed(2)).to(dev)
+    recon = x.clone().requires_grad_(True)
+    kernels.reset_launches()
+    depth = trainer.pc_depth(x, quats)
+    loss = trainer.pc_loss(recon, depth, quats)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert kernels.launches() == {"march": 1, "march_warm": 0, "sample": 0,
+                                  "sample_grad": 1, "scatter": 1}
+    assert kernels.hypotheses()["scatter"] == 8
+    assert int((depth > 0).sum()) > 8 * 5000
+    # the plain versions on the same rows
+    from sdfest_torch.ops import pointset
+    from sdfest_torch.ops.interpolation import _base_and_frac
+
+    points, valid = pointset.depth_to_pointcloud_dense(depth, trainer.camera)
+    q = quaternion.invert(quaternion.normalize(quats))[:, None, :]
+    obj = quaternion.apply(q, points - points.new_tensor([0.0, 0.0, -5.0]))
+    _, _, inside = _base_and_frac(obj, 64)
+    mask = (inside & valid).float()
+    value, _ = kernels.sample_grad_plain(x[:, 0], obj, mask)
+    total = float(loss.detach())
+    assert abs(total - float((value ** 2).sum())) <= 1e-5 * total
+    want = kernels.scatter_plain(obj, 2 * value * mask, 64)
+    err = float((recon.grad[:, 0] - want).abs().max())
+    assert err <= 1e-3 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+def test_generated_views_march_b16_320x240_matches_plain(dev):
+    """The init trainer's generation batch: 16 decoded grids, 16 poses, one
+    march launch at 320x240, bit for bit its CUDA twin."""
+    from sdfest_torch.datasets.generated import SDFVAEViewDataset
+    from sdfest_torch.render.api import _posed
+    from sdfest_torch.utils.presets import preset
+
+    cfg = dict(preset("init_mug_procedural_v3")["datasets"][
+        "generated_dataset"]["config_dict"], orientation_repr="discretized",
+        orientation_grid_resolution=1)
+    ds = SDFVAEViewDataset(cfg, _mug_vae(dev).decoder, device=dev)
+    draws = ds.draw(16, torch.Generator(device=dev).manual_seed(3))
+    kernels.reset_launches()
+    depth = ds.render(draws)
+    torch.cuda.synchronize()
+    assert kernels.launches()["march"] == 1
+    assert depth.shape == (16, 240, 320) and int((depth > 0).sum()) > 16 * 500
+    with torch.no_grad():
+        sdf = ds.decoder(draws["latent"])[:, 0].contiguous()
+    grid, pos, quat, inv = _posed(sdf, ds.position(draws),
+                                  draws["quaternion"], 1.0 / draws["scale"],
+                                  dev)
+    twin = plain.march_plain(grid, plain.pixel_directions(ds.camera, dev),
+                             kernels.pose_params(pos, quat, inv),
+                             cfg["render_threshold"], 500, True, True)
+    assert torch.equal(depth.reshape(16, -1), twin)
+    batch = ds.views_from_depth(depth, draws)
+    assert batch["pointset"].shape == (16, 2500, 3)
+    assert bool(torch.isfinite(batch["pointset"]).all())
+
+
+@pytest.mark.cuda
+def test_encoder_and_its_gradients_run_in_fp32_with_tf32_allowed(dev):
+    """With cuDNN's TF32 switch allowed, the encoder on the card equals the
+    CPU's within 1e-5, and a training step's weight gradients (the
+    reconstruction loss, the backward's convolutions included) within 1e-4
+    of each weight's largest gradient (TF32 would part them by ~1e-3)."""
+    from sdfest_torch.models.vae import fp32_convolutions
+    from sdfest_torch.training.vae_trainer import VAETrainer
+    from sdfest_torch.utils import msgpack_reader, weights
+    from sdfest_torch.utils.presets import preset
+
+    x = _decoded_mugs(dev, 2)
+    eps = torch.randn(2, 8, generator=torch.Generator().manual_seed(4))
+    grads = {}
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for device in ("cpu", dev):
+            t = VAETrainer(dict(preset("vae_mug_procedural"), pc_weight=0.0),
+                           device=device)
+            weights.load_flax_into(t.vae, msgpack_reader.load(
+                "trained_models/mug_procedural/mug_procedural.msgpack"))
+            with torch.no_grad():
+                grads[device, "means"] = t.vae.encode_mean(
+                    x.to(device))[0].cpu()
+            with fp32_convolutions():
+                loss, _ = t.loss(x.to(device), 5, eps=eps.to(device))
+                loss.backward()
+            for k, p in t.vae.named_parameters():
+                grads[device, k] = p.grad.cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    err = float((grads[dev, "means"] - grads["cpu", "means"]).abs().max())
+    assert err <= 1e-5, f"encoder on the card: max|d| {err:.3e} (tol 1e-5)"
+    for (device, k), want in grads.items():
+        if device == "cpu" and k != "means":
+            got = grads[dev, k]
+            assert float((got - want).abs().max()) <= 1e-4 * float(
+                want.abs().max()), k
+
+
+@pytest.mark.cuda
+def test_training_batchnorm_on_card_matches_float64_cpu(dev):
+    """The init network's training-mode BatchNorm on the card (PyTorch's
+    fused batch-norm forward and backward on the flax statistics) against
+    the same layer in float64 on the CPU, at a backbone's shape: output
+    within 1e-5, gradients within 1e-5 of each one's largest, running
+    statistics within 1e-6."""
+    from sdfest_torch.models.pointnet import BatchNorm
+
+    g = torch.Generator().manual_seed(11)
+    x = 0.5 + 2.0 * torch.randn(16384, 128, generator=g)
+    dy = torch.randn(16384, 128, generator=g)
+    out = {}
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        bn = BatchNorm(128).to(device=device, dtype=dtype).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 128))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, 128))
+        tx = x.to(device=device, dtype=dtype, copy=True).requires_grad_()
+        y = bn(tx)
+        y.backward(dy.to(device=device, dtype=dtype))
+        out[device == "cpu"] = [t.detach().double().cpu() for t in (
+            y, tx.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+            bn.running_var)]
+    card, want = out[False], out[True]
+    assert float((card[0] - want[0]).abs().max()) <= 1e-5
+    for got, ref in zip(card[1:4], want[1:4]):
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+    for got, ref in zip(card[4:], want[4:]):
+        assert float((got - ref).abs().max()) <= 1e-6

@@ -380,10 +380,12 @@ def test_config_overlays_and_yaml_output_match_jax(tmp_path):
         got = tconfig.load_config(overlay, base)
         assert got == jconfig.load_config(overlay, base)
         assert got is not base and got["init"] is not base["init"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.load_config({"init": {"config": "x.yaml"}}, base)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.load_config("default.yaml", base)
+    # includes, in a dict overlay and as a file, resolve as in the JAX
+    # package (the JAX package's configs are read as data)
+    for overlay in ({"init": {"config": "configs/init/mug_procedural_v3.yaml"}},
+                    "configs/estimation/default.yaml"):
+        assert tconfig.load_config(overlay, base) == jconfig.load_config(
+            overlay, base)
     data = {"t": torch.tensor(1.5), "a": np.arange(3), "n": np.float32(2.0),
             "nested": {"l": (1, torch.tensor([2.0, 3.0]))}}
     path = str(tmp_path / "sub" / "out.yaml")
