@@ -12,6 +12,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check,batch   # refine_batch
     python3 chip_smoke.py --phases build,check,mesh,evaluate   # slice 8
     python3 chip_smoke.py --phases build,check,train   # slice 9: training
+    python3 chip_smoke.py --phases build,check,category,runtime   # slice 10
 
 Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
@@ -76,7 +77,13 @@ Phases:
             1e-5 of the level; a full-frame call with log_path, its pickle
             loaded with play_log.load_log (numpy only, 50 losses equal to
             last_log's); play_log._render_frames at stride 25 (one march
-            launch per frame) and export_meshes at stride 25 (two .obj)
+            launch per frame) and export_meshes at stride 25 (two .obj);
+            the host C++ library (sdfest_torch/native): its build seconds,
+            its marching tetrahedra on the decoded mug against the numpy
+            path's (times, face counts, vertex chamfer < 1e-3 of the unit
+            cube), and mesh_to_sdf of the generated mesh at 64^3: its sign
+            equal to the decoded grid's on every cell more than 2 voxels
+            from the surface
   evaluate  the port's make_procedural_dataset (seed 777, 64^3, meshes) for
             the first EVAL_MESHES held-out mugs, then the port's Evaluator
             on the card with rendering_evaluation.yaml's keys, one view,
@@ -87,6 +94,30 @@ Phases:
             kernel; production marches 20 / 20 / 10 at strides 4 / 2 / 1),
             the loss falling; the means beside the JAX package's 20-mesh
             means (context, not a bound)
+  category  scripts/category_evaluation's CategoryEvaluator under preset
+            real275_evaluation_procedural (NOCS REAL camera: pixel_center
+            0, off-centre principal point; 30 iterations at 640x480) on 4
+            in-memory samples in NOCSDataset's format (CATEGORY_SHAPES: 2
+            held-out procedural mugs and 2 bowls, seed 777, rasterized at
+            CATEGORY_POSE): 30 launches of each fused kernel per call, no
+            failure, counts 2 / 2 / 4; the init estimate (latent,
+            position, scale, orientation logits) within 1e-4 (of
+            max(1, max|CPU|)) of the CPU port's on the same depth, mask
+            and subsampling uniforms; the witness (a stub pipeline that
+            reports each sample's ground truth in the pipeline's camera
+            convention): every correctness entry 1.0, position error 0;
+            the march on the NOCS camera bit for bit its plain version;
+            per category the means, the correctness table and the host
+            seconds per sample (call, generate_mesh, metrics)
+  runtime   scripts/real_data.runtime_analysis under preset
+            runtime_analysis_demo (Redwood camera, 50 iterations, 11 runs
+            with the first skipped, with and without shape optimization)
+            on the first held-out mug (seed 777), then a torch.profiler
+            trace of one warm refinement: every phase's mean finite and
+            > 0, 50 launches of each fused kernel per full refinement with
+            shape optimization (every refinement of a block equal), the
+            trace naming march_kernel; both result blocks printed beside
+            the pipeline phase's ms/call
   train     16 procedural mugs (seed 0, 64^3); the VAE trainer of preset
             vae_mug_procedural (batch 8, pc loss at 640x480): at step 0 from
             the committed mug VAE, the pc march bit for bit its plain
@@ -145,8 +176,8 @@ import sys
 import time
 
 PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
-          "bf16", "multiview", "batch", "mesh", "evaluate", "train", "time",
-          "profile")
+          "bf16", "multiview", "batch", "mesh", "evaluate", "category",
+          "runtime", "train", "time", "profile")
 HYPOTHESES = 8  # refine_batch's batch (bench.py's --hypotheses default)
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
@@ -251,6 +282,16 @@ GT_POSES = [  # (position, half-width, quaternion xyzw), tilted views
     ((0.01, 0.03, -0.45), 0.09, (0.3, -0.25, 0.2, 0.9)),
     ((0.0, -0.02, -0.6), 0.1, (0.1, 0.6, -0.1, 0.78)),
 ]
+
+
+# the category phase: CATEGORY_PER_CLASS held-out procedural shapes of each
+# class (make_procedural_dataset --seed 777) at their half max extent,
+# z-buffer rendered at one tilted pose 0.6 m ahead of the NOCS REAL camera
+# (OpenCV camera frame: 45 degrees about x, rim visible)
+CATEGORY_PER_CLASS = 2
+CATEGORY_SHAPES = (("mug", 0.11), ("bowl", 0.16))
+CATEGORY_POSE = ((0.0, 0.0, 0.6), (0.3826834, 0.0, 0.0, 0.9238795))
+NOCS_IDS = {"bowl": 2, "mug": 6}
 
 
 def card_line() -> str:
@@ -1838,6 +1879,7 @@ class Smoke:
             meshes[str(complete)] = dict(vertices=len(got.vertices),
                                          faces=len(got.faces), max_err=dv,
                                          seconds=mesh_s)
+        native = self.mesh_native(got, half, level)
         # the flight recorder of a full-frame call, then its playback
         obs = self.observe(GT_POSES[0])
         n_iter = cfg["max_iterations"]
@@ -1889,7 +1931,73 @@ class Smoke:
             generate_depth_bit_for_bit=equal, generate_depth_ms=depth_ms,
             generate_mesh=meshes, near_level_values=near,
             call_with_log_ms=call_ms, render_frames_s=frames_s,
-            export_meshes_s=export_s)
+            export_meshes_s=export_s, native=native)
+
+    def mesh_native(self, mesh, half, level):
+        """The host C++ library on the decoded mug: its build, its marching
+        tetrahedra against the numpy path's (times, face counts, the two
+        surfaces' vertex chamfer in unit-cube units), and mesh_to_sdf of
+        the card's generated mesh against the decoded grid's sign."""
+        import numpy as np
+        import torch
+
+        from sdfest_torch import native
+        from sdfest_torch.native import api as native_api
+        from sdfest_torch.ops import marching_cubes as mc
+        from sdfest_torch.ops import sdf_utils
+        from sdfest_torch.pipeline import metrics
+
+        t0 = time.perf_counter()
+        assert native_api.available(), "no C++ compiler for the host library"
+        load_s = time.perf_counter() - t0
+        print(f"mesh native library: g++ build {native.build_seconds} s "
+              f"(None: it was built before this run), load {load_s:.3f} s, "
+              f"{native.library_path()}")
+        grid = self.sdf.cpu().numpy()
+        res = grid.shape[0]
+        t0 = time.perf_counter()
+        nv, nf = native_api.marching_tetrahedra(grid, level)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pv, pf = mc.marching_tetrahedra_np(grid, level)
+        numpy_s = time.perf_counter() - t0
+        chamfer = metrics.symmetric_chamfer(pv / (res - 1), nv / (res - 1))
+        print(f"mesh marching tetrahedra native {native_s:.3f} s "
+              f"{len(nf)} faces {len(nv)} vertices, numpy {numpy_s:.3f} s "
+              f"{len(pf)} faces {len(pv)} vertices; vertex chamfer "
+              f"{chamfer:.3e} of the unit cube (< 1e-3)")
+        assert chamfer < 1e-3, "the native and numpy surfaces differ"
+        # mesh_to_sdf of the generated mesh (metric, half max extent
+        # ``half``): each of its cells mapped back through the stretch to
+        # the unit cube into the decoded grid and sampled there
+        from scipy.ndimage import map_coordinates
+
+        t0 = time.perf_counter()
+        back = sdf_utils.mesh_to_sdf(mesh, res)
+        voxelize_s = time.perf_counter() - t0
+        v = mesh.vertices
+        lo, hi = v.min(axis=0), v.max(axis=0)
+        lin = np.linspace(-1.0, 1.0, res)
+        cube = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), axis=-1)
+        metric = cube * np.max(hi - lo) / 2.0 + (lo + hi) / 2.0
+        idx = (metric / half + 1.0) * (res - 1) / 2.0
+        inside = np.all((idx >= 0) & (idx <= res - 1), axis=-1)
+        vals = map_coordinates(grid, idx.reshape(-1, 3).T, order=1).reshape(
+            back.shape) - level
+        far = inside & (np.abs(vals) > 2 * 2.0 / (res - 1))
+        disagree = int((np.sign(vals[far]) != np.sign(back[far])).sum())
+        print(f"mesh mesh_to_sdf {res}^3 of the generated mesh: "
+              f"{voxelize_s:.3f} s; sign against the decoded grid on "
+              f"{int(far.sum())} cells > 2 voxels from the surface: "
+              f"{disagree} disagree (0)")
+        assert int(far.sum()) > 10000 and disagree == 0, (
+            "mesh_to_sdf's sign disagrees with the decoded grid")
+        assert bool(torch.isfinite(torch.from_numpy(back)).all())
+        return dict(build_s=native.build_seconds, native_s=native_s,
+                    numpy_s=numpy_s, native_faces=len(nf),
+                    numpy_faces=len(pf), vertex_chamfer=chamfer,
+                    mesh_to_sdf_s=voxelize_s, sign_cells=int(far.sum()),
+                    sign_disagree=disagree)
 
     def evaluate(self):
         """The synthetic rendering evaluation on the card: the first
@@ -1981,6 +2089,275 @@ class Smoke:
             meshes=EVAL_MESHES, dataset_s=gen_s, files=per_file,
             results={a: {v: {k: s["mean"] for k, s in st.items()}
                          for v, st in r.items()} for a, r in results.items()})
+
+    def category(self):
+        """CategoryEvaluator under real275_evaluation_procedural on the card
+        (NOCS REAL camera, 30 iterations at 640x480): 4 in-memory samples
+        in NOCSDataset's format (CATEGORY_SHAPES), launches per call, the
+        init estimate against the CPU port's, the ground-truth witness and
+        the march on the NOCS camera against its plain version."""
+        import os
+        import tempfile
+
+        import torch
+
+        from sdfest_torch.ops.camera import Camera
+        from sdfest_torch.pipeline.pipeline import SDFPipeline
+        from sdfest_torch.render import kernels
+        from sdfest_torch.scripts import category_evaluation as ce
+        from sdfest_torch.scripts import make_procedural_dataset
+        from sdfest_torch.utils.config import load_config
+        from sdfest_torch.utils.presets import preset
+
+        config = preset("real275_evaluation_procedural")
+        config["out_folder"] = None
+        n_iter = config["max_iterations"]
+        camera = Camera(**config["camera"])
+        calls = []
+
+        class Counting:
+            """A pipeline whose calls' launches are read (counts set to 0
+            just before each call, read just after) and kept."""
+
+            def __init__(self, pipe):
+                self.pipe = pipe
+
+            def __call__(self, depth, mask, **kwargs):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                out = self.pipe(depth, mask, **kwargs)
+                torch.cuda.synchronize()
+                loss = self.pipe.last_log["loss"]
+                calls.append(dict(launches=kernels.launches(),
+                                  loss=[float(loss[0]), float(loss[-1])],
+                                  latent=out[3]))
+                return out
+
+            def generate_mesh(self, *args, **kwargs):
+                return self.pipe.generate_mesh(*args, **kwargs)
+
+        class CountingEvaluator(ce.CategoryEvaluator):
+            def _pipeline_for(self, category):
+                pipe = super()._pipeline_for(category)
+                if pipe is not None and not isinstance(pipe, Counting):
+                    pipe = self._pipelines[category] = Counting(pipe)
+                return pipe
+
+        with tempfile.TemporaryDirectory() as tmp:
+            samples, raster_s = [], []
+            t0 = time.perf_counter()
+            for category, scale in CATEGORY_SHAPES:
+                out = os.path.join(tmp, category)
+                make_procedural_dataset.generate(
+                    out, n=CATEGORY_PER_CLASS, res=64, seed=777,
+                    export_meshes=True, category=category)
+                for i in range(CATEGORY_PER_CLASS):
+                    t1 = time.perf_counter()
+                    samples.append(category_sample(
+                        os.path.join(out, f"{i:05d}.obj"), category, scale,
+                        camera))
+                    raster_s.append(time.perf_counter() - t1)
+            data_s = time.perf_counter() - t0
+            print(f"category data: {len(samples)} samples in {data_s:.3f} s, "
+                  f"rasterizing {[round(s, 3) for s in raster_s]} s")
+            dataset = InMemoryDataset(samples)
+            evaluator = CountingEvaluator(config, dataset, device=self.dev)
+            t0 = time.perf_counter()
+            results = evaluator.run()
+            run_s = time.perf_counter() - t0
+            # the witness: each sample's ground truth as a pipeline reports
+            # it (OpenGL), with the sample's own mesh
+            truth = {cat: TruthPipeline([s for s in samples
+                                         if s["category_str"] == cat],
+                                        dataset)
+                     for cat, _ in CATEGORY_SHAPES}
+            witness = ce.CategoryEvaluator(config, dataset, truth,
+                                           device=self.dev).run()
+            # the init estimate on the card against the CPU port's, the same
+            # depth, mask and uniforms
+            init_err = {}
+            for i, sample in enumerate(samples):
+                cat = sample["category_str"]
+                card = evaluator._pipelines[cat].pipe
+                cpu = SDFPipeline(load_config(
+                    config["category_configs"][cat], dict(config)),
+                    device="cpu")
+                u = torch.rand(card._num_input_points,
+                               generator=torch.Generator().manual_seed(i))
+                got = init_outputs(card, sample, u)
+                want = init_outputs(cpu, sample, u)
+                errs = {k: float((got[k].cpu() - want[k]).abs().max())
+                        / max(1.0, float(want[k].abs().max()))
+                        for k in want}
+                print(f"category init {i} ({cat}): max|d| / max(1, "
+                      f"max|CPU|) {json.dumps(errs)} (< 1e-4); CPU logits "
+                      f"argmax {int(want['logits'].argmax())}, card "
+                      f"{int(got['logits'].argmax())}")
+                assert all(e < 1e-4 for e in errs.values()), (
+                    f"the init estimate differs from the CPU port's: {errs}")
+                init_err[i] = errs
+            # the march on the NOCS camera (pixel_center 0, off-centre
+            # principal point) bit for bit its plain version, at the first
+            # sample's pose with its estimate's decoded shape
+            equal, hits = self.nocs_march(evaluator._pipelines["mug"].pipe,
+                                          samples[0], calls[0]["latent"])
+        for i, call in enumerate(calls):
+            print(f"category call {i} ({samples[i]['category_str']}): "
+                  f"launches {call['launches']}, loss {call['loss'][0]:.6f} "
+                  f"-> {call['loss'][1]:.6f}; host s "
+                  f"{json.dumps(evaluator.timings[i])}")
+            expect_launches(call["launches"], n_iter)
+            assert all(math.isfinite(v) for v in call["loss"])
+        counts = {c: results[c]["count"] for c in results}
+        failed = {c: results[c]["failed"] for c in results}
+        print(f"category counts {counts}, failed {failed}; {run_s:.3f} s")
+        assert counts == {"mug": CATEGORY_PER_CLASS,
+                          "bowl": CATEGORY_PER_CLASS,
+                          "all": 2 * CATEGORY_PER_CLASS}, counts
+        assert not any(failed.values()), failed
+        for cat, agg in results.items():
+            means = agg["means"]
+            assert all(math.isfinite(v) for v in means.values()), means
+            print(f"category {cat} means {json.dumps(means)}")
+            print(f"category {cat} correctness {json.dumps(agg['correctness'])}")
+        for cat, agg in witness.items():
+            print(f"category witness {cat}: correctness "
+                  f"{json.dumps(agg['correctness'])}, position error "
+                  f"{agg['means']['position_error']}, degree error "
+                  f"{agg['means']['degree_error']}, IoU "
+                  f"{agg['means']['iou_3d']}")
+            assert all(v == 1.0 for v in agg["correctness"].values()), (
+                "the ground-truth witness is not correct: the samples' or "
+                "the evaluator's conventions are wrong")
+            assert agg["means"]["position_error"] == 0.0
+        per_sample = {k: sum(t[k] for t in evaluator.timings) / len(samples)
+                      for k in evaluator.timings[0]}
+        print(f"category seconds per sample {json.dumps(per_sample)}, "
+              f"rasterizing {sum(raster_s) / len(raster_s):.3f}")
+        for name in FUSED_KERNELS:
+            self.report[name]["category"] = dict(
+                launches_per_call=calls[0]["launches"][name],
+                calls=len(calls))
+        self.report["march"]["category"]["nocs_camera_bit_for_bit"] = equal
+        self.report["_category"] = dict(
+            results=results, witness={c: a["correctness"]
+                                      for c, a in witness.items()},
+            seconds_per_sample=per_sample, rasterize_s=raster_s,
+            init_rel_err=init_err, nocs_march_bit_for_bit=equal,
+            nocs_march_hits=hits, run_s=run_s)
+
+    def nocs_march(self, pipe, sample, latent):
+        """The category pipeline's march (its camera, options and kernel) of
+        a sample's ground-truth pose, bit for bit its plain version."""
+        import numpy as np
+        import torch
+
+        from sdfest_torch.render import api, kernels, plain
+
+        cfg = pipe.config
+        pos = torch.tensor(np.asarray(sample["position"]) * [1.0, -1.0, -1.0],
+                           dtype=torch.float32, device=self.dev)
+        q = unit_quat(gl_quaternion(sample["quaternion"]), self.dev)
+        inv_s = 1.0 / torch.tensor(float(np.max(sample["scale"])) / 2.0,
+                                   device=self.dev)
+        with torch.no_grad():
+            sdf = pipe._decode(latent.reshape(1, -1))[0, 0]
+            depth = pipe.render(sdf, pos, q, inv_s)
+        rays = api.ray_set(pipe.camera, self.dev).march
+        twin = plain.march_plain(
+            sdf, rays.reshape(-1, 3), kernels.pose_params(pos, q, inv_s),
+            cfg["threshold"], 500, cfg.get("coarse_culling", True),
+            cfg.get("adaptive_relaxation", True)).reshape(depth.shape)
+        equal, hits = torch.equal(depth, twin), int((depth > 0).sum())
+        print(f"category march on the NOCS camera {pipe.camera}: hits "
+              f"{hits}, bit for bit its plain version {equal}")
+        assert hits > 1000 and equal, (
+            "the march on the NOCS camera differs from its plain version")
+        return equal, hits
+
+    def runtime(self):
+        """real_data.runtime_analysis under runtime_analysis_demo on the
+        first held-out mug (the protocol as configured, then --trace)."""
+        import os
+        import tempfile
+
+        import torch
+
+        from sdfest_torch.pipeline.pipeline import SDFPipeline
+        from sdfest_torch.render import kernels
+        from sdfest_torch.scripts import make_procedural_dataset, real_data
+        from sdfest_torch.utils.presets import preset
+
+        config = preset("runtime_analysis_demo")
+        n_iter = config["max_iterations"]
+        calls = []
+        call = SDFPipeline.__call__
+
+        def counted(pipe, *args, **kwargs):
+            """Each call's launches: the host counters before and after
+            (no synchronisation, so the timed loops are not disturbed)."""
+            before = kernels.launches()
+            out = call(pipe, *args, **kwargs)
+            after = kernels.launches()
+            calls.append(dict(
+                launches={k: after[k] - before[k] for k in after},
+                shape_optimization=kwargs.get("shape_optimization", True)))
+            return out
+
+        with tempfile.TemporaryDirectory() as tmp:
+            make_procedural_dataset.generate(tmp, n=1, res=64, seed=777,
+                                             export_meshes=True)
+            config.update(input=os.path.join(tmp, "00000.obj"),
+                          trace_dir=os.path.join(tmp, "trace"))
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            SDFPipeline.__call__ = counted
+            t0 = time.perf_counter()
+            try:
+                results = real_data.runtime_analysis(config, device=self.dev)
+            finally:
+                SDFPipeline.__call__ = call
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            totals = kernels.launches()
+            trace = os.path.join(config["trace_dir"], real_data.TRACE_FILE)
+            with open(trace) as f:
+                names_march = "march_kernel" in f.read()
+            trace_bytes = os.path.getsize(trace)
+        print(f"runtime launches in the whole run {totals}; {len(calls)} "
+              f"full refinements; {run_s:.1f} s; trace {trace_bytes} bytes, "
+              f"names march_kernel {names_march}")
+        assert names_march, "the trace does not name march_kernel"
+        assert all(totals[k] > 0 for k in FUSED_KERNELS), totals
+        per_call = {}
+        for c in calls:
+            key = "with_decode" if c["shape_optimization"] else (
+                "without_decode")
+            per_call.setdefault(key, []).append(c["launches"])
+        for key, counts in per_call.items():
+            print(f"runtime launches per full refinement {key}: "
+                  f"{counts[0]} (all {len(counts)} calls equal: "
+                  f"{all(c == counts[0] for c in counts)})")
+            assert all(c == counts[0] for c in counts), counts
+        expect_launches(per_call["with_decode"][0], n_iter)
+        pipeline_ms = (self.report.get("_pipeline") or {}).get("ms_per_call")
+        for block, phases in results.items():
+            for name, stats in phases.items():
+                assert math.isfinite(stats["mean"]) and stats["mean"] > 0, (
+                    block, name, stats)
+            print(f"runtime {block}: {json.dumps(phases)}")
+        full = results["results_with_decode"]["full_refinement"]["mean"]
+        print(f"runtime full refinement {full * 1e3:.3f} ms (Redwood camera "
+              f"fx 525); the pipeline phase's {pipeline_ms} ms/call "
+              f"(default camera fx 320: printed, not held)")
+        for name in FUSED_KERNELS:
+            self.report[name]["runtime"] = dict(
+                launches_per_call=per_call["with_decode"][0][name],
+                launches_per_call_without_decode=per_call.get(
+                    "without_decode", [{}])[0].get(name),
+                calls=len(calls))
+        self.report["_runtime"] = dict(results=results, launches=per_call,
+                                       run_s=run_s, trace_bytes=trace_bytes)
 
     def train(self):
         """The training path on the card: the VAE trainer (step-0 parity,
@@ -3014,6 +3391,122 @@ def expect_launches(counts, n):
     assert counts == want, f"launches {counts}, expected {want}"
 
 
+def gl_quaternion(q_cv):
+    """An OpenCV-camera-frame orientation in the OpenGL camera frame (the
+    pipeline's): a half turn about x composed on the left."""
+    from scipy.spatial.transform import Rotation
+
+    return (Rotation.from_quat([1.0, 0.0, 0.0, 0.0])
+            * Rotation.from_quat(q_cv)).as_quat()
+
+
+def centred_mesh(path):
+    """An .obj's vertices with their bounding box centred, and faces."""
+    from sdfest_torch.pipeline import synthetic
+
+    v, f = synthetic.load_obj(path)
+    return v - (v.max(axis=0) + v.min(axis=0)) / 2.0, f
+
+
+def category_sample(path, category, scale, camera):
+    """A sample in NOCSDataset's format as category_evaluation loads it
+    (OpenCV camera frame, ``full`` extents, the canonical object frame the
+    axis remap gives): the mesh at half max extent ``scale`` and
+    CATEGORY_POSE, z-buffer rendered through ``camera``."""
+    import numpy as np
+
+    from sdfest_torch.ops import pointset
+    from sdfest_torch.pipeline import synthetic
+
+    v, f = centred_mesh(path)
+    mesh = synthetic.Mesh(vertices=v, faces=f, scale=scale)
+    mesh.position = np.asarray(CATEGORY_POSE[0], np.float64)
+    mesh.orientation = np.asarray(CATEGORY_POSE[1], np.float64)
+    depth = synthetic.draw_depth_geometry(mesh, camera).astype(np.float32)
+    mask = depth > 0
+    quat = mesh.orientation.astype(np.float32)
+    return {
+        "color": np.zeros(depth.shape + (3,), np.float32), "depth": depth,
+        "pointset": pointset.depth_to_pointcloud(
+            depth, camera, mask=mask, convention="opencv").astype(np.float32),
+        "mask": mask, "position": mesh.position.astype(np.float32),
+        "orientation": quat, "quaternion": quat,
+        "scale": (mesh.vertices.max(axis=0)
+                  - mesh.vertices.min(axis=0)).astype(np.float32),
+        "color_path": path, "obj_path": path,
+        "category_id": NOCS_IDS[category], "category_str": category,
+    }
+
+
+class InMemoryDataset:
+    """Samples held in memory; meshes load from their .obj (centred, in the
+    canonical frame: the procedural shapes need no axis remap)."""
+
+    def __init__(self, samples):
+        self.samples = samples
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        return self.samples[i]
+
+    def load_mesh(self, path):
+        return centred_mesh(path)
+
+
+class TruthPipeline:
+    """A stub pipeline that reports its samples' ground truth, in order, as
+    a pipeline would (the OpenGL camera frame), with each sample's own
+    mesh."""
+
+    def __init__(self, samples, dataset):
+        self.samples = list(samples)
+        self.dataset = dataset
+        self.current = None
+
+    def __call__(self, depth, mask, **kwargs):
+        import numpy as np
+        import torch
+
+        self.current = self.samples.pop(0)
+        s = self.current
+        pos = np.asarray(s["position"]) * [1.0, -1.0, -1.0]
+        half = float(np.max(s["scale"])) / 2.0
+        return (torch.tensor(pos[None], dtype=torch.float32),
+                torch.tensor(gl_quaternion(s["quaternion"])[None],
+                             dtype=torch.float32),
+                torch.tensor([half]), torch.zeros(1, 8))
+
+    def generate_mesh(self, latent, scale, complete_mesh=False):
+        from sdfest_torch.pipeline import synthetic
+
+        v, f = self.dataset.load_mesh(self.current["obj_path"])
+        return synthetic.Mesh(vertices=v, faces=f,
+                              scale=float(scale.reshape(-1)[0]))
+
+
+def init_outputs(pipe, sample, u):
+    """The init network's raw outputs on a sample (latent, position with
+    the point centroid added, scale, orientation logits), its points
+    subsampled with the uniforms ``u``."""
+    import torch
+
+    from sdfest_torch.ops import pointset
+
+    dev = pipe.device
+    depth = pipe._preprocess_depth(
+        torch.as_tensor(sample["depth"], device=dev),
+        torch.as_tensor(sample["mask"], device=dev))
+    points, valid = pointset.depth_to_pointcloud_dense(depth, pipe.camera)
+    points, centroid = pointset.normalize_points_masked(points, valid)
+    rows, _ = pointset.subsample_with_uniforms(points, valid, u.to(dev))
+    with torch.no_grad():
+        latent, position, scale, logits = pipe.init_network(rows[None])
+    return dict(latent=latent, position=position + centroid, scale=scale,
+                logits=logits)
+
+
 # the train phase: its data set, steps and units
 TRAIN_MUGS, TRAIN_VAE_STEPS, TRAIN_INIT_UNITS = 16, 20, 20
 VAE_WEIGHTS = "trained_models/mug_procedural/mug_procedural.msgpack"
@@ -3058,7 +3551,8 @@ def kernels_line(report) -> str:
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
                     "active_tiles", "all_miss", "flat", "zero_cotangents",
-                    "hot", "empty", "all_skip", "batch", "mesh", "train"):
+                    "hot", "empty", "all_skip", "batch", "mesh", "category",
+                    "runtime", "train"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -3100,10 +3594,17 @@ def main(argv=None) -> int:
             if any(k in line for k in ("entry function", "registers",
                                        "error", "spill")):
                 print(f"ptxas {name}: {line.strip()}")
+    from sdfest_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    print(f"build: host library {time.perf_counter() - t0:.2f} s wall (g++ "
+          f"{native.build_seconds} s; None: it was built before) -> {path}")
 
     smoke = Smoke()
     if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "bf16",
-                      "multiview", "batch", "mesh", "evaluate", "train"}:
+                      "multiview", "batch", "mesh", "evaluate", "category",
+                      "runtime", "train"}:
         phases = ["check"] + [p for p in phases if p != "check"]
     for phase in PHASES[1:]:
         if phase in phases:
@@ -3120,6 +3621,8 @@ def main(argv=None) -> int:
         "batch": smoke.report.get("_batch"),
         "mesh": smoke.report.get("_mesh"),
         "evaluate": smoke.report.get("_evaluate"),
+        "category": smoke.report.get("_category"),
+        "runtime": smoke.report.get("_runtime"),
         "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
                     if k.startswith("_profile_")},
         "card": card}))

@@ -10,6 +10,14 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 
+def load_image(path: str, dtype=None) -> np.ndarray:
+    """An image file as a numpy array.  PIL is imported here, so the
+    modules that read images import where PIL is absent."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path), dtype=dtype)
+
+
 def collate_samples(
     samples: Sequence[Dict[str, np.ndarray]],
     max_points: int = 2500,

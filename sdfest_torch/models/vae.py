@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sdfest_torch.ops.interpolation import resize_trilinear
+from sdfest_torch.utils.misc import str_to_tsdf
 
 
 def fp32_convolutions():
@@ -254,19 +255,6 @@ class SDFVAE(nn.Module):
         if self.tsdf is False:
             return sdfs
         return torch.clamp(sdfs, -self.tsdf, self.tsdf)
-
-
-def str_to_tsdf(x) -> Union[bool, float]:
-    """A config's ``tsdf`` value: False, or the truncation distance as a
-    float; falsy strings (``"false"``, ``"no"``, ``"0"``, ...) are False
-    (``sdfest_tpu/utils/misc.py:39``)."""
-    if isinstance(x, bool):
-        return False if not x else float(x)
-    if isinstance(x, (int, float)):
-        return float(x)
-    if str(x).lower() in ("no", "false", "f", "n", "0"):
-        return False
-    return float(x)
 
 
 def create_vae_from_config(config: Dict[str, Any]) -> SDFVAE:

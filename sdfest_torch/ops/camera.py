@@ -2,7 +2,7 @@
 
 A frozen, hashable dataclass, so ray-direction tables can be cached per
 camera.  ``strided`` gives the exactly-strided camera of the coarse
-refinement phases; the Open3D export is not ported yet.
+refinement phases; the Open3D export is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +34,16 @@ class Camera:
         cx_corrected = self.cx - self.pixel_center + pixel_center
         cy_corrected = self.cy - self.pixel_center + pixel_center
         return self.fx, self.fy, cx_corrected, cy_corrected, self.s
+
+    def intrinsic_matrix(self, pixel_center: float = 0.0):
+        """3x3 intrinsic matrix ``[[fx, s, cx], [0, fy, cy], [0, 0, 1]]``
+        for the requested pixel-center convention (row-major numpy array)."""
+        import numpy as np
+
+        fx, fy, cx, cy, s = self.get_pinhole_camera_parameters(pixel_center)
+        return np.array(
+            [[fx, s, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=np.float64
+        )
 
     def strided(self, factor: int) -> "Camera":
         """Camera observing every ``factor``-th pixel of this camera.

@@ -4,9 +4,10 @@
 Marching *tetrahedra*: each cell is split into 6 tetrahedra, which needs no
 256-case tables, gives watertight isosurfaces and vectorizes cleanly.  The
 code is the JAX package's numpy path, term by term, so both give the same
-mesh for the same grid.  The JAX package switches to its host C++ library
-for large grids when that library is built; the port has no such branch
-(the library waits for ROADMAP section 1, item 9).
+mesh for the same grid.  :func:`marching_cubes` takes the host C++
+library's marching tetrahedra (:mod:`sdfest_torch.native`) where it can be
+built, as the JAX package does; :func:`marching_tetrahedra_np` stays the
+plain version.
 
 Vertex coordinates match skimage conventions: index-space positions scaled
 by ``spacing`` (vertex ``i`` along an axis sits at ``i * spacing``).
@@ -192,5 +193,10 @@ def marching_cubes(
     grid = np.asarray(grid)
     if not (grid.min() < level < grid.max()):
         return None, None
-    verts, faces = marching_tetrahedra_np(grid, level)
+    from sdfest_torch.native import api as native_api
+
+    if native_api.available():
+        verts, faces = native_api.marching_tetrahedra(grid, level)
+    else:
+        verts, faces = marching_tetrahedra_np(grid, level)
     return verts * np.asarray(spacing)[None, :], faces

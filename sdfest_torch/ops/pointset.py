@@ -1,16 +1,29 @@
 """Point-set utilities: dense depth lifting, masked normalization and
 subsampling (counterpart of ``sdfest_tpu/ops/pointset.py``).
 
-Point sets are dense ``(M, 3)`` tensors with a validity mask, so every shape
-is fixed and the refinement loop needs no host synchronisation.
+Point sets on the refinement path are dense ``(M, 3)`` tensors with a
+validity mask, so every shape is fixed and the loop needs no host
+synchronisation.  The dataset loaders use the host-side numpy helpers:
+:func:`depth_to_pointcloud` (variable length), :func:`normalize_points` and
+the ``change_*_camera_convention`` functions.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from sdfest_torch.ops import quaternion
 from sdfest_torch.ops.camera import Camera
+
+
+def normalize_points(points: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-mean normalize ``(..., M, D)`` point sets; returns the moved
+    points and the centroids ``(..., D)``."""
+    centroids = torch.mean(points, dim=-2, keepdim=True)
+    return points - centroids, centroids.squeeze(-2)
 
 
 def normalize_points_masked(
@@ -127,3 +140,78 @@ def subsample_with_uniforms(
     rows = torch.gather(points, -2, idx[..., None].expand(
         *idx.shape, points.shape[-1]))
     return rows, n_valid[..., 0] > 0
+
+
+def depth_to_pointcloud(
+    depth_image: np.ndarray,
+    camera: Camera,
+    normalize: bool = False,
+    mask: Optional[np.ndarray] = None,
+    convention: str = "opengl",
+) -> np.ndarray:
+    """Host-side variable-length depth lifting (numpy): the valid points of
+    :func:`depth_to_pointcloud_dense`, shape ``(N, 3)`` in raster order,
+    optionally zero-mean.  For dataset preprocessing."""
+    depth_image = np.asarray(depth_image)
+    fx, fy, cx, cy, _ = camera.get_pinhole_camera_parameters(0.0)
+    masked = depth_image if mask is None else depth_image * np.asarray(mask)
+    rows, cols = np.nonzero(masked)
+    z = depth_image[rows, cols].astype(np.float32)
+    if convention == "opengl":
+        points = np.stack(
+            [(cols - cx) * z / fx, -(rows - cy) * z / fy, -z], axis=-1
+        )
+    elif convention == "opencv":
+        points = np.stack(
+            [(cols - cx) * z / fx, (rows - cy) * z / fy, z], axis=-1
+        )
+    else:
+        raise ValueError(f"Unsupported camera convention {convention}.")
+    if normalize:
+        points = points - points.mean(axis=0, keepdims=True)
+    return points
+
+
+def change_transform_camera_convention(
+    in_transform: torch.Tensor, in_convention: str, out_convention: str
+) -> torch.Tensor:
+    """Change the camera convention of frame-A -> camera ``(..., 4, 4)``
+    transforms."""
+    _check_conventions(in_convention, out_convention)
+    if in_convention == out_convention:
+        return in_transform
+    gl2cv = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0],
+                                    dtype=in_transform.dtype,
+                                    device=in_transform.device))
+    return gl2cv @ in_transform
+
+
+def change_position_camera_convention(
+    in_position: torch.Tensor, in_convention: str, out_convention: str
+) -> torch.Tensor:
+    """Change the camera convention of positions, shape ``(..., 3)``."""
+    _check_conventions(in_convention, out_convention)
+    if in_convention == out_convention:
+        return in_position
+    return in_position * torch.tensor([1.0, -1.0, -1.0],
+                                      dtype=in_position.dtype,
+                                      device=in_position.device)
+
+
+def change_orientation_camera_convention(
+    in_orientation_q: torch.Tensor, in_convention: str, out_convention: str
+) -> torch.Tensor:
+    """Change the camera convention of orientations (quaternions
+    ``(..., 4)``, scalar last)."""
+    _check_conventions(in_convention, out_convention)
+    if in_convention == out_convention:
+        return in_orientation_q
+    gl2cv_q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=in_orientation_q.dtype,
+                           device=in_orientation_q.device)
+    return quaternion.multiply(gl2cv_q, in_orientation_q)
+
+
+def _check_conventions(*conventions: str) -> None:
+    for convention in conventions:
+        if convention not in ("opengl", "opencv"):
+            raise ValueError(f"Camera convention {convention} not supported.")

@@ -1,9 +1,9 @@
 """Mesh <-> SDF conversion utilities (host-side numpy; counterpart of
 ``sdfest_tpu/ops/sdf_utils.py``).
 
-:func:`mesh_from_sdf` and :func:`sdf_to_pointcloud` are the JAX package's
-code.  :func:`mesh_to_sdf` needs the JAX package's host C++ voxelizer, which
-the port does not build yet (ROADMAP section 1, item 9): it raises.
+:func:`mesh_to_sdf` voxelizes with the port's host C++ library
+(:mod:`sdfest_torch.native`); :func:`mesh_from_sdf` and
+:func:`sdf_to_pointcloud` are the JAX package's code.
 """
 from __future__ import annotations
 
@@ -31,12 +31,27 @@ def mesh_to_sdf(
 ) -> Optional[np.ndarray]:
     """Convert a mesh to a discretized signed distance field.
 
-    Not ported: the JAX package voxelizes with its host C++ library, which
-    the port does not build yet (ROADMAP section 1, item 9).
+    The mesh is stretched so its longest extent fills the unit cube, leaving
+    ``padding`` empty cells on each side (reference semantics,
+    vae/sdf_utils.py:17-43).
+
+    Args:
+        mesh: The mesh to convert (unposed vertices are used).
+        cells_per_dim: Cells per grid axis.
+        padding: Number of empty boundary cells.
+    Returns:
+        (D, D, D) float32 SDF grid, or None if the voxelizer rejects the
+        mesh.
     """
-    raise NotImplementedError(
-        "mesh_to_sdf needs the host C++ voxelizer, not ported yet "
-        "(ROADMAP section 1, item 9)")
+    from sdfest_torch.native import api as native_api
+
+    vertices = scale_to_unit_cube(np.asarray(mesh.vertices, dtype=np.float64))
+    vertices = vertices * ((cells_per_dim - 2 * padding) / cells_per_dim)
+    try:
+        return native_api.voxelize_mesh(vertices, mesh.faces, cells_per_dim)
+    except ValueError as e:
+        print(f"Bad mesh detected ({e}). Skipping.")
+        return None
 
 
 def mesh_from_sdf(

@@ -79,9 +79,8 @@ from sdfest_torch.render.warm import (
     motion_bound,
     warm_render_step,
 )
-from sdfest_torch.utils import msgpack_reader
 from sdfest_torch.utils.device import resolve_device
-from sdfest_torch.utils.weights import load_flax_into, resolve_model_path
+from sdfest_torch.utils.weights import load_decoder_weights, load_init_weights
 
 _STATE_KEYS = ("position", "orientation", "scale", "latent")
 # the log's entries with one value per hypothesis and iteration
@@ -221,9 +220,11 @@ class SDFPipeline:
     def __init__(self, config: dict, device="cuda") -> None:
         """Build the networks from a config dict (the schema of
         ``configs/estimation/default.yaml`` + ``models/*.yaml``, e.g.
-        :data:`sdfest_torch.utils.presets.MUG_PROCEDURAL`) and load their
-        committed flax weights; missing ``model`` keys leave PyTorch's random
-        initialization.  Runs on ``device`` ("cuda" unless asked otherwise).
+        :data:`sdfest_torch.utils.presets.MUG_PROCEDURAL`) and load the
+        weights their ``model`` keys name (flax msgpack or the reference's
+        ``.pt`` checkpoints, :mod:`sdfest_torch.utils.weights`); missing
+        ``model`` keys leave PyTorch's random initialization.  Runs on
+        ``device`` ("cuda" unless asked otherwise).
         """
         _check_slice(config)
         self.device = resolve_device(device)
@@ -242,15 +243,11 @@ class SDFPipeline:
         self.resolution = self.vae_config.get("sdf_size", 64)
 
         self.decoder = create_decoder_from_config(self.vae_config)
-        path = resolve_model_path(self.vae_config)
-        if path is not None:
-            load_flax_into(self.decoder, msgpack_reader.load(path)["decoder"])
+        load_decoder_weights(self.decoder, self.vae_config)
         self.init_network = create_pose_net(
             self.init_config, shape_dimension=self.vae_config["latent_size"]
         )
-        path = resolve_model_path(self.init_config)
-        if path is not None:
-            load_flax_into(self.init_network, msgpack_reader.load(path))
+        load_init_weights(self.init_network, self.init_config)
         for net in (self.decoder, self.init_network):
             net.to(self.device).eval().requires_grad_(False)
 

@@ -51,6 +51,7 @@ from sdfest_torch.utils.config import (
     load_config_from_args,
     save_config_to_file,
 )
+from sdfest_torch.utils.device import synchronize
 
 DEFAULT_METRICS = {
     "chamfer": {
@@ -247,11 +248,6 @@ class Evaluator:
         mesh.orientation = mesh_orientation
         return {k: np.stack(v) for k, v in views.items()}
 
-    def _sync(self) -> None:
-        """Wait for the card, so each timed part ends with its device work."""
-        if torch.device(self.device).type == "cuda":
-            torch.cuda.synchronize()
-
     def _estimate(self, inputs: Dict, log_path, config: dict):
         """The pipeline's ``__call__`` on one file's views."""
         return self.pipeline(
@@ -281,7 +277,7 @@ class Evaluator:
 
         position, orientation, scale, shape = self._estimate(
             inputs, log_path, config)
-        self._sync()
+        synchronize(self.device)  # the call's device work ends here
         t2 = time.perf_counter()
         out_mesh = self.pipeline.generate_mesh(shape, scale, True)
         out_mesh.position = position[0].cpu().numpy()

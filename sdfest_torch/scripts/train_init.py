@@ -8,8 +8,9 @@
 The frozen VAE decoder (the ``vae`` config's ``model``) feeds the generated
 views (:class:`sdfest_torch.datasets.generated.SDFVAEViewDataset`), each
 dataset with the stable seed ``crc32(name)``; datasets of probability 0 are
-skipped, and a real-data dataset (NOCS, Redwood) of non-zero probability
-raises ``NotImplementedError`` until the loaders are ported.  With
+skipped.  The real-data datasets (``NOCSDataset``, ``AnnotatedRedwoodDataset``)
+load on the host, batched by a shuffling loader at a fixed point count and
+trained without a latent target, as in the JAX package.  With
 ``replay_buffer_size > 0`` and one generated dataset, each replay unit
 renders one generation batch into the ring on the device and takes
 ``replay_train_steps`` optimizer steps at ``replay_train_batch``
@@ -35,20 +36,19 @@ from typing import Dict
 
 import torch
 
-from sdfest_torch.datasets.dataset_utils import MultiDataLoader
+from sdfest_torch.datasets.dataset_utils import (
+    MultiDataLoader,
+    ShuffledLoader,
+    make_fixed_size_collate,
+)
 from sdfest_torch.datasets.generated import SDFVAEViewDataset
 from sdfest_torch.models.vae import create_decoder_from_config
-from sdfest_torch.scripts.train_vae import (
-    _synchronize,
-    add_common_arguments,
-    config_from_args,
-)
+from sdfest_torch.scripts.train_vae import add_common_arguments, config_from_args
 from sdfest_torch.training.init_trainer import InitTrainer
 from sdfest_torch.utils import checkpoint as ckpt
-from sdfest_torch.utils import msgpack_reader
-from sdfest_torch.utils.device import resolve_device
+from sdfest_torch.utils.device import resolve_device, synchronize
 from sdfest_torch.utils.logging import make_logger
-from sdfest_torch.utils.weights import load_flax_into, resolve_model_path
+from sdfest_torch.utils.weights import load_decoder_weights
 
 DATASET_TYPES = ("SDFVAEViewDataset", "NOCSDataset", "AnnotatedRedwoodDataset")
 
@@ -81,6 +81,25 @@ class _GeneratedLoader:
 
     def __next__(self):
         return self._dataset.sample_batch(self._batch_size, self.generator)
+
+
+class _RealLoader:
+    """Batch iterator of a real-data dataset (NOCS, Redwood): its collated
+    numpy batches as tensors, the labels the init network is trained on
+    (no latent: the latent loss is left out, as in the JAX package)."""
+
+    KEYS = ("pointset", "position", "scale", "orientation", "quaternion")
+
+    def __init__(self, loader: ShuffledLoader):
+        self._batches = iter(loader)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        batch = next(self._batches)
+        return {k: torch.as_tensor(v) for k, v in batch.items()
+                if k in self.KEYS}
 
 
 class Trainer:
@@ -121,9 +140,7 @@ class Trainer:
                         cfg["category_str"] = category
 
         self.decoder = create_decoder_from_config(self._vae_config)
-        path = resolve_model_path(self._vae_config)
-        if path is not None:
-            load_flax_into(self.decoder, msgpack_reader.load(path)["decoder"])
+        load_decoder_weights(self.decoder, self._vae_config)
         self.decoder.to(self.device).eval().requires_grad_(False)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(config.get("seed", 0))
@@ -138,16 +155,33 @@ class Trainer:
         dtype = spec["type"].split(".")[-1]
         if dtype not in DATASET_TYPES:
             raise ValueError(f"Unsupported dataset type {dtype}")
-        if dtype != "SDFVAEViewDataset":
-            raise NotImplementedError(
-                f"{dtype} needs the real-data loaders, which are not ported "
-                "yet; give it probability 0")
         cfg = dict(spec.get("config_dict", {}))
-        cfg.setdefault("num_points", self._num_points)
-        dataset = SDFVAEViewDataset(cfg, self.decoder, device=self.device)
-        self._generated_datasets[name] = dataset
-        return _GeneratedLoader(dataset, self._batch_size,
-                                seed=data_seed(name), seed_offset=seed_offset)
+        if dtype == "SDFVAEViewDataset":
+            cfg.setdefault("num_points", self._num_points)
+            dataset = SDFVAEViewDataset(cfg, self.decoder, device=self.device)
+            self._generated_datasets[name] = dataset
+            return _GeneratedLoader(dataset, self._batch_size,
+                                    seed=data_seed(name),
+                                    seed_offset=seed_offset)
+        if dtype == "NOCSDataset":
+            from sdfest_torch.datasets.nocs_dataset import NOCSDataset
+
+            dataset = NOCSDataset(cfg)
+        else:
+            from sdfest_torch.datasets.redwood_dataset import (
+                AnnotatedRedwoodDataset,
+            )
+
+            dataset = AnnotatedRedwoodDataset(cfg)
+        if len(dataset) < self._batch_size:
+            # the shuffling loader drops the last partial batch: it would
+            # never yield one
+            raise ValueError(f"{name} holds {len(dataset)} samples, fewer "
+                             f"than a batch of {self._batch_size}")
+        return _RealLoader(ShuffledLoader(
+            dataset, self._batch_size,
+            collate=make_fixed_size_collate(self._num_points),
+            seed=seed_offset))
 
     def _create_multi_data_loader(self, seed_offset: int = 0
                                   ) -> MultiDataLoader:
@@ -181,11 +215,11 @@ class Trainer:
         loader = self._create_multi_data_loader()
         for _ in range(5):
             self.trainer.step(next(loader))
-        _synchronize(self.device)
+        synchronize(self.device)
         start = time.perf_counter()
         for _ in range(steps):
             self.trainer.step(next(loader))
-        _synchronize(self.device)
+        synchronize(self.device)
         mean = (time.perf_counter() - start) / steps
         print(f"train step: {mean * 1000:.1f} ms "
               f"(batch {self._batch_size}, {steps} steps)")
@@ -290,8 +324,13 @@ class Trainer:
         for name, loader in validation_loaders.items():
             accum: Dict[str, float] = {}
             for _ in range(n_batches):
+                batch = next(loader)
+                if "latent_shape" not in batch:  # real data has no latent
+                    batch["latent_shape"] = torch.zeros(
+                        batch["pointset"].shape[0],
+                        self._vae_config["latent_size"])
                 for key, value in self.trainer.compute_metrics(
-                        next(loader)).items():
+                        batch).items():
                     accum[key] = accum.get(key, 0.0) + value
             metrics = {k: v / n_batches for k, v in accum.items()}
             print(f"Validation [{name}] @ {iteration}: {metrics}")

@@ -27,6 +27,7 @@ from sdfest_torch.datasets.sdf_dataset import SDFDataset
 from sdfest_torch.training.vae_trainer import VAETrainer
 from sdfest_torch.utils import checkpoint as ckpt
 from sdfest_torch.utils.config import _deep_merge, load_config_from_args
+from sdfest_torch.utils.device import synchronize
 from sdfest_torch.utils.logging import make_logger
 from sdfest_torch.utils.presets import preset
 
@@ -88,11 +89,6 @@ def train(config: dict, device="cuda") -> dict:
     return {"model": model_path, "config": config_path, "trainer": trainer}
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def benchmark(config: dict, steps: int = 30, device="cuda") -> float:
     """Mean seconds per training step over ``steps`` steps after 5 warm-up
     steps (host clock, the device synchronised at both ends)."""
@@ -103,11 +99,11 @@ def benchmark(config: dict, steps: int = 30, device="cuda") -> float:
         config.get("seed", 0))
     for _ in range(5):
         trainer.step(torch.from_numpy(next(batches)), generator=generator)
-    _synchronize(trainer.device)
+    synchronize(trainer.device)
     start = time.perf_counter()
     for _ in range(steps):
         trainer.step(torch.from_numpy(next(batches)), generator=generator)
-    _synchronize(trainer.device)
+    synchronize(trainer.device)
     mean = (time.perf_counter() - start) / steps
     print(f"train step: {mean * 1000:.1f} ms "
           f"(batch {config['batch_size']}, {steps} steps)")

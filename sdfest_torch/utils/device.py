@@ -22,3 +22,11 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda"
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def synchronize(device: Union[str, torch.device]) -> None:
+    """Wait for the work queued on a CUDA device (nothing on the CPU), so a
+    host clock read next includes it."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

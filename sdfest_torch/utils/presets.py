@@ -12,6 +12,15 @@ early stop); ``MUG_PROCEDURAL_TEMPORAL`` is ``MUG_PROCEDURAL`` with
 ``MUG_PROCEDURAL_BF16`` is ``MUG_PROCEDURAL`` with ``bf16_march: true``
 (default.yaml's switch: bf16-verified march samples).
 
+``BOWL_PROCEDURAL`` is ``models/bowl_procedural.yaml`` updated by
+``default.yaml`` (the committed bowl weights).  ``RUNTIME_ANALYSIS_DEMO`` is
+``configs/estimation/runtime_analysis_demo.yaml`` (the Redwood camera, the
+mug model, 50 iterations, 11 runs with the first skipped), and
+``REAL275_EVALUATION_PROCEDURAL`` is ``real275_evaluation.yaml`` (the NOCS
+REAL camera, 30 iterations) with ``category_configs`` cut to the two
+categories whose weights are committed (mug -> ``models/mug_procedural.yaml``,
+bowl -> ``models/bowl_procedural.yaml``), each as its resolved dict.
+
 The training presets are the resolved training configs:
 ``VAE_MUG_PROCEDURAL`` is ``configs/vae/mug_procedural.yaml`` (the mug VAE:
 batch 8, 64^3, latent 8, pc loss at 640x480) and ``INIT_MUG_PROCEDURAL_V3``
@@ -49,6 +58,33 @@ _GENERATED_VIEWS = {
     "mask_noise_max": 2.0, "norm_noise": False, "scale_to_unit_ball": False,
     "gaussian_noise_probability": 0.5, "orientation_repr": "discretized",
     "orientation_grid_resolution": 1, "category_str": "mug",
+}
+
+# configs/estimation/default.yaml
+_DEFAULT: Dict[str, Any] = {
+    "camera": {"width": 640, "height": 480, "fx": 320, "fy": 320, "cx": 320,
+               "cy": 240, "pixel_center": 0.5},
+    "threshold": 0.005,
+    "iso_threshold": 0.02,
+    "max_iterations": 50,
+    "depth_weight": 1.0,
+    "pc_weight": 3.0,
+    "nn_weight": 0.0,
+    "mean_shape": False,
+    "init_view": "first",
+    "shape_init": "prediction",
+    "renderer_backend": "auto",
+    "relaxation": 1.0,
+    "coarse_culling": True,
+    "bf16_march": False,
+    "temporal_coherence": False,
+    "roi_size": None,
+    "roi_margin": 48,
+    "multires_factor": 1,
+    "multires_iterations": 0,
+    "temporal_refresh_interval": 8,
+    "early_stop_delta": 0.0,
+    "early_stop_interval": 10,
 }
 
 MUG_PROCEDURAL: Dict[str, Any] = {
@@ -105,30 +141,7 @@ MUG_PROCEDURAL: Dict[str, Any] = {
     },
     "category": "cup",
     "far_field": 2.0,
-    # default.yaml
-    "camera": {"width": 640, "height": 480, "fx": 320, "fy": 320, "cx": 320,
-               "cy": 240, "pixel_center": 0.5},
-    "threshold": 0.005,
-    "iso_threshold": 0.02,
-    "max_iterations": 50,
-    "depth_weight": 1.0,
-    "pc_weight": 3.0,
-    "nn_weight": 0.0,
-    "mean_shape": False,
-    "init_view": "first",
-    "shape_init": "prediction",
-    "renderer_backend": "auto",
-    "relaxation": 1.0,
-    "coarse_culling": True,
-    "bf16_march": False,
-    "temporal_coherence": False,
-    "roi_size": None,
-    "roi_margin": 48,
-    "multires_factor": 1,
-    "multires_iterations": 0,
-    "temporal_refresh_interval": 8,
-    "early_stop_delta": 0.0,
-    "early_stop_interval": 10,
+    **copy.deepcopy(_DEFAULT),
 }
 
 MUG_PROCEDURAL_FAST: Dict[str, Any] = {
@@ -154,6 +167,75 @@ MUG_PROCEDURAL_TEMPORAL: Dict[str, Any] = {
 MUG_PROCEDURAL_BF16: Dict[str, Any] = {
     **copy.deepcopy(MUG_PROCEDURAL),
     "bf16_march": True,
+}
+
+# configs/estimation/models/mug_procedural.yaml and bowl_procedural.yaml:
+# the same blocks, the bowl's weights and generated-view distribution
+_MUG_MODEL: Dict[str, Any] = {
+    k: copy.deepcopy(MUG_PROCEDURAL[k])
+    for k in ("vae", "init", "category", "far_field")}
+_BOWL_MODEL: Dict[str, Any] = copy.deepcopy(_MUG_MODEL)
+_BOWL_MODEL["vae"]["model"] = (
+    "trained_models/bowl_procedural/bowl_procedural.msgpack")
+_BOWL_MODEL["init"].update(
+    category_str="bowl",
+    model="trained_models/init_bowl_procedural/init_bowl_procedural.msgpack")
+_bowl_views = _BOWL_MODEL["init"]["datasets"]["generated_dataset"][
+    "config_dict"]
+del _bowl_views["center_frac"]
+_bowl_views.update(z_min=0.2, z_max=1.5, extent_mean=0.16, extent_std=0.015,
+                   category_str="bowl")
+_BOWL_MODEL["category"] = "bowl"
+
+BOWL_PROCEDURAL: Dict[str, Any] = {**copy.deepcopy(_BOWL_MODEL),
+                                   **copy.deepcopy(_DEFAULT)}
+
+# runtime_analysis_demo.yaml: redwood.yaml (default.yaml + the Redwood
+# camera), the mug model, and the runtime protocol
+RUNTIME_ANALYSIS_DEMO: Dict[str, Any] = {
+    **copy.deepcopy(MUG_PROCEDURAL),
+    "camera": {"width": 640, "height": 480, "fx": 525, "fy": 525,
+               "cx": 319.5, "cy": 239.5, "pixel_center": 0},
+    "threshold": 0.003,
+    "dataset": "synthetic",
+    "input": "data/mug_procedural_eval_meshes/00000.obj",
+    "max_iterations": 50,
+    "measure_runtime": True,
+    "runs": 11,
+    "skip_first_run": True,
+}
+
+# real275_evaluation.yaml (real275.yaml: default.yaml + the NOCS REAL
+# camera) with category_configs cut to the categories whose weights are
+# committed, each the resolved model dict (no YAML needed to build them)
+REAL275_EVALUATION_PROCEDURAL: Dict[str, Any] = {
+    **copy.deepcopy(_DEFAULT),
+    "camera": {"width": 640, "height": 480, "fx": 591.0125, "fy": 590.16775,
+               "cx": 322.525, "cy": 244.11084, "pixel_center": 0},
+    "max_iterations": 30,
+    "dataset": "real275",
+    "far_field": 2.0,
+    "category_configs": {"mug": copy.deepcopy(_MUG_MODEL),
+                         "bowl": copy.deepcopy(_BOWL_MODEL)},
+    "visualize_optimization": False,
+    "log_folder": None,
+    "run_name": "",
+    "split": "real_test",
+    "samples": 20000,
+    "correctness": {
+        "iou_3d": {"iou_3d_thresholds": [0.25, 0.5]},
+        "deg_cm": {"degree_thresholds": [5.0, 10.0],
+                   "position_thresholds": [0.05, 0.1]},
+    },
+    "metrics": {
+        "chamfer": {"f": "sdfest_tpu.pipeline.metrics.symmetric_chamfer",
+                    "kwargs": {}},
+        "mean_accuracy": {"f": "sdfest_tpu.pipeline.metrics.mean_accuracy",
+                          "kwargs": {}},
+        "mean_completeness": {
+            "f": "sdfest_tpu.pipeline.metrics.mean_completeness",
+            "kwargs": {}},
+    },
 }
 
 _MUG_DECODER = copy.deepcopy(MUG_PROCEDURAL["vae"]["decoder"])
@@ -261,6 +343,9 @@ INIT_MUG_PROCEDURAL_V3: Dict[str, Any] = {
 }
 
 PRESETS = {"mug_procedural": MUG_PROCEDURAL,
+           "bowl_procedural": BOWL_PROCEDURAL,
+           "runtime_analysis_demo": RUNTIME_ANALYSIS_DEMO,
+           "real275_evaluation_procedural": REAL275_EVALUATION_PROCEDURAL,
            "vae_mug_procedural": VAE_MUG_PROCEDURAL,
            "init_mug_procedural_v3": INIT_MUG_PROCEDURAL_V3,
            "mug_procedural_bf16": MUG_PROCEDURAL_BF16,

@@ -21,6 +21,12 @@ Training state: a JAX trainer's ``{"params", "batch_stats", "opt_state",
 ``torch.optim.Adam`` (``step``, ``exp_avg``, ``exp_avg_sq``) and the
 iteration (:func:`load_flax_state`), so a JAX checkpoint resumes in the
 port.
+
+Weight files: a config's ``model`` is searched as the JAX package searches
+it (:func:`resolve_model_path`, nothing downloaded) and loaded by its
+extension, a reference PyTorch checkpoint (``.pt``,
+:mod:`sdfest_torch.utils.convert_torch`) or flax msgpack
+(:func:`load_decoder_weights`, :func:`load_init_weights`).
 """
 from __future__ import annotations
 
@@ -131,13 +137,15 @@ def load_flax_state(state: Dict[str, Any], module: torch.nn.Module,
     return int(np.asarray(state.get("iteration", 0)))
 
 
-def load_flax_into(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
-    """Load a flax tree into ``module``; every parameter must be covered.
+def load_strict(module: torch.nn.Module,
+                state: Dict[str, torch.Tensor]) -> None:
+    """Load a state dict into ``module``; every parameter must be covered.
 
-    BatchNorm's ``num_batches_tracked`` counter has no flax counterpart and
-    is the only key allowed to stay at its initial value.
+    BatchNorm's ``num_batches_tracked`` counter (which flax and the
+    reference's checkpoints may lack) is the only key allowed to stay at its
+    initial value.
     """
-    result = module.load_state_dict(flax_to_torch(tree), strict=False)
+    result = module.load_state_dict(state, strict=False)
     missing = [k for k in result.missing_keys
                if not k.endswith("num_batches_tracked")]
     if missing or result.unexpected_keys:
@@ -147,13 +155,78 @@ def load_flax_into(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
         )
 
 
+def load_flax_into(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
+    """Load a flax tree into ``module``; every parameter must be covered."""
+    load_strict(module, flax_to_torch(tree))
+
+
+def _search_paths():
+    """Where a config's relative ``model`` path is looked for, in order:
+    the working directory, the repository root, and the two weight
+    directories under the user's home (the JAX package's and the
+    reference's)."""
+    return [
+        ".",
+        _REPO_ROOT,
+        os.path.expanduser("~/.sdfest_tpu/model_weights/"),
+        os.path.expanduser("~/.sdfest/model_weights/"),
+    ]
+
+
 def resolve_model_path(config: Dict[str, Any]) -> Optional[str]:
-    """Path of a config's ``model`` weights (repo-relative or absolute)."""
+    """The existing path of a config's ``model`` weights, ``~`` expanded and
+    searched as the JAX package searches; None when the config names none.
+
+    Nothing is downloaded: a missing file raises ``FileNotFoundError`` with
+    the JAX package's hint (``model_url`` where the config has one).
+    """
     model = config.get("model")
     if model is None:
         return None
-    for base in ("", _REPO_ROOT):
-        candidate = os.path.join(base, model) if base else model
+    path = os.path.expanduser(model)
+    candidates = [path] if os.path.isabs(path) else [
+        os.path.join(os.path.expanduser(base), path)
+        for base in _search_paths()]
+    for candidate in candidates:
         if os.path.exists(candidate):
             return candidate
-    raise FileNotFoundError(f"Model weights {model} not found.")
+    url = config.get("model_url")
+    hint = f" Download it from {url} and place it at {model}." if url else ""
+    raise FileNotFoundError(
+        f"Model weights {model} not found in search paths.{hint} "
+        "PyTorch .pt checkpoints from the reference are converted "
+        "automatically on load."
+    )
+
+
+def load_decoder_weights(decoder: torch.nn.Module,
+                         vae_config: Dict[str, Any]) -> None:
+    """Load the decoder of a VAE config's ``model``: a reference ``.pt``
+    checkpoint or a flax msgpack file; no ``model`` keeps the module's
+    initialisation."""
+    path = resolve_model_path(vae_config)
+    if path is None:
+        return
+    if path.endswith(".pt"):
+        from sdfest_torch.utils import convert_torch
+
+        load_strict(decoder, convert_torch.decoder_state_dict(path,
+                                                              vae_config))
+    else:
+        load_flax_into(decoder, msgpack_reader.load(path)["decoder"])
+
+
+def load_init_weights(net: torch.nn.Module,
+                      init_config: Dict[str, Any]) -> None:
+    """Load an init config's ``model`` (params and BatchNorm statistics): a
+    reference ``.pt`` checkpoint or a flax msgpack file; no ``model`` keeps
+    the module's initialisation."""
+    path = resolve_model_path(init_config)
+    if path is None:
+        return
+    if path.endswith(".pt"):
+        from sdfest_torch.utils import convert_torch
+
+        load_strict(net, convert_torch.init_state_dict(path, init_config))
+    else:
+        load_flax_into(net, msgpack_reader.load(path))

@@ -820,3 +820,26 @@ def test_training_batchnorm_on_card_matches_float64_cpu(dev):
             ref.abs().max())
     for got, ref in zip(card[4:], want[4:]):
         assert float((got - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [True, False])
+def test_march_on_a_nocs_like_camera_equals_plain_twin(dev, flags):
+    """A NOCS-like camera (``pixel_center`` 0, an off-centre principal
+    point, fx != fy): the march through ``render_depth`` equals its plain
+    version bit for bit."""
+    cam = Camera(width=96, height=72, fx=88.65, fy=88.53, cx=48.38,
+                 cy=36.62, pixel_center=0)
+    sdf = _box_sdf().to(dev)
+    q = torch.tensor([0.2, 0.1, 0.0, 0.97], device=dev)
+    q = q / q.norm()
+    pos = torch.tensor([0.02, -0.03, -0.6], device=dev)
+    inv_s = torch.tensor(1 / 0.2, device=dev)
+    depth = api.render_depth(sdf, pos, q, inv_s, camera=cam, threshold=0.005,
+                             culling=flags, adaptive=flags, device=dev)
+    rays = api.ray_set(cam, dev).march
+    want = plain.march_plain(sdf, rays.reshape(-1, 3),
+                             kernels.pose_params(pos, q, inv_s), 0.005, 500,
+                             flags, flags).reshape(depth.shape)
+    assert int((want > 0).sum()) > 300
+    assert torch.equal(depth, want)

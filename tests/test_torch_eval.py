@@ -28,6 +28,7 @@ from sdfest_tpu.render import xla
 from sdfest_tpu.scripts import play_log as jplay_log
 from sdfest_tpu.scripts import rendering_evaluation as jrend_eval
 from sdfest_tpu.utils import config as jconfig
+from sdfest_torch.native import api as tnative
 from sdfest_torch.ops import pointset as tpointset
 from sdfest_torch.pipeline import metrics as tmetrics
 from sdfest_torch.pipeline import synthetic as tsynthetic
@@ -288,8 +289,9 @@ def test_evaluator_matches_jax(mesh_dir, jax_draws, monkeypatch):
     """One mesh, one view: the pipeline's outputs within 1e-4 of JAX's,
     the metrics (the evaluation config's five and the pose errors) within
     1e-3, and the same keys (the JAX package's estimated mesh from its
-    numpy marching tetrahedra)."""
+    numpy marching tetrahedra, as the port's)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     outputs = {}
 
     def recording(cls, name):

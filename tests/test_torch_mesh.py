@@ -4,10 +4,11 @@ metrics, the procedural scenes and data set, the SDF <-> mesh utilities,
 and ``SDFPipeline.generate_depth`` / ``generate_mesh`` on the committed mug
 weights at a 128x96 camera.
 
-The JAX package takes its host C++ marching tetrahedra when that library is
+Both packages take their host C++ marching tetrahedra when that library is
 built, whose meshes differ from the numpy path's by a few percent in their
-counts; the parity tests turn it off (``native_off``) and hold the port to
-the JAX package's numpy path.  JAX runs in float64 here
+counts; the parity tests turn it off in both (``native_off``) and hold the
+port's numpy path to the JAX package's (``test_torch_native.py`` holds the
+two native paths to each other).  JAX runs in float64 here
 (``tests/conftest.py``); its outputs are cast to float32 where the port
 computes in float32.
 """
@@ -28,6 +29,7 @@ from sdfest_tpu.pipeline import synthetic as jsynthetic
 from sdfest_tpu.pipeline.pipeline import SDFPipeline as JPipeline
 from sdfest_tpu.scripts import make_procedural_dataset as jmpd
 from sdfest_tpu.utils import scenes as jscenes
+from sdfest_torch.native import api as tnative
 from sdfest_torch.ops import marching_cubes as tmc
 from sdfest_torch.ops import sdf_utils as tsdf_utils
 from sdfest_torch.ops.camera import Camera
@@ -66,8 +68,9 @@ def one_thread():
 
 @pytest.fixture
 def native_off(monkeypatch):
-    """The JAX package's numpy marching tetrahedra, whatever is built."""
+    """Both packages' numpy marching tetrahedra, whatever is built."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -304,9 +307,19 @@ def test_sdf_to_pointcloud_equals_jax():
 
 
 def test_mesh_to_sdf_raises_until_the_host_library_is_ported():
+    """The host library is ported: the cube voxelizes (inside negative,
+    outside positive), and a mesh the voxelizer rejects gives None, as in
+    the JAX package.  (Rays along a face's diagonal cross two triangles'
+    shared edge, so the x-ray parity misreads cells with y == z, and there
+    the result depends on the compiler's contraction of products into FMAs:
+    the probe avoids them, and ``test_torch_native.py`` holds the port to
+    the JAX package bit for bit on a mesh without such rays.)"""
     v, f = _cube()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsdf_utils.mesh_to_sdf(tsynthetic.Mesh(v, f), 32)
+    sdf = tsdf_utils.mesh_to_sdf(tsynthetic.Mesh(v, f), 32, padding=2)
+    assert sdf.shape == (32, 32, 32) and sdf.dtype == np.float32
+    assert sdf[16, 10, 20] < 0 < sdf[0, 0, 0]
+    empty = tsynthetic.Mesh(v, np.zeros((0, 3), np.int64))
+    assert tsdf_utils.mesh_to_sdf(empty, 32) is None
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ resume and model export, and the exported models read back by both
 packages."""
 import copy
 import os
+import sys
 import zlib
 
 import numpy as np
@@ -196,6 +197,22 @@ def test_train_init_replay_units_resume_and_export(tmp_path, capsys):
         "head.bn_0.running_var"], state["head.bn_0.running_var"])
 
 
+def _redwood_tree(tmp_path, frames):
+    """The Redwood fixture of ``test_datasets.py`` with ``frames``
+    annotations of its one frame."""
+    import json
+
+    from test_datasets import _make_redwood_fixture
+
+    root_dir, ann_dir, _, _ = _make_redwood_fixture(tmp_path)
+    with open(ann_dir / "annotations.json") as f:
+        anns = json.load(f)
+    anns["seq1"]["pose_anns"] *= frames
+    with open(ann_dir / "annotations.json", "w") as f:
+        json.dump(anns, f)
+    return root_dir, ann_dir
+
+
 def test_train_init_datasets_seeds_and_real_data(tmp_path):
     config = _init_config(tmp_path, replay_buffer_size=0, iterations=2,
                           validation_iteration=0, checkpoint_iteration=0)
@@ -205,8 +222,53 @@ def test_train_init_datasets_seeds_and_real_data(tmp_path):
     assert train_init.data_seed("generated_dataset") == \
         zlib.crc32(b"generated_dataset") % 2 ** 31
     assert trainer.benchmark(steps=1) > 0
-    config["datasets"]["camera_train"]["probability"] = 0.5
-    with pytest.raises(NotImplementedError, match="real-data loaders"):
+    # a real-data dataset beside the generated one: a Redwood tree of 4
+    # annotated frames, batched on the host without a latent target
+    root_dir, ann_dir = _redwood_tree(tmp_path, frames=4)
+    config["datasets"]["camera_train"] = {
+        "type": "AnnotatedRedwoodDataset", "probability": 0.5,
+        "config_dict": {"root_dir": str(root_dir), "ann_dir": str(ann_dir),
+                        "normalize_pointcloud": True,
+                        "mask_pointcloud": True, "remap_y_axis": "y",
+                        "remap_x_axis": "-z"}}
+    config.update(iterations=4, validation_iteration=2)
+    config["validation_datasets"] = {"redwood": config["datasets"][
+        "camera_train"]}
+    real = train_init.Trainer(copy.deepcopy(config), device="cpu")
+    # the trainer's dataset config (its orientation representation and
+    # category written in)
+    batch = next(real._create_dataset(
+        "camera_train", real._init_config["datasets"]["camera_train"]))
+    assert set(batch) == {"pointset", "position", "scale", "orientation",
+                          "quaternion"}
+    assert batch["pointset"].shape == (4, 100, 3)
+    assert batch["orientation"].dtype == torch.int64  # the grid cell
+    assert real.run()["trainer"].iteration == 4
+
+
+def test_train_init_trains_on_a_nocs_tree(tmp_path):
+    """A NOCS dataset (the miniature tree of ``test_torch_datasets.py``:
+    one ``real_train`` instance whose pose comes from its NOCS map) as the
+    only data source, at a batch of 1; a batch larger than the dataset
+    raises instead of waiting forever for a batch."""
+    from test_torch_datasets import _write_frame
+
+    _write_frame(tmp_path / "nocs", "real_train", with_nocs_map=True)
+    config = _init_config(tmp_path, replay_buffer_size=0, iterations=2,
+                          validation_iteration=0, checkpoint_iteration=0,
+                          batch_size=1)
+    config["datasets"] = {"real_train": {
+        "type": "NOCSDataset", "probability": 1.0,
+        "config_dict": {"root_dir": str(tmp_path / "nocs"),
+                        "split": "real_train", "mask_pointcloud": True,
+                        "normalize_pointcloud": True, "remap_y_axis": "y",
+                        "remap_x_axis": "-z"}}}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "joblib", None)  # preprocess in one process
+        out = train_init.Trainer(copy.deepcopy(config), device="cpu").run()
+    assert out["trainer"].iteration == 2
+    config["batch_size"] = 2
+    with pytest.raises(ValueError, match="fewer than a batch of 2"):
         train_init.Trainer(copy.deepcopy(config), device="cpu").run()
 
 
