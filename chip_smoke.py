@@ -13,6 +13,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check,mesh,evaluate   # slice 8
     python3 chip_smoke.py --phases build,check,train   # slice 9: training
     python3 chip_smoke.py --phases build,check,category,runtime   # slice 10
+    python3 chip_smoke.py --phases build,check,parallel,scripts   # slice 11
 
 Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
@@ -118,6 +119,34 @@ Phases:
             shape optimization (every refinement of a block equal), the
             trace naming march_kernel; both result blocks printed beside
             the pipeline phase's ms/call
+  parallel  torch.distributed on the card (one GPU: world size 1 under
+            NCCL): initialize_distributed(device="cuda") on a free
+            localhost port; one VAETrainer.step(group=) through
+            shard_map_data_parallel_step at the train phase's size (the
+            committed mug VAE, 8 procedural mugs, pc loss at 640x480)
+            against the plain step from the same state, eps and
+            quaternions: loss terms within PARALLEL_TERMS_REL, launches
+            march 1, sample-grad 1, scatter 1, ms per DP step;
+            sharded_refine_batch of 8 hypotheses (batch_inputs, full frame,
+            50 iterations) against refine_batch on the same inputs by the
+            batch phase's checks (iteration 0 within 1e-6, after the first
+            update within EARLY_TOL, final loss within FINAL_SHARE),
+            launches 50 per kernel each serving 8 hypotheses, ms per call
+            in turns; then run_distributed in two processes that share the
+            card in one gloo group, on the evaluate phase's 2 held-out
+            meshes, one view: each evaluates 1 of 2, the merged statistics
+            finite, one merged YAML, no partial pickle
+  scripts   offset_experiment on the sphere at 640x480, 200 iterations:
+            the CPU test's bars, launches march 202 (target, 200
+            iterations, final render), sample-grad 200, scatter 0 (the
+            SDF is fixed); the CUDA march on an analytic sphere and box at
+            test_renderer.py's pose, 640x480, against the numpy golden
+            renderer (render/reference.py): plain march by the golden bars,
+            default march by the march tolerance; LatentExplorer.animate on
+            the committed mug (11 frames, 320x240): one march launch per
+            frame; benchmark_vae (64^3 decoder, forward and
+            forward+backward ms) and benchmark_ops; process_shapenet of one
+            generated mesh at 64^3
   train     16 procedural mugs (seed 0, 64^3); the VAE trainer of preset
             vae_mug_procedural (batch 8, pc loss at 640x480): at step 0 from
             the committed mug VAE, the pc march bit for bit its plain
@@ -177,7 +206,7 @@ import time
 
 PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
           "bf16", "multiview", "batch", "mesh", "evaluate", "category",
-          "runtime", "train", "time", "profile")
+          "runtime", "parallel", "scripts", "train", "time", "profile")
 HYPOTHESES = 8  # refine_batch's batch (bench.py's --hypotheses default)
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
@@ -284,6 +313,40 @@ GT_POSES = [  # (position, half-width, quaternion xyzw), tilted views
 ]
 
 
+# the parallel phase: the DP step's loss terms against the plain step's
+# (relative), the timed DP steps; the sweep's worker (one of two processes
+# sharing the card in one gloo group: argv root, coordinator, rank, config,
+# the device that evaluates)
+PARALLEL_TERMS_REL = 1e-5
+DP_STEPS = 6
+SWEEP_WORKER = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from sdfest_torch.parallel import distributed as dist
+from sdfest_torch.scripts.distributed_evaluation import run_distributed
+rank = int(sys.argv[3])
+dist.initialize_distributed(sys.argv[2], 2, rank, device="cpu")
+with open(sys.argv[4]) as f:
+    config = json.load(f)
+results = run_distributed(config, device=sys.argv[5])
+if rank == 0:
+    print("SWEEP_RESULTS " + json.dumps(results))
+torch.distributed.destroy_process_group()
+"""
+# the scripts phase: offset_experiment's iterations (the script's default),
+# the animation's frames per segment, the micro-benchmarks' timed calls
+EXPERIMENT_ITERATIONS = 200
+# the start of the JAX script's experiment: its position draw,
+# jax.random.normal(PRNGKey(0), (3,)) in float32 (the CPU test's start too)
+EXPERIMENT_NOISE = (1.622642159461975, 2.0252647399902344,
+                    -0.4335944354534149)
+SCRIPT_CAMERA = dict(width=640, height=480, fx=320, fy=320, cx=320, cy=240,
+                     pixel_center=0.5)
+ANIMATE_FRAMES = 10
+BENCHMARK_ITERATIONS = 100
+
+
 # the category phase: CATEGORY_PER_CLASS held-out procedural shapes of each
 # class (make_procedural_dataset --seed 777) at their half max extent,
 # z-buffer rendered at one tilted pose 0.6 m ahead of the NOCS REAL camera
@@ -343,6 +406,37 @@ def gather_bytes(points, active, res) -> int:
 
     idx, _ = trilinear_weights(points[active], res)
     return 12 * int(active.sum()) + 4 * int(torch.unique(idx).numel())
+
+
+def free_port() -> int:
+    """A free TCP port on localhost (for a process group's store)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def analytic_sphere(res: int, radius: float = 0.5):
+    """Sphere SDF on the [-1, 1]^3 grid (tests/conftest.py's)."""
+    import numpy as np
+
+    c = np.linspace(-1.0, 1.0, res)
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    return (np.sqrt(x * x + y * y + z * z) - radius).astype(np.float32)
+
+
+def analytic_box(res: int, half_extents=(0.4, 0.3, 0.5)):
+    """Axis-aligned box SDF on the [-1, 1]^3 grid (tests/conftest.py's)."""
+    import numpy as np
+
+    c = np.linspace(-1.0, 1.0, res)
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    q = np.stack([np.abs(x) - half_extents[0], np.abs(y) - half_extents[1],
+                  np.abs(z) - half_extents[2]], axis=-1)
+    outside = np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+    inside = np.minimum(np.max(q, axis=-1), 0.0)
+    return (outside + inside).astype(np.float32)
 
 
 def unit_quat(q, device):
@@ -2701,6 +2795,468 @@ class Smoke:
                     ce_last5=last, committed_ce=committed_ce,
                     march_launches_per_unit=counts["march"])
 
+    # -- slice 11: parallel and scripts ------------------------------------
+
+    def parallel(self):
+        """torch.distributed on the card: a world-1 NCCL group, one VAE DP
+        step against the plain step, sharded_refine_batch against
+        refine_batch, then the rendering sweep in two card-sharing gloo
+        processes (see the module docstring)."""
+        import torch
+
+        from sdfest_torch.parallel import distributed as dist
+        from sdfest_torch.parallel import mesh as pmesh
+
+        out = self.report["_parallel"] = {}
+        coordinator = f"localhost:{free_port()}"
+        dist.initialize_distributed(coordinator, 1, 0, device=self.dev.type)
+        try:
+            mesh = pmesh.make_mesh()
+            backend = torch.distributed.get_backend()
+            print(f"parallel: group {backend} world {mesh.world} rank "
+                  f"{mesh.rank} device {mesh.device} at {coordinator}")
+            assert backend == dist.BACKENDS[self.dev.type], backend
+            assert mesh.world == 1 and mesh.device.type == self.dev.type
+            out["vae_step"] = self.parallel_vae_step(mesh)
+            out["sharded_refine"] = self.parallel_refine(mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+        out["sweep"] = self.parallel_sweep()
+
+    def parallel_vae_step(self, mesh):
+        """One VAETrainer.step(group=) through shard_map_data_parallel_step
+        at the train phase's size (committed mug VAE, batch 8, pc loss at
+        640x480) against the plain step from the same state and draws:
+        loss terms within PARALLEL_TERMS_REL, one march, sample-grad and
+        scatter launch; then ms per DP step over DP_STEPS steps."""
+        import os
+        import statistics
+        import tempfile
+
+        import numpy as np
+        import torch
+
+        from sdfest_torch.datasets.sdf_dataset import SDFDataset
+        from sdfest_torch.ops import quaternion
+        from sdfest_torch.parallel import mesh as pmesh
+        from sdfest_torch.render import kernels
+        from sdfest_torch.scripts import make_procedural_dataset
+        from sdfest_torch.training.vae_trainer import VAETrainer
+        from sdfest_torch.utils import msgpack_reader, weights
+        from sdfest_torch.utils.presets import preset
+
+        with tempfile.TemporaryDirectory() as tmp:
+            make_procedural_dataset.generate(os.path.join(tmp, "mugs"), 8,
+                                             res=64, seed=0)
+            data = SDFDataset(os.path.join(tmp, "mugs"))
+            batch = torch.from_numpy(np.stack([data[i] for i in range(8)]))
+        cfg = preset("vae_mug_procedural")
+        tree = msgpack_reader.load(VAE_WEIGHTS)
+        trainers = []
+        for _ in range(2):
+            t = VAETrainer(cfg, device=self.dev)
+            weights.load_flax_into(t.vae, tree)
+            trainers.append(t)
+        plain_t, dp_t = trainers
+        g = torch.Generator().manual_seed(5)
+        eps = torch.randn(8, 8, generator=g)
+        quats = quaternion.random_uniform((8,), g)
+        want = plain_t.step(batch, eps=eps, quats=quats)
+        step = pmesh.shard_map_data_parallel_step(dp_t.step, mesh)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = step(batch, eps=eps, quats=quats)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        rel = {k: abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-30)
+               for k, v in want.items()}
+        params = max(float((a - b).detach().abs().max()) for a, b in zip(
+            plain_t.vae.parameters(), dp_t.vae.parameters()))
+        gen = torch.Generator(device=self.dev).manual_seed(0)
+        times = []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times[1:])
+        print(f"parallel vae DP step (world {mesh.world}, batch 8, pc "
+              f"{dp_t.camera.width}x{dp_t.camera.height}): launches "
+              f"{ {k: v for k, v in counts.items() if v} }; loss terms rel. "
+              f"to the plain step "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f" (tol {PARALLEL_TERMS_REL}); parameters after the step "
+              f"max|d| {params:.3e} (the scatter's float atomics); ms/step "
+              f"{ms:.3f} (median of steps 2-{DP_STEPS}; "
+              f"{[round(t, 3) for t in times]})")
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts.update(march=1, sample_grad=1, scatter=1)
+        assert counts == want_counts, f"DP step launches {counts}"
+        assert all(v <= PARALLEL_TERMS_REL for v in rel.values()), rel
+        for name in ("march", "sample_grad", "scatter"):
+            self.report[name].setdefault("parallel", {})[
+                "launches_per_dp_step"] = counts[name]
+        return dict(ms_per_step=ms, step_ms=times, launches=counts,
+                    loss_terms_rel=rel, param_diff=params)
+
+    def parallel_refine(self, mesh):
+        """sharded_refine_batch of HYPOTHESES hypotheses (batch_inputs,
+        full frame, mug_procedural, 50 iterations) against refine_batch on
+        the same inputs, by the batch phase's checks; launches as one
+        hypothesis's run (each serving every hypothesis); ms per call of
+        both in turns."""
+        import torch
+
+        from sdfest_torch.parallel.estimation import sharded_refine_batch
+        from sdfest_torch.render import kernels
+
+        views, states = self.batch_inputs()
+        n = HYPOTHESES
+        pipe = self.pipe
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(pipe, states, *views)
+            torch.cuda.synchronize()
+            return (out, (time.perf_counter() - t0) * 1e3,
+                    kernels.launches(), kernels.hypotheses())
+
+        def sharded(*args):
+            return sharded_refine_batch(*args, mesh=mesh)
+
+        def unsharded(p, *args):
+            return p.refine_batch(*args)
+
+        (_, _, ref_log), _, _, _ = timed(unsharded)
+        (final, _, log), _, counts, hyps = timed(sharded)
+        n_iter = log["loss"].shape[1]
+        walls = {"sharded": [], "refine_batch": []}
+        for turn in ("sharded", "refine_batch", "refine_batch", "sharded"):
+            walls[turn].append(timed(sharded if turn == "sharded"
+                                     else unsharded)[1])
+        ms = {k: sum(v) / len(v) for k, v in walls.items()}
+        loss, ref = log["loss"], ref_log["loss"]
+        loss0 = float((loss[:, 0] - ref[:, 0]).abs().max())
+        early = {k: float((log[k][:, 0] - ref_log[k][:, 0]).abs().max())
+                 for k in final}
+        early["loss"] = float((loss[:, 1] - ref[:, 1]).abs().max())
+        share = max(abs(float(loss[b, -1]) - float(ref[b, -1]))
+                    / max(float(ref[b, 0]) - float(ref[b, -1]), 1e-12)
+                    for b in range(n))
+        per_launch = {k: hyps[k] / c for k, c in counts.items() if c}
+        print(f"parallel sharded_refine_batch ({n} hypotheses over "
+              f"{mesh.world} rank, {n_iter} iterations, full frame): "
+              f"launches {counts}, hypotheses per launch {per_launch}; "
+              f"against refine_batch: iteration 0 loss max|d| {loss0:.3e} "
+              f"(tol 1e-6), after the first update max|d| {early} (tol "
+              f"{EARLY_TOL}), final loss max|d| {share:.4f} of its fall "
+              f"(tol {FINAL_SHARE}); ms/call sharded {ms['sharded']:.3f}, "
+              f"refine_batch {ms['refine_batch']:.3f} (turns "
+              f"{ {k: [round(w, 3) for w in v] for k, v in walls.items()} })")
+        expect_launches(counts, n_iter)
+        assert n_iter == pipe.config["max_iterations"], n_iter
+        assert all(v == n for v in per_launch.values()), per_launch
+        assert bool(torch.isfinite(loss).all()), "non-finite sharded loss"
+        assert loss0 <= 1e-6, f"sharded: iteration 0 loss differs {loss0}"
+        assert max(early.values()) <= EARLY_TOL, f"sharded: {early}"
+        assert share <= FINAL_SHARE, f"sharded: final loss {share}"
+        for name in FUSED_KERNELS:
+            self.report[name].setdefault("parallel", {})[
+                "launches_per_sharded_call"] = counts[name]
+        return dict(hypotheses=n, iterations=n_iter, launches=counts,
+                    hypotheses_per_launch=per_launch, ms_per_call=ms,
+                    walls_ms=walls, iteration0_loss_diff=loss0,
+                    early_diff=early, final_loss_share=share)
+
+    def parallel_sweep(self):
+        """run_distributed in two processes sharing the card, one gloo
+        group: the first EVAL_MESHES held-out mugs (the evaluate phase's),
+        one view, each process one mesh on the card; process 0 merges."""
+        import os
+        import tempfile
+
+        from sdfest_torch.scripts import make_procedural_dataset
+        from sdfest_torch.utils.presets import preset
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        with tempfile.TemporaryDirectory() as tmp:
+            make_procedural_dataset.generate(os.path.join(tmp, "meshes"),
+                                             n=EVAL_MESHES, res=64, seed=777,
+                                             export_meshes=True)
+            config = preset("mug_procedural")
+            config.update({k: v for k, v in EVAL_CONFIG.items()
+                           if k != "ablation_configs"})
+            config.update(data_path=os.path.join(tmp, "meshes"),
+                          out_folder=os.path.join(tmp, "out"),
+                          run_name="sweep")
+            path = os.path.join(tmp, "config.json")
+            with open(path, "w") as f:
+                json.dump(config, f)
+            coordinator = f"localhost:{free_port()}"
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", SWEEP_WORKER, root, coordinator,
+                 str(rank), path, self.dev.type], cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for rank in range(2)]
+            outs = []
+            for p in procs:
+                try:
+                    outs.append(p.communicate(timeout=600)[0])
+                except subprocess.TimeoutExpired:
+                    for q in procs:
+                        q.kill()
+                    raise
+            wall = time.perf_counter() - t0
+            files = sorted(os.listdir(os.path.join(tmp, "out")))
+        for rank, (p, o) in enumerate(zip(procs, outs)):
+            print("\n".join(f"parallel sweep rank {rank}: {line}"
+                            for line in o.strip().splitlines()
+                            if not line.startswith("SWEEP_RESULTS")))
+            assert p.returncode == 0, f"sweep rank {rank} failed"
+            assert "evaluating 1 of 2 meshes" in o, o
+        line = [x for x in outs[0].splitlines()
+                if x.startswith("SWEEP_RESULTS ")][0]
+        results = json.loads(line[len("SWEEP_RESULTS "):])
+        means = {k: v["mean"] for k, v in results["1"].items()}
+        finite = all(math.isfinite(v) for s in results["1"].values()
+                     for v in s.values())
+        print(f"parallel sweep: 2 processes (gloo) sharing the card, "
+              f"{EVAL_MESHES} meshes, {wall:.1f} s wall; files {files}; "
+              f"merged means {json.dumps(means)}; all statistics finite "
+              f"{finite}")
+        assert finite, results
+        assert sum(f.endswith("_merged.yaml") for f in files) == 1, files
+        assert not any(f.endswith(".pkl") for f in files), files
+        return dict(wall_s=wall, files=files, results=results)
+
+    def scripts(self):
+        """The remaining scripts on the card: offset_experiment, the march
+        against the golden renderer, LatentExplorer.animate, the
+        micro-benchmarks and process_shapenet (see the module
+        docstring)."""
+        out = self.report["_scripts"] = {}
+        out["experiment"] = self.scripts_experiment()
+        out["golden"] = self.scripts_golden()
+        out["animate"] = self.scripts_animate()
+        out["benchmarks"] = self.scripts_benchmarks()
+        out["process_shapenet"] = self.scripts_shapenet()
+
+    def scripts_experiment(self):
+        """offset_experiment on the sphere at 640x480 (the script's camera)
+        from the JAX script's start (EXPERIMENT_NOISE),
+        EXPERIMENT_ITERATIONS iterations, the default march: the CPU test's
+        bars; one march per iteration plus the target and the final render,
+        one sample-grad per iteration (the surrogate backward), no scatter
+        (the SDF is fixed)."""
+        import torch
+
+        from sdfest_torch.ops.camera import Camera
+        from sdfest_torch.render import kernels
+        from sdfest_torch.scripts import experiments
+
+        camera = Camera(**SCRIPT_CAMERA)
+        n = EXPERIMENT_ITERATIONS
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = experiments.offset_experiment(
+            experiments.sphere_sdf(), camera, n, device=self.dev,
+            position_noise=EXPERIMENT_NOISE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        losses = result["losses"]
+        pos0, pos1 = result["position_error"]
+        scale1 = result["scale_error"][1]
+        print(f"scripts offset_experiment ({camera.width}x{camera.height}, "
+              f"{n} iterations): "
+              f"{wall:.3f} s ({wall / n * 1e3:.3f} ms/iteration), launches "
+              f"{ {k: v for k, v in counts.items() if v} }; loss "
+              f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f}, position "
+              f"error {pos0:.4f} -> {pos1:.5f}, scale error "
+              f"{result['scale_error'][0]:.4f} -> {scale1:.5f}")
+        want = dict.fromkeys(counts, 0)
+        want.update(march=n + 2, sample_grad=n)
+        assert counts == want, f"experiment launches {counts}, want {want}"
+        assert float(losses[-1]) < 0.1 * float(losses[0]), "loss"
+        assert pos0 > 0.05 and pos1 < 0.01, (pos0, pos1)
+        assert scale1 < 0.005, scale1
+        for name in ("march", "sample_grad"):
+            self.report[name].setdefault("scripts", {})[
+                "launches_per_experiment"] = counts[name]
+        return dict(iterations=n, wall_s=wall, launches=counts,
+                    loss=[float(losses[0]), float(losses[-1])],
+                    position_error=[pos0, pos1],
+                    scale_error=list(result["scale_error"]))
+
+    def scripts_golden(self):
+        """The CUDA march on an analytic sphere and box (64^3) at
+        test_renderer.py's pose, 640x480, against the float64 numpy golden
+        renderer (render/reference.py, the second oracle): without culling
+        and adaptive relaxation by test_forward_matches_numpy_golden's bars
+        (hits agree > 0.995, median |d| < 2e-4, max < 0.01), with both (the
+        default march) by the march tolerance (max < 5e-3)."""
+        import numpy as np
+        import torch
+        from scipy.spatial.transform import Rotation
+
+        from sdfest_torch.ops.camera import Camera
+        from sdfest_torch.render import kernels, reference, render_depth
+
+        camera = Camera(**SCRIPT_CAMERA)
+        position = np.asarray([0.05, -0.02, -0.6], np.float32)
+        quat = Rotation.from_euler("XYZ", [10, 40, -20], degrees=True
+                                   ).as_quat().astype(np.float32)
+        inv_scale = np.float32(1.0 / 0.15)
+        report = {}
+        for shape, sdf in (("sphere", analytic_sphere(64)),
+                           ("box", analytic_box(64))):
+            t0 = time.perf_counter()
+            golden = reference.render_depth_np(sdf, position, quat,
+                                               float(inv_scale), camera,
+                                               threshold=0.005)
+            golden_s = time.perf_counter() - t0
+            for march, (culling, adaptive, med_tol, max_tol) in (
+                    ("plain", (False, False, 2e-4, 0.01)),
+                    ("default", (True, True, 5e-3, 5e-3))):
+                kernels.reset_launches()
+                with torch.no_grad():
+                    depth = render_depth(
+                        torch.from_numpy(sdf).to(self.dev),
+                        torch.from_numpy(position).to(self.dev),
+                        torch.from_numpy(quat).to(self.dev),
+                        float(inv_scale), camera=camera, threshold=0.005,
+                        culling=culling, adaptive=adaptive,
+                        device=self.dev).cpu().numpy()
+                launched = kernels.launches()["march"]
+                agree = float(((depth > 0) == (golden > 0)).mean())
+                both = (depth > 0) & (golden > 0)
+                diffs = np.abs(depth[both] - golden[both])
+                r = dict(hits=int((golden > 0).sum()), agreement=agree,
+                         median=float(np.median(diffs)),
+                         max=float(diffs.max()), golden_s=golden_s,
+                         launches=launched)
+                report[f"{shape}_{march}"] = r
+                print(f"scripts golden {shape} {march} march "
+                      f"({camera.width}x{camera.height}): "
+                      f"{r['hits']} golden hits, hit agreement {agree:.5f} "
+                      f"(> 0.995), |d| median {r['median']:.3e} (< "
+                      f"{med_tol}) max {r['max']:.3e} (< {max_tol}); "
+                      f"golden renderer {golden_s:.2f} s on the host")
+                assert launched == 1, launched
+                assert r["hits"] > 0.01 * depth.size and agree > 0.995, r
+                assert r["median"] < med_tol and r["max"] < max_tol, r
+        self.report["march"].setdefault("scripts", {})["golden"] = {
+            k: dict(agreement=v["agreement"], max=v["max"])
+            for k, v in report.items()}
+        return report
+
+    def scripts_animate(self):
+        """LatentExplorer.animate on the committed mug VAE: 2 keyframes,
+        ANIMATE_FRAMES frames per segment (320x240): one march launch per
+        frame and nothing else."""
+        import torch
+
+        from sdfest_torch.render import kernels
+        from sdfest_torch.scripts.latent_explorer import LatentExplorer
+        from sdfest_torch.utils.presets import preset
+
+        explorer = LatentExplorer(dict(preset("vae_mug_procedural"),
+                                       model=VAE_WEIGHTS), device=self.dev)
+        g = torch.Generator().manual_seed(3)
+        keyframes = list((0.7 * torch.randn(2, 8, generator=g)).numpy())
+        explorer.animate(keyframes, 2, turn=0.5)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        frames = explorer.animate(keyframes, ANIMATE_FRAMES, turn=0.5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launches()
+        hits = [int((f > 0).sum()) for f in frames]
+        print(f"scripts animate: {len(frames)} frames "
+              f"{frames[0].shape[1]}x{frames[0].shape[0]} in {wall:.3f} s "
+              f"({wall / len(frames) * 1e3:.2f} ms/frame: decode, march, "
+              f"host shading), launches "
+              f"{ {k: v for k, v in counts.items() if v} }; hits per frame "
+              f"{hits}")
+        want = dict.fromkeys(counts, 0)
+        want.update(march=len(frames))
+        assert len(frames) == ANIMATE_FRAMES + 1, len(frames)
+        assert counts == want, f"animate launches {counts}"
+        assert all(h > 1000 for h in hits), hits
+        self.report["march"].setdefault("scripts", {})[
+            "launches_per_animation"] = counts["march"]
+        return dict(frames=len(frames), wall_s=wall, launches=counts,
+                    hits=hits)
+
+    def scripts_benchmarks(self):
+        """benchmark_vae on the committed 64^3 mug decoder and
+        benchmark_ops, as their command lines run them."""
+        from sdfest_torch.scripts import benchmark_ops, benchmark_vae
+        from sdfest_torch.utils.presets import preset
+
+        vae = benchmark_vae.benchmark(
+            dict(preset("vae_mug_procedural"), model=VAE_WEIGHTS),
+            BENCHMARK_ITERATIONS, device=self.dev)
+        ops = benchmark_ops.main(["--iters", str(BENCHMARK_ITERATIONS),
+                                  "--device", self.dev.type])
+        print(f"scripts benchmark_vae (64^3 mug decoder, "
+              f"{BENCHMARK_ITERATIONS} chained calls): forward "
+              f"{vae['decode_forward_s'] * 1e3:.4f} ms, forward+backward "
+              f"{vae['decode_forward_backward_s'] * 1e3:.4f} ms; "
+              f"benchmark_ops ms "
+              f"{json.dumps({k: v * 1e3 for k, v in ops.items()})}")
+        assert all(v > 0 for v in (vae["decode_forward_s"],
+                                   vae["decode_forward_backward_s"],
+                                   *ops.values()))
+        return dict(decode_forward_ms=vae["decode_forward_s"] * 1e3,
+                    decode_forward_backward_ms=(
+                        vae["decode_forward_backward_s"] * 1e3),
+                    ops_ms={k: v * 1e3 for k, v in ops.items()})
+
+    def scripts_shapenet(self):
+        """process_shapenet converts one generated mesh (held-out mug 0,
+        seed 777) in a ShapeNet-like tree at 64^3: the paired .obj/.npy,
+        the grid finite, negative inside, positive at the padded corner."""
+        import os
+        import shutil
+        import tempfile
+
+        import numpy as np
+
+        from sdfest_torch.scripts import make_procedural_dataset
+        from sdfest_torch.scripts import process_shapenet
+
+        with tempfile.TemporaryDirectory() as tmp:
+            make_procedural_dataset.generate(os.path.join(tmp, "src"), n=1,
+                                             res=64, seed=777,
+                                             export_meshes=True)
+            model = os.path.join(tmp, "shapenet", "03797390", "mug0",
+                                 "models")
+            os.makedirs(model)
+            shutil.copy(os.path.join(tmp, "src", "00000.obj"),
+                        os.path.join(model, "model_normalized.obj"))
+            t0 = time.perf_counter()
+            n = process_shapenet.process(os.path.join(tmp, "shapenet"),
+                                         os.path.join(tmp, "out"),
+                                         resolution=64, padding=2, jobs=1)
+            wall = time.perf_counter() - t0
+            files = sorted(os.listdir(os.path.join(tmp, "out")))
+            sdf = np.load(os.path.join(tmp, "out", "00000.npy"))
+        inside = int((sdf < 0).sum())
+        print(f"scripts process_shapenet: {n} mesh converted in {wall:.2f} s "
+              f"-> {files}; grid {sdf.shape}, {inside} cells inside, corner "
+              f"{float(sdf[0, 0, 0]):.4f}")
+        assert n == 1 and files == ["00000.npy", "00000.obj"], (n, files)
+        assert sdf.shape == (64, 64, 64) and np.isfinite(sdf).all()
+        assert inside > 0 and sdf[0, 0, 0] > 0, (inside, sdf[0, 0, 0])
+        return dict(converted=n, wall_s=wall, inside_cells=inside)
+
     def time(self):
         import torch
 
@@ -3552,7 +4108,7 @@ def kernels_line(report) -> str:
                     "culling", "no_culling", "relaxed", "warm",
                     "active_tiles", "all_miss", "flat", "zero_cotangents",
                     "hot", "empty", "all_skip", "batch", "mesh", "category",
-                    "runtime", "train"):
+                    "runtime", "parallel", "scripts", "train"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -3604,7 +4160,7 @@ def main(argv=None) -> int:
     smoke = Smoke()
     if set(phases) & {"pipeline", "fast", "temporal", "relaxed", "bf16",
                       "multiview", "batch", "mesh", "evaluate", "category",
-                      "runtime", "train"}:
+                      "runtime", "parallel", "scripts", "train"}:
         phases = ["check"] + [p for p in phases if p != "check"]
     for phase in PHASES[1:]:
         if phase in phases:
@@ -3623,6 +4179,8 @@ def main(argv=None) -> int:
         "evaluate": smoke.report.get("_evaluate"),
         "category": smoke.report.get("_category"),
         "runtime": smoke.report.get("_runtime"),
+        "parallel": smoke.report.get("_parallel"),
+        "scripts": smoke.report.get("_scripts"),
         "profile": {k[len("_profile_"):]: v for k, v in smoke.report.items()
                     if k.startswith("_profile_")},
         "card": card}))

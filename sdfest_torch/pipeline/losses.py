@@ -19,6 +19,19 @@ from sdfest_torch.render.api import (
 )
 
 
+def nn_loss(points_from: torch.Tensor, points_to: torch.Tensor
+            ) -> torch.Tensor:
+    """Squared distance from each point of ``points_from (N, D)`` to its
+    nearest neighbour in ``points_to (M, D)``, ``(N,)``; the expanded
+    ``|a|^2 - 2 a.b + |b|^2`` is clamped at 0 (rounding can take it below).
+    A library function: both pipelines raise on ``nn_weight != 0``."""
+    a = torch.sum(points_from ** 2, dim=1)
+    b = points_from @ points_to.T
+    c = torch.sum(points_to ** 2, dim=1)
+    d = torch.clamp(-2 * b + a[:, None] + c[None, :], min=0.0)
+    return torch.min(d, dim=1).values
+
+
 def pc_loss(
     points: torch.Tensor,
     position: torch.Tensor,

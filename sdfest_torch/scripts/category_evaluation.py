@@ -29,8 +29,8 @@ protocol.  Each evaluated sample's host seconds of the call,
 :attr:`CategoryEvaluator.timings`.
 
 ``category_configs`` maps a category to its model config: a path (resolved
-against ``config_dir``, by default the JAX package's
-``configs/estimation/``, read as data; PyYAML needed) or a dict merged as is
+against ``config_dir``, by default the port's
+``sdfest_torch/configs/estimation/``; PyYAML needed) or a dict merged as is
 (``sdfest_torch.utils.presets.preset("real275_evaluation_procedural")``, for
 machines without PyYAML).
 
@@ -65,12 +65,11 @@ from sdfest_torch.utils.config import (
 )
 from sdfest_torch.utils.device import synchronize
 
-# the JAX package's packaged estimation configs, where the evaluation YAMLs'
-# "./models/mug.yaml" entries resolve (read as data)
+# the port's packaged estimation configs (a copy of the JAX package's), where
+# the evaluation YAMLs' "./models/mug.yaml" entries resolve
 _ESTIMATION_CONFIG_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))),
-    "sdfest_tpu", "configs", "estimation",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "configs", "estimation",
 )
 
 # the camera convention of the pipeline's estimates, and that of the samples

@@ -13,7 +13,7 @@ standard deviation over the files are reported, printed when
 ``out_folder`` is None, else written to a YAML file (needs PyYAML).
 
 Metric names of the JAX package (``sdfest_tpu.pipeline.metrics.<name>``,
-as in ``sdfest_tpu/configs/estimation/rendering_evaluation.yaml``) resolve
+as in ``sdfest_torch/configs/estimation/rendering_evaluation.yaml``) resolve
 by name to :mod:`sdfest_torch.pipeline.metrics`, importing nothing of the
 JAX package.  Each file's host seconds of rasterizing, the call,
 ``generate_mesh`` and the metrics are kept in :attr:`Evaluator.timings`.

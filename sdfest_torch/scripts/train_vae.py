@@ -4,15 +4,27 @@
     python -m sdfest_torch.scripts.train_vae --preset vae_mug_procedural \\
         --dataset_path data/mug_procedural --iterations 1000
 
-``--config`` reads YAML (with includes, resolved under ``sdfest_tpu/`` as
-data; needs PyYAML), ``--preset`` a dict of :mod:`sdfest_torch.utils.presets`
-(no PyYAML needed); any ``--dotted.key value`` overrides either.  The
-loss, the pc render and the Adam step are
+``--config`` reads YAML (with includes, resolved under the port's
+``sdfest_torch/configs/``; needs PyYAML), ``--preset`` a dict of
+:mod:`sdfest_torch.utils.presets` (no PyYAML needed); any ``--dotted.key
+value`` overrides either.  The loss, the pc render and the Adam step are
 :class:`sdfest_torch.training.vae_trainer.VAETrainer`'s; checkpoints every
 ``checkpoint_iteration`` steps, ``checkpoint: <path>`` resumes (a checkpoint
 of either package), and the final weights are written as flax msgpack with
 their config.  ``--benchmark_steps N`` times N steps and exits.  Runs on
-``--device`` (cuda unless asked otherwise), on one device.
+``--device`` (cuda unless asked otherwise).
+
+Data parallel under torchrun (the counterpart of the JAX script's
+``shard_map`` path): with ``WORLD_SIZE > 1`` every process joins the group
+(NCCL on ``--device cuda``, one card per process; gloo on ``cpu``), draws
+the same global batches, steps on its contiguous block through
+``VAETrainer.step(group=...)`` (gradients and loss terms summed over the
+group), and only rank 0 logs and writes checkpoints and the model::
+
+    torchrun --nproc_per_node 4 -m sdfest_torch.scripts.train_vae \\
+        --preset vae_mug_procedural --dataset_path data/mug_procedural
+
+The batch size must divide by the number of processes.
 """
 from __future__ import annotations
 
@@ -24,6 +36,8 @@ from datetime import datetime
 import torch
 
 from sdfest_torch.datasets.sdf_dataset import SDFDataset
+from sdfest_torch.parallel import distributed as dist
+from sdfest_torch.parallel import mesh as pmesh
 from sdfest_torch.training.vae_trainer import VAETrainer
 from sdfest_torch.utils import checkpoint as ckpt
 from sdfest_torch.utils.config import _deep_merge, load_config_from_args
@@ -50,42 +64,63 @@ def train(config: dict, device="cuda") -> dict:
         f"sdfvae_{datetime.now().strftime('%Y-%m-%d_%H-%M-%S-%f')}")
     seed = config.get("seed", 0)
     dataset = SDFDataset(config["dataset_path"])
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = None
+    if world > 1:
+        if batch_size % world:
+            raise ValueError(f"batch size {batch_size} does not divide over "
+                             f"{world} processes")
+        dist.initialize_distributed(device=device)
+        mesh = pmesh.make_mesh()
+        device = mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     trainer = make_trainer(config, device)
     if config.get("checkpoint"):
         meta = ckpt.load_checkpoint(config["checkpoint"], trainer)
         run_name = meta.get("run_name", run_name)
         print(f"Resumed from {config['checkpoint']} at iteration "
               f"{trainer.iteration}")
+    step = trainer.step
+    if mesh is not None:
+        # every rank starts from rank 0's weights
+        pmesh.replicate_module(trainer.vae, mesh)
+        step = pmesh.shard_map_data_parallel_step(trainer.step, mesh)
+        print(f"Data-parallel training over {world} processes "
+              f"(rank {mesh.rank}, {device}).")
     # the data order and the draws fold in the start iteration, so a
     # resumed run does not repeat the replaced segment's stream
     batches = dataset.batches(batch_size, shuffle=True,
                               seed=seed + trainer.iteration)
     generator = torch.Generator(device=trainer.device).manual_seed(
         seed * 1_000_003 + trainer.iteration)
-    writer = make_logger(config, run_name)
+    writer = make_logger(config, run_name) if rank0 else None
     model_dir = config.get("model_dir",
                            os.path.join(os.getcwd(), "models", run_name))
     checkpoint_iteration = config.get("checkpoint_iteration", 10000)
     start = time.time()
     while trainer.iteration < iterations:
-        metrics = trainer.step(torch.from_numpy(next(batches)),
-                               generator=generator)
+        metrics = step(torch.from_numpy(next(batches)), generator=generator)
         it = trainer.iteration
         if writer is not None and it % 20 == 0:
             for name, value in metrics.items():
                 writer.add_scalar(name, float(value), it)
-        if it % 100 == 0 or it == iterations:
+        if rank0 and (it % 100 == 0 or it == iterations):
             print(f"Iteration {it}/{iterations} "
                   f"loss {float(metrics['loss']):.4f}")
-        if checkpoint_iteration and it % checkpoint_iteration == 0:
+        if rank0 and checkpoint_iteration and it % checkpoint_iteration == 0:
             ckpt.save_checkpoint(os.path.join(model_dir, f"{it}.ckpt"),
                                  trainer, it, run_name)
     print(f"Training took {time.time() - start:.1f}s")
-    model_path, config_path = ckpt.save_model_and_config(
-        model_dir, run_name, trainer.vae, config)
-    print(f"Saved model to {model_path} (config: {config_path})")
+    model_path = config_path = None
+    if rank0:
+        model_path, config_path = ckpt.save_model_and_config(
+            model_dir, run_name, trainer.vae, config)
+        print(f"Saved model to {model_path} (config: {config_path})")
     if writer is not None:
         writer.close()
+    if mesh is not None:
+        dist.barrier()
+        torch.distributed.destroy_process_group()
     return {"model": model_path, "config": config_path, "trainer": trainer}
 
 

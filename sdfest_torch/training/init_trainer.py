@@ -14,6 +14,13 @@ The replay ring (``:181-306``): a ring of generated samples on the device
 float32 / int64).  A replay unit writes one generation batch at the cursor,
 then takes ``replay_train_steps`` optimizer steps on uniform draws (with
 replacement) from the filled part of the ring, as a plain loop.
+
+Data parallelism (``step(..., group=)``, the counterpart of the JAX step's
+``axis_name``): each rank steps on its block of the batch and normalizes
+with its local batch statistics; the gradients, the loss terms and the
+BatchNorms' new running statistics are averaged over the group with
+``all_reduce`` (JAX's ``pmean`` of ``grads``, ``metrics`` and ``updates``,
+``init_trainer.py:101-131``).
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from sdfest_torch.models.pose_net import create_pose_net
 from sdfest_torch.ops import quaternion
 from sdfest_torch.ops.so3grid import SO3Grid
+from sdfest_torch.parallel.mesh import all_reduce_mean_
 from sdfest_torch.utils.device import resolve_device
 
 LABELS = ("latent_shape", "position", "scale", "orientation")
@@ -138,14 +146,23 @@ class InitTrainer:
         metrics["loss"] = loss
         return loss, metrics
 
-    def step(self, batch: Dict[str, torch.Tensor]
+    def step(self, batch: Dict[str, torch.Tensor], group=None
              ) -> Dict[str, torch.Tensor]:
-        """One Adam step; returns the loss terms (detached 0-d tensors)."""
+        """One Adam step; returns the loss terms (detached 0-d tensors).
+
+        With a process ``group`` the batch is this rank's block; the
+        gradients, loss terms and BatchNorm running statistics are averaged
+        over the group before the update."""
         batch = {k: v.to(self.device) for k, v in batch.items()
                  if k in ("pointset",) + LABELS}
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss(batch)
         loss.backward()
+        if group is not None:
+            all_reduce_mean_([p.grad for p in self.net.parameters()], group)
+            all_reduce_mean_(list(metrics.values()), group)
+            all_reduce_mean_([b for b in self.net.buffers()
+                              if b.is_floating_point()], group)
         self.optimizer.step()
         self.iteration += 1
         return {k: v.detach() for k, v in metrics.items()}

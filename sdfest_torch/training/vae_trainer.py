@@ -20,6 +20,12 @@ kernel backward, one launch each for the batch (``render/api.py``'s
 output grid.  The optimizer is ``torch.optim.Adam`` with optax's defaults.
 Randomness: ``eps`` and the pc quaternions are arguments of :meth:`loss`
 and :meth:`step`, or drawn from a ``torch.Generator``.
+
+Data parallelism (``step(..., group=)``, the counterpart of the JAX step's
+``axis_name``): each rank steps on its block of the batch, draws from a
+generator folded with its rank, and the gradients and loss terms are summed
+over the group with ``all_reduce`` (the losses are batch sums, so the sum
+is the global batch's), as ``vae_trainer.py:178-197`` ``psum``s them.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from sdfest_torch.models.vae import create_vae_from_config, fp32_convolutions
 from sdfest_torch.ops import pointset, quaternion
 from sdfest_torch.ops.camera import Camera
 from sdfest_torch.ops.interpolation import _base_and_frac
+from sdfest_torch.parallel.mesh import all_reduce_sum_, fold_in
 from sdfest_torch.render.api import (
     render_depth,
     sample_sdf_masked_extrapolating,
@@ -172,17 +179,33 @@ class VAETrainer:
              eps: Optional[torch.Tensor] = None,
              quats: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
+             pc_depth: Optional[torch.Tensor] = None,
+             group=None,
              ) -> Dict[str, torch.Tensor]:
         """One Adam step on ``batch_sdf``; returns the loss terms (0-d
-        tensors on the device, detached) and advances the iteration."""
+        tensors on the device, detached) and advances the iteration.
+
+        With a process ``group`` the batch is this rank's block: the draws
+        come from ``generator`` folded with the rank (``fold_in``), and the
+        gradients and loss terms are summed over the group before the
+        update, so every rank takes the global batch's step.  ``eps``,
+        ``quats`` and ``pc_depth`` (this rank's rows) override the draws and
+        the pc render.
+        """
         self.vae.train()
         self.optimizer.zero_grad(set_to_none=True)
         batch_sdf = batch_sdf.to(self.device, torch.float32)
+        if group is not None:
+            generator = fold_in(generator, group, self.device)
         # the backward's convolutions in fp32 too (fp32_convolutions)
         with fp32_convolutions():
             loss, metrics = self.loss(batch_sdf, self.iteration, eps=eps,
-                                      quats=quats, generator=generator)
+                                      quats=quats, generator=generator,
+                                      pc_depth=pc_depth)
             loss.backward()
+        if group is not None:
+            all_reduce_sum_([p.grad for p in self.vae.parameters()], group)
+            all_reduce_sum_(list(metrics.values()), group)
         self.optimizer.step()
         self.iteration += 1
         return {k: v.detach() for k, v in metrics.items()}

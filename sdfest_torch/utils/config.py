@@ -8,9 +8,10 @@
   include, e.g. ``- vae: "./vae_models/mug.yaml"``): the file loads into
   that nested position.
 - Paths resolve against the including file's directory (or the working
-  directory), then ``.``, then the JAX package's directory, so that the
-  configs under ``sdfest_tpu/configs/`` are read as data by their
-  repository-relative names (``configs/vae/mug_procedural.yaml``).
+  directory), then ``.``, then the port's package directory, so that the
+  port's copy of the configs (``sdfest_torch/configs/``, byte for byte the
+  JAX package's) resolve by their repository-relative names
+  (``configs/vae/mug_procedural.yaml``).
 - Command-line flags merge on top with the highest precedence; dotted names
   (``--a.b.c value``) make nested dicts.
 
@@ -27,15 +28,13 @@ import json
 import os
 from typing import List, Optional, Sequence, Union
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_JAX_PACKAGE_DIR = os.path.join(_REPO_ROOT, "sdfest_tpu")
+_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def default_search_paths(current_dir: Optional[str] = None) -> List[str]:
     """Search paths of config and resource files."""
     paths = [current_dir] if current_dir is not None else []
-    return paths + [".", _JAX_PACKAGE_DIR]
+    return paths + [".", _PACKAGE_DIR]
 
 
 def resolve_path(path: str,

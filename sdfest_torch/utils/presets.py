@@ -2,7 +2,7 @@
 
 ``MUG_PROCEDURAL`` is ``configs/estimation/models/mug_procedural.yaml``
 updated by ``configs/estimation/default.yaml`` (both under
-``sdfest_tpu/configs/estimation/``), merged as the README's quick start does:
+``sdfest_torch/configs/estimation/``), merged as the README's quick start does:
 ``config = load(model); config.update(load(default))``.
 ``MUG_PROCEDURAL_FAST`` adds the production overlay
 ``configs/estimation/fast.yaml`` (ROI crop + ``[4, 2]`` multires) on top,

@@ -230,3 +230,22 @@ def load_init_weights(net: torch.nn.Module,
         load_strict(net, convert_torch.init_state_dict(path, init_config))
     else:
         load_flax_into(net, msgpack_reader.load(path))
+
+
+def load_vae_params(vae_config: Dict[str, Any], vae: torch.nn.Module
+                    ) -> torch.nn.Module:
+    """Load a VAE config's ``model`` into the whole VAE, encoder included
+    (``sdfest_tpu/utils/weights.py:112``): a reference ``.pt`` checkpoint or
+    a flax msgpack file; no ``model`` keeps the module's initialisation.
+    Returns ``vae``."""
+    path = resolve_model_path(vae_config)
+    if path is None:
+        return vae
+    if path.endswith(".pt"):
+        from sdfest_torch.utils import convert_torch
+
+        load_strict(vae, convert_torch.convert_vae_state_dict(
+            convert_torch.load_state_dict(path), vae_config))
+    else:
+        load_flax_into(vae, msgpack_reader.load(path))
+    return vae
