@@ -14,6 +14,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check,train   # slice 9: training
     python3 chip_smoke.py --phases build,check,category,runtime   # slice 10
     python3 chip_smoke.py --phases build,check,parallel,scripts   # slice 11
+    python3 chip_smoke.py --phases graph   # captured graphs against eager
 
 Phases:
   build     compile the kernels from sdfest_torch/csrc (nvcc, sm_90a)
@@ -70,6 +71,20 @@ Phases:
             FINAL_SHARE of its run's fall; the final state printed beside
             what two sequential runs differ by); every hypothesis's loss
             finite and falling
+  graph     the captured CUDA graphs of __call__ and refine_batch (every
+            other phase runs them too: they are the default path on the
+            card) against the eager loop (graphs.eager()), on pipelines of
+            their own, for full frame, fast, fast adaptive, temporal, 3
+            views and refine_batch of 8 hypotheses: the first graph call of
+            each key (warm-up, capture and instantiation seconds, the pools'
+            MB); without shape optimization the graph call equal to the
+            eager call bit for bit (estimate and every log entry) with equal
+            launch counts; turns eager, graph, graph, eager on distinct
+            inputs with shape optimization: ms per call (median and range),
+            graph launches, kernel launches and host syncs per call (sync
+            debug mode), each graph call against the eager call on its input
+            by the batch phase's bars; torch.profiler over one graph call
+            per path (busy share); then reuse_plan at 0 host syncs per call
   mesh      with the decoded mug at the first ground-truth pose:
             generate_depth (one march launch) bit for bit against its
             plain version; generate_mesh (complete_mesh off and on)
@@ -184,10 +199,14 @@ Phases:
             warm march's active tiles and an all-skip frame.  Runs without
             the check phase too (as on a parent tree, to time it in turns);
             each kernel family at B = 8 hypotheses on distinct inputs
-            beside 8 times its B = 1 time and bound
+            beside 8 times its B = 1 time and bound; sample, sample-grad,
+            the scatter, the march and the empty kernel also inside one
+            captured graph of their 30 launches (the host's share of a
+            launch)
   profile   torch.profiler over one full-frame, fast and temporal call and
-            one batched full-frame refine_batch of 8 hypotheses: device
-            busy share and the ops that take the time
+            one batched full-frame refine_batch of 8 hypotheses (the graph
+            path): device busy share and the ops that take the time; runs
+            the graph phase profiled in this run are not profiled again
 
 Prints one JSON line {"kernels": [...]}, the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}.  Any failed check
@@ -205,8 +224,9 @@ import sys
 import time
 
 PHASES = ("build", "check", "pipeline", "fast", "temporal", "relaxed",
-          "bf16", "multiview", "batch", "mesh", "evaluate", "category",
-          "runtime", "parallel", "scripts", "train", "time", "profile")
+          "bf16", "multiview", "batch", "graph", "mesh", "evaluate",
+          "category", "runtime", "parallel", "scripts", "train", "time",
+          "profile")
 HYPOTHESES = 8  # refine_batch's batch (bench.py's --hypotheses default)
 # ~50 ms of spin at the H100's ~2 GHz: longer than the host takes to
 # enqueue 30 launches of any wrapper (see cuda_ms)
@@ -1406,8 +1426,13 @@ class Smoke:
                 want = {"march": 0, "march_warm": n_iter, "sample": 0,
                         "sample_grad": 2 * n_iter, "scatter": 2 * n_iter}
                 assert counts == want, f"launches {counts}, expected {want}"
-                skipped, warm_started = (int(x) for x in
-                                         torch.stack(tally).sum(0).tolist())
+                # call 0 captures the call's graph: the warm-up before the
+                # capture tallies eagerly, then the capture tallies into
+                # tensors of the graph, which its replay fills; the last
+                # n_iter rows are this call's
+                assert len(tally) == 2 * n_iter, len(tally)
+                skipped, warm_started = (int(x) for x in torch.stack(
+                    tally[-n_iter:]).sum(0).tolist())
                 rays_call = dict(skipped=skipped, warm_started=warm_started,
                                  cold=n_iter * rays - skipped - warm_started)
                 print(f"temporal rays per call (of {n_iter} x {rays}): "
@@ -1561,17 +1586,18 @@ class Smoke:
                       rasters={f"{h}x{w}": c for (h, w), c in
                                rasters.items()}))
 
-    def multiview_inputs(self):
-        """V = 3 views (640x480 each) of the mug at GT pose 0, whose frame is
-        the world: camera 0 at the origin, cameras 1 and 2 turned by -35 and
-        +35 deg about the vertical axis through the mug's center.  Returns
-        the depths (3, H, W), the cameras' world poses (3, 3)/(3, 4) and
-        the mug's orientation in each camera's frame (3, 4)."""
+    def multiview_inputs(self, gt=GT_POSES[0]):
+        """V = 3 views (640x480 each) of the mug at pose ``gt`` (GT pose 0
+        unless given), whose frame is the world: camera 0 at the origin,
+        cameras 1 and 2 turned by -35 and +35 deg about the vertical axis
+        through the mug's center.  Returns the depths (3, H, W), the
+        cameras' world poses (3, 3)/(3, 4) and the mug's orientation in
+        each camera's frame (3, 4)."""
         import torch
 
         from sdfest_torch.ops import quaternion
 
-        pos, half, q = GT_POSES[0]
+        pos, half, q = gt
         p_obj = torch.tensor(pos, device=self.dev)
         q_obj = unit_quat(q, self.dev)
         depths, cam_pos, cam_q, q_in_cam = [], [], [], []
@@ -1682,16 +1708,16 @@ class Smoke:
                 f"{h}x{w}": c for (h, w), c in rasters.items()}),
             temporal=dict(ms=wall_warm * 1e3, launches=counts))
 
-    def batch_inputs(self):
-        """refine_batch's inputs on the self-rendered mug at GT_POSES[0]:
-        the shared view ``(depth (1, H, W), points, point masks, camera
-        position, camera orientation)`` and HYPOTHESES starts ``(N, 1,
-        ...)``: the init network's state of the observation, positions
-        perturbed by 0.01 per hypothesis (seeded), as bench.py perturbs its
-        batch."""
+    def batch_inputs(self, gt=GT_POSES[0]):
+        """refine_batch's inputs on the self-rendered mug at pose ``gt``
+        (GT_POSES[0] unless given): the shared view ``(depth (1, H, W),
+        points, point masks, camera position, camera orientation)`` and
+        HYPOTHESES starts ``(N, 1, ...)``: the init network's state of the
+        observation, positions perturbed by 0.01 per hypothesis (seeded),
+        as bench.py perturbs its batch."""
         import torch
 
-        obs = self.observe(GT_POSES[0])
+        obs = self.observe(gt)
         depth = self.pipe._preprocess_depth(obs, obs > 0)[None].contiguous()
         points, point_masks = self.pipe._lift(depth, 1)
         cam_p = torch.zeros(1, 3, device=self.dev)
@@ -1907,6 +1933,205 @@ class Smoke:
             for name in FUSED_KERNELS:
                 self.report[name].setdefault("batch", {})[
                     "launches_per_iteration"] = per_it[name]
+
+    def graph_paths(self):
+        """The graph phase's paths: ``{label: (pipe, n_iter, run)}`` where
+        ``run(i, shape_optimization)`` drives the path once on its input set
+        ``i`` (0-2: GT_POSES[i]) and returns ``(tensors, log)``: the
+        estimate's tensors and the per-iteration log."""
+        from sdfest_torch.pipeline.pipeline import SDFPipeline
+
+        batch = [self.batch_inputs(gt) for gt in GT_POSES]
+        views = [self.multiview_inputs(gt)[:3] for gt in GT_POSES]
+        depths = [self.observe(gt) for gt in GT_POSES]
+        # pipelines of their own: their graph caches start empty, so each
+        # path's captures are its own (whatever phases ran before)
+        fresh = lambda pipe: SDFPipeline(pipe.config, device=self.dev)
+        full, mv = fresh(self.pipe), fresh(self.mv_pipe)
+
+        def call(pipe):
+            def run(i, shape_optimization):
+                d = depths[i]
+                out = pipe(d, d > 0, shape_optimization=shape_optimization)
+                return list(out), pipe.last_log
+            return run
+
+        def multiview(i, shape_optimization):
+            d, cam_p, cam_q = views[i]
+            out = mv(d, d > 0, camera_positions=cam_p,
+                     camera_orientations=cam_q,
+                     shape_optimization=shape_optimization)
+            return list(out), mv.last_log
+
+        def refine_batch(i, shape_optimization):
+            final, best, log = batch_pipe.refine_batch(
+                batch[i][1], *batch[i][0],
+                shape_optimization=shape_optimization)
+            return [*final.values(), *best.values()], log
+
+        n = lambda pipe: pipe.config["max_iterations"]
+        per_phase = lambda pipe: SDFPipeline(
+            dict(pipe.config, fused_call=False), device=self.dev)
+        paths = {}
+        for label, pipe in (("full-frame", full), ("fast", self.fast_pipe),
+                            ("fast-adaptive", self.adaptive_pipe),
+                            ("temporal", self.temporal_pipe)):
+            pipe = pipe if pipe is full else fresh(pipe)
+            paths[label] = (pipe, n(pipe), call(pipe))
+        # fused_call: false, one graph per phase
+        for label, pipe in (("full-frame-per-phase", self.pipe),
+                            ("fast-per-phase", self.fast_pipe)):
+            pipe = per_phase(pipe)
+            paths[label] = (pipe, n(pipe), call(pipe))
+        paths["multiview-3"] = (mv, n(mv), multiview)
+        batch_pipe = fresh(self.pipe)
+        paths[f"batch-{HYPOTHESES}-full-frame"] = (batch_pipe, n(batch_pipe),
+                                                   refine_batch)
+        return paths
+
+    def graph(self):
+        """The port's captured graphs against its eager loop
+        (``graphs.eager()``, the loop the earlier slices ran), per path:
+        full frame, fast, fast adaptive, temporal, full frame and fast
+        with ``fused_call: false``, 3 views and refine_batch of HYPOTHESES
+        hypotheses (graph_paths).  Per path:
+        the first graph call of each key (capture and instantiation, the
+        warm-up before it, the pools' MB); without shape optimization the
+        graph call against the eager call on one input, every output and
+        log entry bit for bit, the launch counts equal; then turns eager,
+        graph, graph, eager on inputs 1, 1, 2, 2 with shape optimization
+        (the default): ms per call, graph launches, kernel launches and
+        host syncs per call (torch.cuda sync debug mode), each graph call
+        against the eager call on its input by the batch phase's bars
+        (iteration 0 within 1e-6, after the first update within EARLY_TOL,
+        the final loss within FINAL_SHARE of the eager run's fall, launch
+        counts equal); graph launches per call: 1 (``fused_call: true``),
+        one per phase (``false``), one per host read with early stop (the
+        probe and each check); torch.profiler over one graph call (busy
+        share; its kernels in the trace equal the counted launches).
+        Then reuse_plan at 0 host syncs per call."""
+        import torch
+
+        from sdfest_torch.pipeline.pipeline import SDFPipeline
+        from sdfest_torch.utils.presets import preset
+
+        card = card_line()
+        self.report["_graph"] = out = {"card": card}
+        for label, (pipe, n_iter, run) in self.graph_paths().items():
+            out[label] = self.graph_path(label, pipe, n_iter, run)
+        # reuse_plan: the first call probes, the next ones make no host sync
+        pipe = SDFPipeline(dict(preset("mug_procedural"), reuse_plan=True),
+                           device=self.dev)
+        depths = [self.observe(gt) for gt in GT_POSES]
+        pipe(depths[0], depths[0] > 0)
+        syncs = []
+        for d in depths[1:]:
+            _, s = count_syncs(lambda: pipe(d, d > 0))
+            syncs.append(s)
+        torch.cuda.synchronize()
+        print(f"graph reuse_plan: host syncs per call after the first "
+              f"{syncs} (card {card})")
+        assert not any(syncs), f"reuse_plan calls synced: {syncs}"
+        out["reuse_plan_syncs"] = syncs
+
+    def graph_path(self, label, pipe, n_iter, run):
+        """One path of the graph phase (see graph)."""
+        import statistics
+
+        import torch
+
+        from sdfest_torch.pipeline import graphs
+        from sdfest_torch.render import kernels
+
+        cache = pipe.graphs
+
+        def timed(eager, i, shape_optimization=True):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            replays = cache.replays
+            t0 = time.perf_counter()
+            if eager:
+                with graphs.eager():
+                    tensors, log = run(i, shape_optimization)
+            else:
+                tensors, log = run(i, shape_optimization)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return dict(tensors=[t.clone() for t in tensors],
+                        log={k: v.clone() for k, v in log.items()},
+                        ms=wall * 1e3, counts=kernels.counts(),
+                        graph_launches=cache.replays - replays)
+
+        # the first graph call of each key: warm-up, capture, instantiation
+        before = (cache.captures, cache.warm_up_seconds,
+                  cache.capture_seconds, cache.pool_bytes)
+        first = {so: timed(False, 0, so)["ms"] for so in (True, False)}
+        captured = dict(
+            graphs=cache.captures - before[0],
+            warm_up_s=cache.warm_up_seconds - before[1],
+            capture_s=cache.capture_seconds - before[2],
+            pool_mb=(cache.pool_bytes - before[3]) / 1e6,
+            first_call_ms=first)
+        # without shape optimization: bit for bit
+        want = timed(True, 0, False)
+        got = timed(False, 0, False)
+        equal = all(torch.equal(a, b) for a, b in zip(got["tensors"],
+                                                       want["tensors"]))
+        equal_log = {k: torch.equal(got["log"][k], want["log"][k])
+                     for k in want["log"]}
+        print(f"graph {label}: captured {captured}; without shape "
+              f"optimization graph == eager bit for bit: estimate {equal}, "
+              f"log {equal_log}; launches {got['counts']['launches']} "
+              f"(eager {want['counts']['launches']})")
+        assert equal and all(equal_log.values()), f"{label}: graph != eager"
+        assert got["counts"] == want["counts"], (label, got["counts"],
+                                                 want["counts"])
+        # with shape optimization, in turns on distinct inputs
+        turns = {"eager": [], "graph": []}
+        pairs = []
+        for eager, i in ((True, 1), (False, 1), (False, 2), (True, 2)):
+            turns["eager" if eager else "graph"].append(timed(eager, i))
+        for g, e in zip(turns["graph"], turns["eager"]):
+            pairs.append(graph_against_eager(label, g, e))
+        replays = cache.replays
+        _, syncs = count_syncs(lambda: run(2, True))
+        sync_call_graphs = cache.replays - replays
+        ms = {k: [r["ms"] for r in v] for k, v in turns.items()}
+        graph_launches = [r["graph_launches"] for r in turns["graph"]]
+        if float(pipe.config.get("early_stop_delta", 0.0) or 0.0) > 0.0:
+            # one graph per host read: the probe, then each check
+            assert sync_call_graphs == syncs, (label, sync_call_graphs,
+                                               syncs)
+        else:
+            if label.startswith("batch"):
+                want_graphs = 1
+            else:
+                assert syncs == 1, f"{label}: {syncs} host syncs"
+                want_graphs = (1 if pipe.config.get("fused_call", True)
+                               else len(pipe.last_plan[0]) + 1)
+            assert set(graph_launches + [sync_call_graphs]) == {
+                want_graphs}, (label, graph_launches, sync_call_graphs,
+                               want_graphs)
+        launches = turns["graph"][0]["counts"]["launches"]
+        per_it = {k: v / n_iter for k, v in launches.items()}
+        prof = self._profile_run(label, lambda: run(0, True), n_iter)
+        row = dict(
+            ms_per_call={k: dict(median=statistics.median(v), min=min(v),
+                                 max=max(v), calls=v)
+                         for k, v in ms.items()},
+            busy_share=prof["busy_share"], device_ms=prof["device_ms"],
+            graph_launches_per_call=graph_launches,
+            kernel_launches_per_call=launches,
+            kernel_launches_per_iteration=per_it,
+            host_syncs_per_call=syncs, against_eager=pairs, **captured)
+        print(f"graph {label}: ms/call graph {ms['graph']} eager "
+              f"{ms['eager']}; busy share {prof['busy_share']:.4f}; graph "
+              f"launches per call {graph_launches}; kernel launches per "
+              f"call {launches}; host syncs per call {syncs}; capture "
+              f"{captured['capture_s']:.2f} s, warm-up "
+              f"{captured['warm_up_s']:.2f} s, pools "
+              f"{captured['pool_mb']:.1f} MB ({card_line()})")
+        return row
 
     def mesh(self):
         """generate_depth, generate_mesh, the flight recorder and its
@@ -3280,6 +3505,7 @@ class Smoke:
         active = mean([float(m.sum()) for _, m in inp])
         nbytes = n * 8 + mean([gather_bytes(o, m != 0, res) for o, m in inp])
         self._timed("sample", ms, pms, nbytes, active * OPS_SAMPLE)
+        self._graph_time("sample", lambda x: k.sample(self.sdf, *x), inp)
         self.time_sample_floor(inp)
         # sample-grad and scatter on the concatenated backward queries
         inp = [(torch.cat([s, o]).contiguous(), torch.cat([sm, m]).contiguous())
@@ -3290,6 +3516,8 @@ class Smoke:
         pms = cuda_ms(lambda x: k.sample_grad_plain(self.sdf, *x), inp)
         nbytes = n * 20 + mean([gather_bytes(p, m != 0, res) for p, m in inp])
         self._timed("sample_grad", ms, pms, nbytes, active * OPS_SAMPLE_GRAD)
+        self._graph_time("sample_grad", lambda x: k.sample_grad(self.sdf, *x),
+                         inp)
         sample_grad_inp = inp
         gen = torch.Generator(device="cpu").manual_seed(3)
         inp = [(p, (torch.randn(n, generator=gen).to(self.dev) * m)
@@ -3299,6 +3527,7 @@ class Smoke:
         # cotangents in, the active rows' points in, the whole grid out
         nbytes = n * 4 + 12 * active + res ** 3 * 4
         self._timed("scatter", ms, pms, nbytes, active * OPS_SCATTER)
+        self._graph_time("scatter", lambda x: k.scatter(*x, res), inp)
         self.time_grad_library(sample_grad_inp, inp)
         # march at distinct poses (the coarse table is built once per grid,
         # outside the timed kernel)
@@ -3333,6 +3562,8 @@ class Smoke:
         # steps read, the coarse table and the pose
         self._timed("march", ms, pms,
                     n * 16 + steps["cells"] * 4 + 16 ** 3 * 4 + 14 * 4, ops)
+        self._graph_time("march", lambda pose: k.march(
+            self.sdf, rays, pose, thr, 500, True, True, coarse=coarse), poses)
         self.report["march"]["steps_per_render"] = steps
         # the march at the fast plan's three ROI shapes, each at the same 30
         # poses with the ROI of its ground-truth pose
@@ -3546,9 +3777,12 @@ class Smoke:
         stream = torch.cuda.current_stream().cuda_stream
         blocks = k.sample_blocks(inp[0][0].shape[0])
         ms = cuda_ms(lambda b: empty(b, stream), [blocks] * reps)
-        r["empty"] = dict(blocks=blocks, ms=ms)
+        gms = graph_ms(lambda b: empty(
+            b, torch.cuda.current_stream().cuda_stream), [blocks] * reps)
+        r["empty"] = dict(blocks=blocks, ms=ms, graph_ms=gms)
         print(f"time sample empty kernel at its launch geometry, {blocks} "
-              f"blocks of 256: {ms:.4f} ms")
+              f"blocks of 256: {ms:.4f} ms launched one by one, {gms:.4f} "
+              f"ms each in one graph of {reps}")
 
     def time_grad_library(self, sample_grad_inp, scatter_inp):
         """The library yardsticks of sample-grad and the scatter:
@@ -3840,23 +4074,26 @@ class Smoke:
             r[key] = r["culling"][key]
 
     def profile(self):
-        """torch.profiler over one full-frame, fast and temporal call:
-        device busy share and the ops that take the time.  (A
+        """torch.profiler over one full-frame, fast and temporal call and
+        one batched full-frame refine_batch of 8 hypotheses, on the default
+        (graph) path: device busy share and the ops that take the time.  (A
         fast-adaptive call does the fast call's work: nothing freezes at
-        50 iterations.)"""
-        self._profile_call(self.pipe, "full-frame")
-        self._profile_call(self.fast_pipe, "fast")
-        self._profile_call(self.temporal_pipe, "temporal")
+        50 iterations.)  A run the graph phase profiled in this run (same
+        label, pipeline preset and input) is not profiled again."""
         views, states = self.batch_inputs()
-        self._profile_run(
-            f"batch-{HYPOTHESES}-full-frame",
-            lambda: self.pipe.refine_batch(states, *views),
-            self.pipe.config["max_iterations"])
-
-    def _profile_call(self, pipe, label):
         depth = self.observe(GT_POSES[0])
-        self._profile_run(label, lambda: pipe(depth, depth > 0),
-                          pipe.config["max_iterations"])
+        runs = {
+            "full-frame": (self.pipe, None), "fast": (self.fast_pipe, None),
+            "temporal": (self.temporal_pipe, None),
+            f"batch-{HYPOTHESES}-full-frame": (self.pipe, lambda: (
+                self.pipe.refine_batch(states, *views)))}
+        for label, (pipe, call) in runs.items():
+            if f"_profile_{label}" in self.report:
+                print(f"profile {label}: profiled by the graph phase")
+                continue
+            self._profile_run(
+                label, call or (lambda p=pipe: p(depth, depth > 0)),
+                pipe.config["max_iterations"])
 
     def _profile_run(self, label, call, n_iter):
         """torch.profiler over one ``call()`` of ``n_iter`` iterations,
@@ -3866,6 +4103,8 @@ class Smoke:
 
         from torch.autograd import DeviceType
 
+        from sdfest_torch.render import kernels as wrappers
+
         call()  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3873,9 +4112,11 @@ class Smoke:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        before = wrappers.launches()
         with profile(activities=acts) as prof:
             call()
             torch.cuda.synchronize()
+        counted = {k: v - before[k] for k, v in wrappers.launches().items()}
         events = prof.key_averages()
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -3884,20 +4125,40 @@ class Smoke:
               f"device kernels {dev_ms:.3f} ms/call ({n_kernels} launches, "
               f"{n_kernels / n_iter:.1f} per iteration); device busy share "
               f"{dev_ms / wall_ms:.4f}, idle share {1 - dev_ms / wall_ms:.4f}")
-        self.report[f"_profile_{label}"] = dict(
+        row = self.report[f"_profile_{label}"] = dict(
             wall_ms=wall_ms, device_ms=dev_ms, launches=n_kernels,
             busy_share=dev_ms / wall_ms)
-        for name in SOURCES:  # the port's kernels, as the trace times them
+        traced = {}
+        for name in wrappers.KERNELS:  # the port's kernels in the trace
             rows = [e for e in kernels
                     if re.search(rf"\b{name}_kernel[(<]", e.key)]
+            traced[name] = sum(e.count for e in rows)
             for e in rows:
                 print(f"profile {label} kernel {name}: {e.count} launches, "
                       f"mean {e.self_device_time_total / e.count / 1e3:.4f} "
                       f"ms ({e.key})")
+        # the wrappers' counts (on the graph path added per replay) are
+        # the kernels that ran
+        print(f"profile {label}: kernels in the trace {traced}, counted "
+              f"{counted}")
+        assert traced == counted, (label, traced, counted)
+        row["traced_launches"] = traced
         print(events.table(sort_by="self_device_time_total", row_limit=15,
                            max_name_column_width=48))
         print(events.table(sort_by="self_cpu_time_total", row_limit=12,
                            max_name_column_width=48))
+        return row
+
+    def _graph_time(self, name, fn, inputs):
+        """A kernel's time inside one captured graph of its launches on the
+        same distinct inputs, beside its time launched one by one (how much
+        of the launch cost is the host's)."""
+        r = self.report[name]
+        r["graph"] = dict(ms=graph_ms(fn, inputs), launches=len(inputs),
+                          eager_ms=r["ms"])
+        print(f"time {name:<12} in one graph of {len(inputs)} launches "
+              f"{r['graph']['ms']:.4f} ms each (launched one by one "
+              f"{r['ms']:.4f} ms)")
 
     def _timed(self, name, ms, plain_ms, nbytes, ops):
         b_ms, by = bound(nbytes, ops)
@@ -3906,6 +4167,88 @@ class Smoke:
               f"{ops / 1e6:.2f} Mop)")
         self.report[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=by, bytes=nbytes, ops=ops)
+
+
+def count_syncs(fn):
+    """``(fn(), host syncs)``: the synchronizing CUDA operations that ``fn``
+    issued, as torch.cuda's sync debug mode reports them (each one a
+    warning)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def graph_against_eager(label, g, e) -> dict:
+    """A graph call with shape optimization against the eager call on the
+    same input (rows of ``graph_path``'s ``timed``), by the batch phase's
+    bars: iteration 0's loss within 1e-6, the state after the first update
+    and the loss of the render it gives within EARLY_TOL, the final loss
+    within FINAL_SHARE of the eager run's fall; the launch counts equal
+    (early stop: when both ran the same iterations, else each one's
+    launches match its own active iterations)."""
+    batch = label.startswith("batch")
+    # iteration first: refine_batch's log is hypothesis-major
+    rows = lambda log: {k: (v.transpose(0, 1) if batch else v)
+                        for k, v in log.items() if k != "active"}
+    gl, el = rows(g["log"]), rows(e["log"])
+    loss0 = float((gl["loss"][0] - el["loss"][0]).abs().max())
+    early = {k: float((gl[k][0] - el[k][0]).abs().max())
+             for k in ("position", "orientation", "scale", "latent")}
+    early["loss"] = float((gl["loss"][1] - el["loss"][1]).abs().max())
+    fall = (el["loss"][0] - el["loss"][-1]).clamp(min=1e-12)
+    share = float(((gl["loss"][-1] - el["loss"][-1]).abs() / fall).max())
+    active = [r["log"]["active"].reshape(-1, r["log"]["active"].shape[-1])[0]
+              for r in (g, e)]
+    same_active = bool((active[0] == active[1]).all())
+    print(f"graph {label}: against eager on its input: iteration 0 loss "
+          f"max|d| {loss0:.3e} (tol 1e-6); after the first update {early} "
+          f"(tol {EARLY_TOL}); final loss {share:.4f} of the eager run's "
+          f"fall (tol {FINAL_SHARE}); active iterations equal {same_active}")
+    assert loss0 <= 1e-6, f"{label}: iteration 0 loss differs {loss0}"
+    assert max(early.values()) <= EARLY_TOL, f"{label}: {early}"
+    assert share <= FINAL_SHARE, f"{label}: final loss {share}"
+    if same_active:
+        assert g["counts"] == e["counts"], (label, g["counts"], e["counts"])
+    else:
+        for r, a in zip((g, e), active):
+            expect_launches(r["counts"]["launches"], int(a.sum()))
+    return dict(iteration0_loss=loss0, early=early, final_loss_share=share,
+                same_active=same_active)
+
+
+def graph_ms(fn, inputs, replays: int = 3) -> float:
+    """Mean device ms of ``fn(x)`` over the distinct ``inputs`` launched
+    from ONE captured CUDA graph (after a warm-up): the kernels' time
+    without the host's launch gaps or its per-launch submission."""
+    import torch
+
+    for x in inputs[:2]:
+        fn(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in inputs:
+            fn(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(inputs))
 
 
 def mean_steps(runs) -> dict:
@@ -4107,8 +4450,8 @@ def kernels_line(report) -> str:
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
                     "active_tiles", "all_miss", "flat", "zero_cotangents",
-                    "hot", "empty", "all_skip", "batch", "mesh", "category",
-                    "runtime", "parallel", "scripts", "train"):
+                    "hot", "empty", "all_skip", "batch", "graph", "mesh",
+                    "category", "runtime", "parallel", "scripts", "train"):
             if sub in r:
                 out[-1][sub] = r[sub]
     return json.dumps({"kernels": out})
@@ -4175,6 +4518,7 @@ def main(argv=None) -> int:
         "bf16": smoke.report.get("_bf16"),
         "multiview": smoke.report.get("_multiview"),
         "batch": smoke.report.get("_batch"),
+        "graph": smoke.report.get("_graph"),
         "mesh": smoke.report.get("_mesh"),
         "evaluate": smoke.report.get("_evaluate"),
         "category": smoke.report.get("_category"),

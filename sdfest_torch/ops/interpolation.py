@@ -12,14 +12,15 @@ These gathers are the plain versions the CUDA samplers are held against.
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from sdfest_torch.utils.device import device_cache
 
-@functools.lru_cache(maxsize=8)
+
+@device_cache(maxsize=8)
 def _divisor(value: float, device: torch.device, dtype: torch.dtype
              ) -> torch.Tensor:
     """``value`` as a tensor on ``device``, made once.  PyTorch's

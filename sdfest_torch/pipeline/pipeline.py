@@ -30,11 +30,22 @@ sampled on its own; it rules out ROI and multires, so the plan is one
 full-frame phase.  ``relaxation > 1`` takes the relaxed march.
 
 The loop has no host synchronisation: the best estimate is tracked with
-``torch.where`` and the log is stacked at the end.  The one sync of a call
-reads the probe (:class:`NoDepthError` and the plan).  Early stop
-(``early_stop_delta > 0``, preset ``mug_procedural_fast_adaptive``) adds
-one host read per check of each phase: every ``early_stop_interval``
-iterations, at most 5 per 50-iteration call at the default interval of 10.
+``torch.where`` and the log goes into preallocated ``(T, B, ...)``
+buffers.  The one sync of a call reads the probe (:class:`NoDepthError`
+and the plan).  Early stop (``early_stop_delta > 0``, preset
+``mug_procedural_fast_adaptive``) adds one host read per check of each
+phase that can still stop it: every ``early_stop_interval`` iterations but
+at a phase's end, at most 4 per 50-iteration call at the default interval
+of 10 (2 under the fast plan's 20 / 20 / 10).
+
+On the card the work after the probe runs as captured CUDA graphs
+(:mod:`sdfest_torch.pipeline.graphs`), the counterpart of the JAX
+package's ``jax.jit`` over ``_refine`` and its ``_fused_program``: the
+call is a list of steps (:class:`_Prologue`: preprocessing and the init;
+per phase :class:`_Views`, its view inputs, and :class:`_Chunk`, its
+iterations; :class:`_End`, the outputs) cut into segments
+(:func:`_segment_end`), each one graph, captured on its first run and
+replayed after that.  The CPU runs the same steps eagerly.
 
 :meth:`SDFPipeline.refine_batch` refines ``N`` hypotheses against shared
 views with ONE launch of each kernel per view and iteration for all of
@@ -55,9 +66,11 @@ mp4), which the card's machine lacks: there they run on the CPU side only.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import pickle
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +80,7 @@ from sdfest_torch.models.vae import create_decoder_from_config
 from sdfest_torch.ops import pointset, quaternion
 from sdfest_torch.ops.camera import Camera
 from sdfest_torch.ops.so3grid import SO3Grid
-from sdfest_torch.pipeline import losses
+from sdfest_torch.pipeline import graphs, losses
 from sdfest_torch.render.api import (
     crop,
     ray_set,
@@ -85,6 +98,96 @@ from sdfest_torch.utils.weights import load_decoder_weights, load_init_weights
 _STATE_KEYS = ("position", "orientation", "scale", "latent")
 # the log's entries with one value per hypothesis and iteration
 _LOSS_KEYS = ("loss", "loss_depth", "loss_pc", "inlier_ratio")
+
+
+class _Phase(NamedTuple):
+    """The static part of one refinement phase: what ``jax.jit`` takes as
+    static in the JAX package's ``_refine`` (``pipeline.py:359``), so it
+    keys the phase's graphs (:mod:`sdfest_torch.pipeline.graphs`)."""
+
+    n_iter: int
+    roi: Optional[Tuple[int, int]]
+    ds_factor: int
+    shape_optimization: bool
+    constraint_weight: Optional[float]  # None without a point constraint
+    early: bool  # early stop checks every early_stop_interval iterations
+
+
+# the steps of the captured program (_drive); a segment of them is one graph
+
+
+@dataclasses.dataclass(frozen=True)
+class _Prologue:
+    """``__call__`` before its phases: preprocessing and the init."""
+
+
+@dataclasses.dataclass(frozen=True)
+class _Views:
+    """A ``__call__`` phase's view inputs: the views strided by ``factor``,
+    rendered in ``roi`` crops (None: full frame)."""
+
+    factor: int
+    roi: Optional[Tuple[int, int]]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Chunk:
+    """Iterations ``start .. start + n - 1`` of phase number ``index``;
+    with ``check`` an early-stop check follows, which the host reads."""
+
+    index: int
+    phase: _Phase
+    start: int
+    n: int
+    check: bool
+
+    @property
+    def ends_phase(self) -> bool:
+        return self.start + self.n == self.phase.n_iter
+
+
+@dataclasses.dataclass(frozen=True)
+class _End:
+    """The outputs: final state, best, Adam state and the logs."""
+
+
+def _segment_end(steps: list, i: int, fused: bool) -> int:
+    """The end of the segment (one graph on the card) that starts at step
+    ``i``: a segment ends after an early-stop check, which the host reads
+    between graphs; without ``fused`` (``fused_call: false``) also after
+    each phase, one graph per phase as the JAX package's per-phase
+    dispatches (the prologue joins the first phase's graph, the
+    :class:`_End` step the last one's)."""
+    j = i
+    while j < len(steps):
+        step = steps[j]
+        j += 1
+        if isinstance(step, _Chunk) and (step.check or (
+                not fused and step.ends_phase
+                and not isinstance(steps[j], _End))):
+            break
+    return j
+
+
+def _frozen(x):
+    """A hashable snapshot of a config (its part of a graph's key): dicts
+    and lists as tuples, tensors and arrays by identity."""
+    if isinstance(x, dict):
+        return tuple(sorted(((k, _frozen(v)) for k, v in x.items()),
+                            key=lambda kv: str(kv[0])))
+    if isinstance(x, (list, tuple)):
+        return tuple(_frozen(v) for v in x)
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return ("object", id(x))
+    return x
+
+
+def _identity_quaternions(n: int, device) -> torch.Tensor:
+    """``n`` identity quaternions ``(n, 4)``, made on the device (no copy
+    from the host)."""
+    q = torch.zeros(n, 4, device=device)
+    q[:, 3] = 1.0
+    return q
 
 
 def _unit(q: torch.Tensor) -> torch.Tensor:
@@ -199,8 +302,10 @@ def _check_slice(config: dict) -> None:
     """Reject the options the JAX package rejects when it builds or
     refines (``init_view`` is checked per call, as there).
 
-    ``fused_call`` is accepted and ignored: the port has one path, whose
-    plan is the JAX package's fused one.
+    ``fused_call`` chooses the graphs of a ``__call__`` on the card: one
+    for the whole estimate (true, the default) or one per phase (false).
+    Both plan as the JAX package's fused path does, so they run the same
+    trajectory.
     """
     if config.get("nn_weight", 0.0) != 0.0:
         raise ValueError(
@@ -264,6 +369,9 @@ class SDFPipeline:
         self.last_plan: Optional[Tuple] = None
         # the plan of the last probed call, which reuse_plan: true reuses
         self._cached_plan: Optional[Tuple] = None
+        # the captured graphs of this pipeline's calls and phases (the card
+        # only; the counterpart of jax.jit's cache)
+        self.graphs = graphs.GraphCache()
 
     # ------------------------------------------------------------------
     # building blocks
@@ -304,6 +412,7 @@ class SDFPipeline:
         generator: Optional[torch.Generator],
         prior: Optional[torch.Tensor] = None,
         training_prior: Optional[torch.Tensor] = None,
+        uniforms: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, ...]:
         """Init network over views with the ``init_view`` strategy
         (``_nn_init_views``, ``pipeline.py:210-287``).
@@ -313,17 +422,18 @@ class SDFPipeline:
         a ``(V, C)`` prior over the SO(3) grid cells and ``training_prior``
         the ``(C,)`` prior the network was trained under.  Each view lifts
         and subsamples its own cloud (draws from ``generator`` view by view,
-        in order); the networks run as one batch.  "first" takes view 0,
-        "best" the view whose adjusted posterior peaks highest.  Returns
-        ``(latent (1, L), position (1, 3), scale (1,), orientation (1, 4))``
-        in the world frame.
+        in order, or the rows of ``uniforms``, :meth:`_init_uniforms`); the
+        networks run as one batch.  "first" takes view 0, "best" the view
+        whose adjusted posterior peaks highest.  Returns ``(latent (1, L),
+        position (1, 3), scale (1,), orientation (1, 4))`` in the world
+        frame.
         """
         self._validate_init_options(prior)
         depth = depth.reshape(-1, *depth.shape[-2:])
         camera_positions = camera_positions.reshape(-1, 3)
         camera_orientations = camera_orientations.reshape(-1, 4)
         best = self.config.get("init_view", "first") == "best"
-        n_views = depth.shape[0] if best else 1  # "first" needs view 0 only
+        n_views = self._init_views(depth.shape[0])
         sampled, centroids = [], []
         for v in range(n_views):
             points, valid = pointset.depth_to_pointcloud_dense(depth[v],
@@ -332,8 +442,11 @@ class SDFPipeline:
             if self.init_config.get("normalize_pose", True):
                 points, centroid = pointset.normalize_points_masked(points,
                                                                     valid)
-            sampled.append(pointset.subsample_masked(
-                points, valid, self._num_input_points, generator)[0])
+            u = (pointset._uniform(self._num_input_points, generator,
+                                   points.device)
+                 if uniforms is None else uniforms[v])
+            sampled.append(pointset.subsample_with_uniforms(points, valid,
+                                                            u)[0])
             centroids.append(centroid)
         with torch.no_grad():
             latent, position, scale, orientation = self.init_network(
@@ -376,9 +489,34 @@ class SDFPipeline:
             raise NotImplementedError(
                 'Only "first" and "best" init strategies are supported')
 
+    def _init_views(self, n_views: int) -> int:
+        """How many of ``n_views`` views the init network reads: all under
+        "best", view 0 under "first"."""
+        return n_views if self.config.get("init_view", "first") == "best" \
+            else 1
+
+    def _init_uniforms(self, n_views: int,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The init's subsampling uniforms ``(V', P)``, drawn from
+        ``generator`` view by view as :meth:`_nn_init` draws them, outside
+        any captured graph (a graph would replay the draws of its
+        capture)."""
+        return torch.stack([
+            pointset._uniform(self._num_input_points, generator, self.device)
+            for _ in range(self._init_views(n_views))])
+
     def _make_adam(self):
         """Adam (b1 0.9, b2 0.999, eps 1e-8) with per-variable learning
-        rates, written out as optax's ``scale_by_adam`` + ``scale(-lr)``."""
+        rates, written out as optax's ``scale_by_adam`` + ``scale(-lr)``.
+
+        ``step(params, grads, moments, count)`` returns the new params and
+        moments; ``count`` is the step's int32 count (1 on the first step)
+        on the device, and the bias corrections ``1 - b ** count`` are
+        computed there, so a captured graph replays the right ones at every
+        step.  They are computed in float64 and rounded to float32 once, as
+        optax's ``bias_correction`` rounds its ``1 - decay ** count`` to the
+        moments' dtype: in float32 ``1 - 0.999`` would lose ~1e-5 of itself
+        to cancellation."""
         lrs = {
             "position": self.config.get("position_lr", 1e-3),
             "orientation": self.config.get("orientation_lr", 1e-2),
@@ -388,17 +526,18 @@ class SDFPipeline:
         b1, b2, eps = 0.9, 0.999, 1e-8
 
         def step(params, grads, moments, count):
-            out = {}
+            c = count.to(torch.float64)
+            c1 = (1 - torch.pow(b1, c)).to(torch.float32)
+            c2 = (1 - torch.pow(b2, c)).to(torch.float32)
+            out, new_moments = {}, {}
             for k in _STATE_KEYS:
                 g = grads[k]
                 mu = (1 - b1) * g + b1 * moments[k][0]
                 nu = (1 - b2) * (g ** 2) + b2 * moments[k][1]
-                moments[k] = (mu, nu)
-                mu_hat = mu / (1 - b1 ** count)
-                nu_hat = nu / (1 - b2 ** count)
-                update = mu_hat / (torch.sqrt(nu_hat + 0.0) + eps)
+                new_moments[k] = (mu, nu)
+                update = (mu / c1) / (torch.sqrt(nu / c2 + 0.0) + eps)
                 out[k] = params[k] + (-lrs[k]) * update
-            return out
+            return out, new_moments
 
         return step
 
@@ -596,7 +735,8 @@ class SDFPipeline:
 
         Adam starts afresh (zero moments, step 1) unless ``opt_state``, the
         optimizer state a ``return_full`` call returned, carries on from
-        it (its step count included); ``best`` likewise carries the best
+        it (its step count included, an int32 tensor on the device);
+        ``best`` likewise carries the best
         tracker on, so a phase run in chunks equals the phase run at once
         (``pipeline.py:372-377``).  Returns ``(state, best, log)``, or with
         ``return_full`` ``(state, opt_state, best, log)``: the final state,
@@ -652,7 +792,12 @@ class SDFPipeline:
         ``(state, opt_state, best, log)`` with ``best["inlier_ratio"]
         (B,)`` and the log's entries stacked iteration-major: ``(T, B)``
         for the losses and ratio, ``(T, B, ...)`` for the state, ``(T,)``
-        for ``active``.
+        for ``active``.  ``opt_state["count"]`` is Adam's int32 step count,
+        a tensor on the device.
+
+        On the card the phase runs as one captured graph (with early stop,
+        one per chunk of ``early_stop_interval`` iterations, the check's
+        host read between them), :meth:`_drive`.
         """
         dev = self.device
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -661,8 +806,43 @@ class SDFPipeline:
         depth_image = f32(depth_image)
         depth_image = depth_image.reshape(-1, *depth_image.shape[-2:])
         n_views = depth_image.shape[0]
-        camera = (self.camera if ds_factor == 1
-                  else self.camera.strided(ds_factor))
+        phase = self._phase(num_iterations, roi, ds_factor, shape_optimization,
+                            point_constraint, allow_early_stop, n_hyps)
+        views = {
+            "depth": depth_image,
+            "cam_pos": (torch.zeros(n_views, 3, device=dev)
+                        if camera_position is None
+                        else f32(camera_position).reshape(n_views, 3)),
+            "cam_q": (_identity_quaternions(n_views, dev)
+                      if camera_orientation is None
+                      else f32(camera_orientation).reshape(n_views, 4)),
+        }
+        if phase.roi is None:
+            views["points"] = f32(points).reshape(n_views, -1, 3)
+            views["point_mask"] = torch.as_tensor(
+                point_mask, device=dev).reshape(n_views, -1)
+        if point_constraint is not None:
+            views["source"] = f32(point_constraint[0])
+            views["target"] = f32(point_constraint[1])
+        carry = {"views": views, "state": state}
+        if opt_state is not None:
+            carry["opt_in"] = {
+                "count": torch.as_tensor(opt_state["count"],
+                                         dtype=torch.int32, device=dev),
+                "moments": {k: tuple(opt_state["moments"][k])
+                            for k in _STATE_KEYS}}
+        if best is not None:
+            carry["best_in"] = {k: f32(best[k])
+                                for k in ("inlier_ratio", *_STATE_KEYS)}
+        out = self._drive("refine", self._phase_steps(0, phase) + [_End()],
+                          carry, fused=True)
+        return out["state"], out["opt"], out["best"], out["log"]
+
+    def _phase(self, num_iterations, roi, ds_factor: int,
+               shape_optimization: bool, point_constraint,
+               allow_early_stop: bool, n_hyps: int) -> _Phase:
+        """The static part of a refinement phase, its options checked as the
+        JAX package checks them."""
         use_warm = self._use_temporal_coherence()
         refresh_k = int(self.config.get("temporal_refresh_interval", 8))
         if use_warm and refresh_k < 1:
@@ -683,163 +863,359 @@ class SDFPipeline:
         if early_delta > 0.0 and n_hyps != 1:
             raise ValueError("early stop freezes one hypothesis; a batch "
                              "stops per chunk (refine_batch, adaptive=True)")
-        if camera_position is None:
-            camera_position = torch.zeros(n_views, 3, device=dev)
-        if camera_orientation is None:
-            camera_orientation = f32([0.0, 0.0, 0.0, 1.0]).expand(n_views, 4)
-        camera_position = f32(camera_position).reshape(n_views, 3)
-        q_w2c = quaternion.invert(f32(camera_orientation).reshape(n_views, 4))
-        # per view: (observed depth, cloud, cloud mask, rays)
-        views = []
-        if roi is None:
-            points = f32(points).reshape(n_views, -1, 3)
-            point_mask = torch.as_tensor(point_mask, device=dev).reshape(
-                n_views, -1)
-            rays = ray_set(camera, dev)
-            views = [(depth_image[v], points[v], point_mask[v], rays)
-                     for v in range(n_views)]
-        else:
-            roi = (int(roi[0]), int(roi[1]))
-            for d in depth_image:
-                offset = _roi_offset_for(d, roi)
-                d = crop(d, roi, offset)
-                views.append((d, *pointset.depth_to_pointcloud_dense(
-                    d, camera, order="tile", pixel_offset=offset),
-                    ray_set(camera, dev, roi, offset)))
-        if point_constraint is not None:
-            source, target, pc_w = point_constraint
-            source, target, pc_w = f32(source), f32(target), float(pc_w)
         n_iter = (num_iterations if num_iterations is not None
-                  else int(self.config["max_iterations"]))
-        depth_weight = self.config.get("depth_weight", 1.0)
-        pc_weight = self.config.get("pc_weight", 1.0)
-        threshold = self.config["threshold"]
-        render_kwargs = dict(
-            camera=camera,
-            threshold=threshold,
-            culling=bool(self.config.get("coarse_culling", True)),
-            adaptive=bool(self.config.get("adaptive_relaxation", True)),
-            relaxation=float(self.config.get("relaxation", 1.0)),
-            bf16=bool(self.config.get("bf16_march", False)),
-            device=dev,
-        )
-        adam = self._make_adam()
-        if opt_state is None:
-            count = 0
-            moments = {k: (torch.zeros_like(v), torch.zeros_like(v))
-                       for k, v in state.items()}
+                  else self.config["max_iterations"])
+        return _Phase(
+            int(n_iter), None if roi is None else (int(roi[0]), int(roi[1])),
+            int(ds_factor), bool(shape_optimization),
+            None if point_constraint is None else float(point_constraint[2]),
+            early_delta > 0.0)
+
+    def _phase_steps(self, index: int, phase: _Phase) -> List[_Chunk]:
+        """The chunks of phase number ``index``: the whole phase, or with
+        early stop chunks of ``early_stop_interval`` iterations.  ``check``
+        marks a chunk after which the phase may stop (not its last: a check
+        there can skip nothing, so it reads nothing)."""
+        interval = (int(self.config.get("early_stop_interval", 10))
+                    if phase.early else max(phase.n_iter, 1))
+        steps, start = [], 0
+        while True:
+            n = min(interval, phase.n_iter - start)
+            steps.append(_Chunk(index, phase, start, n,
+                                phase.early and start + n < phase.n_iter))
+            start += n
+            if start >= phase.n_iter:
+                return steps
+
+    # ------------------------------------------------------------------
+    # the captured program: steps, segments and their graphs
+    # ------------------------------------------------------------------
+
+    def _drive(self, kind: str, steps: list, carry: dict,
+               fused: bool) -> dict:
+        """Run ``steps`` on ``carry`` as segments (:func:`_segment_end`),
+        each one captured graph on the card (:meth:`_execute`), and return
+        the last segment's outputs, on the card cloned out of the graph's
+        static outputs (the caller's own).
+
+        After a segment that ends on an early-stop check the host reads
+        the check (the check's one host read); a stopped phase skips its
+        remaining chunks, as the JAX package's ``lax.cond`` does: its log
+        rows repeat the last one with ``active`` 0 and its state and best
+        stay (:meth:`_stopped`, eager)."""
+        i = 0
+        while i < len(steps):
+            j = _segment_end(steps, i, fused)
+            segment = tuple(steps[i:j])
+            carry = self._execute((kind, segment), functools.partial(
+                self._segment, segment), carry)
+            i = j
+            last = segment[-1]
+            if isinstance(last, _Chunk) and last.check and bool(
+                    carry["phase"]["stop"]):  # the check's one host read
+                carry = self._stopped(carry, last.start + last.n)
+                while (i < len(steps) and isinstance(steps[i], _Chunk)
+                       and steps[i].index == last.index):
+                    i += 1
+        return graphs.clone(carry) if self.graphs.active(self.device) \
+            else carry
+
+    def _execute(self, key, fn, carry: dict) -> dict:
+        """``fn(carry)``: on the card one replay of its captured graph
+        (captured on the first run of ``key`` with this config and these
+        shapes), on the CPU or inside :func:`graphs.eager` the eager
+        loop."""
+        if self.graphs.active(self.device):
+            return self.graphs.run((key, _frozen(self.config)), fn, carry,
+                                   self.device)
+        return fn(carry)
+
+    def _segment(self, segment: tuple, carry: dict) -> dict:
+        """The captured body: the steps of ``segment`` in order.  It makes
+        no host read and no copy from the host, so a stream can capture
+        it."""
+        for step in segment:
+            if isinstance(step, _Prologue):
+                carry = self._prologue(carry)
+            elif isinstance(step, _Views):
+                carry = self._call_views(carry, step.factor, step.roi)
+            elif isinstance(step, _Chunk):
+                carry = self._chunk(carry, step)
+            else:
+                carry = self._end(carry)
+        return carry
+
+    def _prologue(self, carry: dict) -> dict:
+        """``__call__`` before its phases: preprocess the views and run the
+        init network (``_fused_program``'s head, ``pipeline.py:1031-1044``),
+        on the uniforms drawn before the graph."""
+        c = carry["call"]
+        dev = self.device
+        depth = self._preprocess_depth(c["depth"], c["mask"])
+        n_views = depth.shape[0]
+        frame = {
+            "cam_pos": c["cam_pos"] if "cam_pos" in c
+            else torch.zeros(n_views, 3, device=dev),
+            "cam_q": c["cam_q"] if "cam_q" in c
+            else _identity_quaternions(n_views, dev)}
+        if "source" in c:
+            frame.update(source=c["source"], target=c["target"])
+        latent, position, scale, orientation = self._nn_init(
+            depth, frame["cam_pos"], frame["cam_q"], None, c.get("prior"),
+            c.get("training_prior"), uniforms=c["uniforms"])
+        return {"depth": depth, "frame": frame, "state": {
+            "position": position, "orientation": orientation,
+            "scale": scale, "latent": latent}}
+
+    def _call_views(self, carry: dict, factor: int,
+                    roi: Optional[Tuple[int, int]]) -> dict:
+        """A ``__call__`` phase's view inputs from the preprocessed views:
+        the exactly-strided sub-observation of a coarse level and, without
+        an ROI, its tile-order clouds (an ROI phase re-lifts its crops)."""
+        depth = carry["depth"]
+        if factor > 1:
+            depth = depth[:, ::factor, ::factor].contiguous()
+        views = dict(carry["frame"], depth=depth)
+        if roi is None:
+            views["points"], views["point_mask"] = self._lift(depth, factor)
+        return dict(carry, views=views)
+
+    def _chunk(self, carry: dict, chunk: _Chunk) -> dict:
+        """The iterations of ``chunk`` (with the phase's start when it
+        starts at 0, its end when it ends the phase), then the early stop
+        check when ``chunk.check``: the device computes whether the chunk
+        improved the loss enough, the host reads it after the graph."""
+        phase, start, n = chunk.phase, chunk.start, chunk.n
+        carry = dict(carry)
+        ctx = self._phase_context(phase, carry["views"])
+        ph = (self._phase_start(phase, carry, ctx) if start == 0
+              else dict(carry["phase"]))
+        state = carry["state"]
+        for it in range(start, start + n):
+            state, ph = self._iteration(phase, ctx, ph, state, it)
+        if chunk.check:
+            # the absolute floor lets a zero-loss plateau count as
+            # converged (pipeline.py:670-677)
+            loss = ph["log"]["loss"][start + n - 1]
+            ref = ph["ref_loss"]
+            improved = (ref - loss) >= ctx["early_delta"] * torch.clamp(
+                torch.abs(ref), min=1e-8)
+            ph["stop"] = torch.logical_not(torch.all(improved))
+            ph["ref_loss"] = loss
+        carry["state"] = state
+        if chunk.ends_phase:
+            return self._finish_phase(carry, ph)
+        carry["phase"] = ph
+        return carry
+
+    def _phase_context(self, phase: _Phase, views: dict) -> dict:
+        """Per-view inputs of a phase's iterations, made on the device from
+        its view inputs (the ROI crops, their offsets and re-lifted clouds,
+        the rays), and its constants."""
+        dev = self.device
+        depth = views["depth"]
+        camera = (self.camera if phase.ds_factor == 1
+                  else self.camera.strided(phase.ds_factor))
+        per_view = []
+        if phase.roi is None:
+            rays = ray_set(camera, dev)
+            per_view = [(depth[v], views["points"][v], views["point_mask"][v],
+                         rays) for v in range(depth.shape[0])]
         else:
-            count, moments = opt_state["count"], dict(opt_state["moments"])
+            for d in depth:
+                offset = _roi_offset_for(d, phase.roi)
+                d = crop(d, phase.roi, offset)
+                per_view.append((d, *pointset.depth_to_pointcloud_dense(
+                    d, camera, order="tile", pixel_offset=offset),
+                    ray_set(camera, dev, phase.roi, offset)))
+        return {
+            "camera": camera, "views": per_view, "cam_pos": views["cam_pos"],
+            "q_w2c": quaternion.invert(views["cam_q"]),
+            "source": views.get("source"), "target": views.get("target"),
+            "adam": self._make_adam(),
+            "early_delta": float(self.config.get("early_stop_delta", 0.0)
+                                 or 0.0),
+            "refresh_k": int(self.config.get("temporal_refresh_interval", 8)),
+            "render": dict(
+                camera=camera,
+                threshold=self.config["threshold"],
+                culling=bool(self.config.get("coarse_culling", True)),
+                adaptive=bool(self.config.get("adaptive_relaxation", True)),
+                relaxation=float(self.config.get("relaxation", 1.0)),
+                bf16=bool(self.config.get("bf16_march", False)),
+                device=dev),
+        }
+
+    def _phase_start(self, phase: _Phase, carry: dict, ctx: dict) -> dict:
+        """A phase's own carry at its start: Adam afresh (zero moments,
+        count 0) unless ``carry`` brings ``opt_in``, the best tracker afresh
+        unless it brings ``best_in``, the log's ``(T, B, ...)`` buffers, the
+        early-stop reference and, under temporal coherence, the views' zero
+        warm state (forcing a full first march)."""
+        dev = self.device
+        state = carry["state"]
+        n_hyps = state["position"].shape[0]
+        n_views = len(ctx["views"])
+        opt = carry.pop("opt_in", None)
+        best = carry.pop("best_in", None)
+        if opt is None:
+            opt = {"count": torch.zeros((), dtype=torch.int32, device=dev),
+                   "moments": {k: (torch.zeros_like(v), torch.zeros_like(v))
+                               for k, v in state.items()}}
         if best is None:
-            best = {"inlier_ratio": f32([-1.0] * n_hyps),
-                    **{k: state[k].clone() for k in _STATE_KEYS}}
-        else:
-            best = {k: f32(best[k]) for k in ("inlier_ratio", *_STATE_KEYS)}
-        if use_warm:
+            best = {"inlier_ratio": torch.full((n_hyps,), -1.0, device=dev),
+                    **{k: state[k] for k in _STATE_KEYS}}
+        log = {k: torch.empty((phase.n_iter, n_hyps), device=dev)
+               for k in _LOSS_KEYS}
+        log.update({k: torch.empty((phase.n_iter, *state[k].shape),
+                                   device=dev) for k in _STATE_KEYS})
+        log["active"] = torch.ones(phase.n_iter, device=dev)
+        ph = {"count": opt["count"], "moments": opt["moments"], "best": best,
+              "log": log}
+        if phase.early:
+            # the first check always improves
+            ph["ref_loss"] = torch.full((n_hyps,), 1e30, device=dev)
+            ph["stop"] = torch.zeros((), dtype=torch.bool, device=dev)
+        if self._use_temporal_coherence():
+            camera = ctx["camera"]
             warm0 = init_warm_views(n_views, camera.height, camera.width,
                                     n_hyps, dev)
-            view_warms = [{k: x[v] for k, x in warm0.items()}
+            ph["warm"] = [{k: x[v] for k, x in warm0.items()}
                           for v in range(n_views)]
-            shared = {
+            ph["shared"] = {
                 "position": state["position"],
                 "orientation": _unit(state["orientation"]),
                 "scale": state["scale"],
                 "sdf": torch.zeros((n_hyps,) + (self.resolution,) * 3,
                                    device=dev),
             }
-        ref_loss = f32(1e30)  # early stop: the first check always improves
-        logs = []
-        for it in range(n_iter):
-            params = {k: state[k].detach().requires_grad_(True)
-                      for k in _STATE_KEYS}
-            norm_q = _unit(params["orientation"])
-            latent = params["latent"]
-            if not shape_optimization:
-                latent = latent.detach()
-            sdf = self._decode(latent)[:, 0]
+        return ph
+
+    def _iteration(self, phase: _Phase, ctx: dict, ph: dict,
+                   state: Dict[str, torch.Tensor], it: int):
+        """Iteration ``it`` of a phase: decode, render and losses per view,
+        the gradient, Adam's step, the best tracker and the log's row
+        ``it``.  Returns ``(state, phase carry)``."""
+        dev = self.device
+        params = {k: state[k].detach().requires_grad_(True)
+                  for k in _STATE_KEYS}
+        norm_q = _unit(params["orientation"])
+        latent = params["latent"]
+        if not phase.shape_optimization:
+            latent = latent.detach()
+        sdf = self._decode(latent)[:, 0]
+        ph = dict(ph)
+        use_warm = "warm" in ph
+        if use_warm:
+            motion = motion_bound(params["position"], norm_q,
+                                  params["scale"], sdf, ph["shared"])
+            warms = list(ph["warm"])
+        view_losses = []
+        for v, (depth_v, points_v, mask_v, rays_v) in enumerate(ctx["views"]):
+            position_c = quaternion.apply(
+                ctx["q_w2c"][v], params["position"] - ctx["cam_pos"][v])
+            orientation_c = quaternion.multiply(ctx["q_w2c"][v], norm_q)
             if use_warm:
-                motion = motion_bound(params["position"], norm_q,
-                                      params["scale"], sdf, shared)
-            view_losses = []
-            for v, (depth_v, points_v, mask_v, rays_v) in enumerate(views):
-                position_c = quaternion.apply(
-                    q_w2c[v], params["position"] - camera_position[v])
-                orientation_c = quaternion.multiply(q_w2c[v], norm_q)
-                if use_warm:
-                    depth_estimate, view_warms[v] = warm_render_step(
-                        sdf, position_c, orientation_c, params["scale"],
-                        view_warms[v], motion, it % refresh_k == 0, camera,
-                        threshold, device=dev,
-                    )
-                    loss_pc = losses.masked_pc_loss(
-                        points_v, mask_v, position_c, orientation_c,
-                        params["scale"], sdf,
-                    )
-                else:
-                    depth_estimate, pc_values = render_depth_with_pc_values(
-                        sdf, position_c, orientation_c, params["scale"],
-                        points_v, mask_v, rays=rays_v, **render_kwargs,
-                    )
-                    loss_pc = losses.masked_mean_abs(pc_values, mask_v)
-                view_losses.append((losses.depth_l1_loss(
-                    depth_v, depth_estimate), loss_pc))
-            # summed in view order, as the JAX package's scan over views
-            loss_depth, loss_pc = view_losses[0]
-            for ld, lp in view_losses[1:]:
-                loss_depth, loss_pc = loss_depth + ld, loss_pc + lp
-            loss = depth_weight * loss_depth + pc_weight * loss_pc
-            if point_constraint is not None:
-                loss = loss + pc_w * losses.point_constraint_loss(
-                    params["orientation"], source, target)
-            if use_warm:
-                shared = {"position": params["position"].detach(),
-                          "orientation": norm_q.detach(),
-                          "scale": params["scale"].detach(),
-                          "sdf": sdf.detach()}
-            wanted = [k for k in _STATE_KEYS
-                      if k != "latent" or shape_optimization]
-            got = torch.autograd.grad(loss.sum(),
-                                      [params[k] for k in wanted])
-            grads = {k: torch.zeros_like(state[k]) for k in _STATE_KEYS}
-            grads.update(zip(wanted, got))
-            with torch.no_grad():
-                count += 1
-                state = adam(state, grads, moments, count)
-                state["orientation"] = _unit(state["orientation"])
-                # the last view's observation and pre-step render
-                ratio = losses.inlier_ratio(
-                    views[-1][0], depth_estimate,
-                    self._relative_inlier_threshold,
+                depth_estimate, warms[v] = warm_render_step(
+                    sdf, position_c, orientation_c, params["scale"],
+                    warms[v], motion, it % ctx["refresh_k"] == 0,
+                    ctx["camera"], self.config["threshold"], device=dev,
                 )
-                is_better = ratio > best["inlier_ratio"]
-                best = {
-                    "inlier_ratio": torch.where(is_better, ratio,
-                                                best["inlier_ratio"]),
-                    **{k: torch.where(_per_row(is_better, state[k]),
-                                      state[k], best[k])
-                       for k in _STATE_KEYS},
-                }
-                logs.append({
-                    "loss": loss.detach(),
-                    "loss_depth": loss_depth.detach(),
-                    "loss_pc": loss_pc.detach(),
-                    "inlier_ratio": ratio,
-                    **{k: state[k] for k in _STATE_KEYS},
-                    "active": f32(1.0),
-                })
-                if early_delta > 0.0 and (it + 1) % early_interval == 0:
-                    # the absolute floor lets a zero-loss plateau count as
-                    # converged (pipeline.py:670-677)
-                    improved = (ref_loss - loss) >= early_delta * torch.clamp(
-                        torch.abs(ref_loss), min=1e-8)
-                    ref_loss = loss.detach()
-                    if not bool(improved.all()):  # the check's host read
-                        break
-        if logs:
-            logs += [dict(logs[-1], active=f32(0.0))] * (n_iter - len(logs))
-        log = {k: torch.stack([lg[k] for lg in logs]) for k in logs[0]} if (
-            logs) else {}
-        return state, {"count": count, "moments": moments}, best, log
+                loss_pc = losses.masked_pc_loss(
+                    points_v, mask_v, position_c, orientation_c,
+                    params["scale"], sdf,
+                )
+            else:
+                depth_estimate, pc_values = render_depth_with_pc_values(
+                    sdf, position_c, orientation_c, params["scale"],
+                    points_v, mask_v, rays=rays_v, **ctx["render"],
+                )
+                loss_pc = losses.masked_mean_abs(pc_values, mask_v)
+            view_losses.append((losses.depth_l1_loss(
+                depth_v, depth_estimate), loss_pc))
+        # summed in view order, as the JAX package's scan over views
+        loss_depth, loss_pc = view_losses[0]
+        for ld, lp in view_losses[1:]:
+            loss_depth, loss_pc = loss_depth + ld, loss_pc + lp
+        loss = (self.config.get("depth_weight", 1.0) * loss_depth
+                + self.config.get("pc_weight", 1.0) * loss_pc)
+        if phase.constraint_weight is not None:
+            loss = loss + phase.constraint_weight * (
+                losses.point_constraint_loss(params["orientation"],
+                                             ctx["source"], ctx["target"]))
+        if use_warm:
+            ph["warm"] = warms
+            ph["shared"] = {"position": params["position"].detach(),
+                            "orientation": norm_q.detach(),
+                            "scale": params["scale"].detach(),
+                            "sdf": sdf.detach()}
+        wanted = [k for k in _STATE_KEYS
+                  if k != "latent" or phase.shape_optimization]
+        got = torch.autograd.grad(loss.sum(), [params[k] for k in wanted])
+        grads = {k: torch.zeros_like(state[k]) for k in _STATE_KEYS}
+        grads.update(zip(wanted, got))
+        with torch.no_grad():
+            count = ph["count"] + 1
+            state, ph["moments"] = ctx["adam"](state, grads, ph["moments"],
+                                               count)
+            ph["count"] = count
+            state["orientation"] = _unit(state["orientation"])
+            # the last view's observation and pre-step render
+            ratio = losses.inlier_ratio(
+                ctx["views"][-1][0], depth_estimate,
+                self._relative_inlier_threshold,
+            )
+            best = ph["best"]
+            is_better = ratio > best["inlier_ratio"]
+            ph["best"] = {
+                "inlier_ratio": torch.where(is_better, ratio,
+                                            best["inlier_ratio"]),
+                **{k: torch.where(_per_row(is_better, state[k]),
+                                  state[k], best[k])
+                   for k in _STATE_KEYS},
+            }
+            row = {"loss": loss, "loss_depth": loss_depth,
+                   "loss_pc": loss_pc, "inlier_ratio": ratio, **state}
+            for k, v in row.items():
+                ph["log"][k][it].copy_(v)
+        return state, ph
+
+    def _finish_phase(self, carry: dict, ph: dict) -> dict:
+        """Hand a finished phase on: its log joins ``logs``, its best
+        tracker and Adam state become ``best`` and ``opt``."""
+        carry = {k: v for k, v in carry.items()
+                 if k not in ("phase", "views")}
+        carry["logs"] = list(carry.get("logs", [])) + [ph["log"]]
+        carry["best"] = ph["best"]
+        carry["opt"] = {"count": ph["count"], "moments": ph["moments"]}
+        return carry
+
+    def _stopped(self, carry: dict, done: int) -> dict:
+        """A phase that early stop ended after ``done`` iterations, eagerly
+        between graphs: the log rows after them repeat the last one with
+        ``active`` 0, and the phase ends with its state and best as they
+        were."""
+        ph = carry["phase"]
+        with torch.no_grad():
+            for k, v in ph["log"].items():
+                if k == "active":
+                    v[done:] = 0.0
+                else:
+                    v[done:] = v[done - 1]
+        return self._finish_phase(carry, ph)
+
+    def _end(self, carry: dict) -> dict:
+        """The outputs: the final state, the last phase's best and Adam
+        state, the phases' logs concatenated and (``__call__``) the
+        preprocessed views."""
+        logs = carry["logs"]
+        out = {"state": carry["state"], "best": carry["best"],
+               "opt": carry["opt"],
+               "log": logs[0] if len(logs) == 1 else {
+                   k: torch.cat([lg[k] for lg in logs]) for k in logs[-1]}}
+        if "depth" in carry:
+            out["depth"] = carry["depth"]
+        return out
 
     # ------------------------------------------------------------------
     # public API
@@ -904,13 +1280,24 @@ class SDFPipeline:
                 init's point subsampling; a fresh one seeded 0 when None.
         Returns:
             ``(position (1, 3), orientation (1, 4), scale (1,), latent
-            (1, L))`` in the world frame.
+            (1, L))`` in the world frame, the caller's own tensors (as is
+            :attr:`last_log`: the next call does not overwrite them).
 
         The probe (one host read) raises :class:`NoDepthError` when view 0
         ("first") or any view ("best") has no valid depth, and gives the
         plan.  With ``reuse_plan: true`` a call after the first reuses the
         previous call's plan and runs no probe, so it cannot raise
         :class:`NoDepthError` up front (``pipeline.py:1208-1216``).
+
+        On the card the rest runs as captured graphs, captured on the first
+        call of a plan and shapes and replayed after that: with
+        ``fused_call: true`` (the default) ONE graph for preprocessing, the
+        init network and every phase (``_fused_program``), with ``false``
+        one per phase (the JAX package's per-phase dispatches; the first
+        one takes preprocessing and the init too).  With early stop a graph ends at
+        each check, which the host reads between graphs.  The init's
+        uniforms are drawn from ``generator`` before the graph.  A call
+        with ``reuse_plan`` and a cached plan makes no host sync.
         """
         start_time = time.time()
         dev = self.device
@@ -922,59 +1309,51 @@ class SDFPipeline:
             if prior is not None:
                 prior = torch.as_tensor(prior)[None]
         n_views = depth.shape[0]
-        camera_positions = torch.zeros(n_views, 3, device=dev) if (
-            camera_positions is None) else torch.as_tensor(
-                camera_positions, dtype=torch.float32, device=dev
-            ).reshape(n_views, 3)
-        camera_orientations = torch.tensor(
-            [[0.0, 0.0, 0.0, 1.0]] * n_views, device=dev
-        ) if camera_orientations is None else torch.as_tensor(
-            camera_orientations, dtype=torch.float32, device=dev
-        ).reshape(n_views, 4)
-        f32 = lambda x: None if x is None else torch.as_tensor(
-            x, dtype=torch.float32, device=dev)
-        prior = f32(prior)
-        training_prior = f32(training_orientation_distribution)
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+        call = {"depth": depth, "mask": mask}
+        if camera_positions is not None:
+            call["cam_pos"] = f32(camera_positions).reshape(n_views, 3)
+        if camera_orientations is not None:
+            call["cam_q"] = f32(camera_orientations).reshape(n_views, 4)
+        prior = None if prior is None else f32(prior)
         self._validate_init_options(prior)
+        if prior is not None:
+            call["prior"] = prior
+        if training_orientation_distribution is not None:
+            call["training_prior"] = f32(training_orientation_distribution)
+        if point_constraint is not None:
+            call["source"] = f32(point_constraint[0])
+            call["target"] = f32(point_constraint[1])
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
 
-        depth = self._preprocess_depth(depth, mask)
         plan = self._cached_plan if bool(
             self.config.get("reuse_plan", False)) else None
         if plan is None:
-            probe = _probe(depth).tolist()  # the one sync
+            # the one sync
+            probe = _probe(self._preprocess_depth(depth, mask)).tolist()
             first = self.config.get("init_view", "first") == "first"
             if not (probe[0][0] if first else all(p[0] for p in probe)):
                 raise NoDepthError
             plan = self._cached_plan = self._plan_for(
                 [(sy, sx) for valid, sy, sx in probe if valid])
         levels, fine_roi, fine_iters = self.last_plan = plan
-        latent, position, scale, orientation = self._nn_init(
-            depth, camera_positions, camera_orientations, generator, prior,
-            training_prior,
-        )
-        state = {"position": position, "orientation": orientation,
-                 "scale": scale, "latent": latent}
-        cameras = (camera_positions, camera_orientations)
-        logs = []
+        call["uniforms"] = self._init_uniforms(n_views, generator)
         # coarse levels hand over their final state; their best is dropped
         # (coarse inlier ratios do not compare with full-raster ones)
-        for factor, n_iters, roi in levels:
-            depth_c = depth[:, ::factor, ::factor].contiguous()
-            cloud = (None, None) if roi else self._lift(depth_c, factor)
-            state, _, log = self._refine(
-                state, depth_c, *cloud, *cameras, shape_optimization, n_iters,
-                roi, factor, point_constraint,
-            )
-            logs.append(log)
-        cloud = (None, None) if fine_roi else self._lift(depth, 1)
-        state, best, log = self._refine(
-            state, depth, *cloud, *cameras, shape_optimization, fine_iters,
-            fine_roi, 1, point_constraint,
-        )
-        logs.append(log)
-        self.last_log = {k: torch.cat([lg[k] for lg in logs]) for k in log}
+        steps = [_Prologue()]
+        for index, (factor, n_iters, roi) in enumerate(
+                list(levels) + [(1, fine_iters, fine_roi)]):
+            phase = self._phase(n_iters, roi, factor, shape_optimization,
+                                point_constraint, True, 1)
+            steps += [_Views(factor, roi)] + self._phase_steps(index, phase)
+        steps.append(_End())
+        out = self._drive("call", steps, {"call": call},
+                          fused=bool(self.config.get("fused_call", True)))
+        state, depth = out["state"], out["depth"]
+        best = dict(out["best"], inlier_ratio=out["best"]["inlier_ratio"][0])
+        self.last_log = {k: v[:, 0] if k in _LOSS_KEYS else v
+                         for k, v in out["log"].items()}
         if log_path is not None or animation_path is not None:
             data = self._flight_record(depth, levels, start_time)
             if log_path is not None:

@@ -27,7 +27,6 @@ one.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -42,7 +41,7 @@ from sdfest_torch.render.plain import (
     pixel_directions_np,
     ray_interval,
 )
-from sdfest_torch.utils.device import resolve_device
+from sdfest_torch.utils.device import device_cache, resolve_device
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:
@@ -98,7 +97,7 @@ def sample_sdf_masked_extrapolating(
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _tiled_directions(camera: Camera, device: torch.device) -> torch.Tensor:
     """Ray directions ``(H*W, 3)`` in 16x16 tile-major order (camera
     constant, cached on the device)."""

@@ -4,7 +4,10 @@ counts.
 Each wrapper takes its plain version for tensors on the CPU, and for CUDA
 tensors launches the hand-written kernel from ``sdfest_torch/csrc/`` or
 raises: there is no fallback.  ``<wrapper>.launches`` counts the kernel's
-launches (a plain integer, reset by assigning 0).
+launches (a plain integer, reset by assigning 0).  A wrapper called while a
+CUDA graph captures counts its launch once, at capture; the graph cache
+(:mod:`sdfest_torch.pipeline.graphs`) adds a graph's counts on every replay
+(:func:`add_counts`).
 
 | wrapper         | CUDA source             | replaces (pallas_kernel.py)    |
 |-----------------|-------------------------|--------------------------------|
@@ -573,3 +576,46 @@ def launches() -> dict:
 def hypotheses() -> dict:
     """Hypotheses served by every kernel's launches since the reset."""
     return {name: fn.hypotheses for name, fn in KERNELS.items()}
+
+
+def counts() -> dict:
+    """Every count the wrappers keep: launches and hypotheses per kernel,
+    the marches' bf16 launches and the march's launches per raster."""
+    m, w = KERNELS["march"], KERNELS["march_warm"]
+    return {
+        "launches": launches(), "hypotheses": hypotheses(),
+        "bf16_launches": {"march": m.bf16_launches,
+                          "march_warm": w.bf16_launches},
+        "rasters": dict(m.rasters)}
+
+
+def set_counts(state: dict) -> None:
+    """Set every count to ``state`` (a :func:`counts`)."""
+    for name, fn in KERNELS.items():
+        fn.launches = state["launches"][name]
+        fn.hypotheses = state["hypotheses"][name]
+        if name in state["bf16_launches"]:
+            fn.bf16_launches = state["bf16_launches"][name]
+    KERNELS["march"].rasters = dict(state["rasters"])
+
+
+def count_difference(after: dict, before: dict) -> dict:
+    """The counts made between two :func:`counts` (the launches of a
+    captured graph, :mod:`sdfest_torch.pipeline.graphs`)."""
+    out = {k: {n: after[k][n] - before[k].get(n, 0) for n in after[k]}
+           for k in after}
+    out["rasters"] = {r: c for r, c in out["rasters"].items() if c}
+    return out
+
+
+def add_counts(delta: dict) -> None:
+    """Add a :func:`count_difference` to the counts: one replay of a
+    captured graph launches every kernel its capture launched."""
+    for name, fn in KERNELS.items():
+        fn.launches += delta["launches"][name]
+        fn.hypotheses += delta["hypotheses"][name]
+        if name in delta["bf16_launches"]:
+            fn.bf16_launches += delta["bf16_launches"][name]
+    rasters = KERNELS["march"].rasters
+    for raster, c in delta["rasters"].items():
+        rasters[raster] = rasters.get(raster, 0) + c

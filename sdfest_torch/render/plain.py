@@ -21,7 +21,6 @@ batched kernels equal a loop of unbatched twins by construction.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -30,6 +29,7 @@ import torch
 from sdfest_torch.ops import quaternion
 from sdfest_torch.ops.camera import Camera
 from sdfest_torch.ops.interpolation import sample_sdf, trilinear_weights
+from sdfest_torch.utils.device import device_cache
 
 NC = 16  # coarse culling grid per axis
 COARSE_MARGIN = 1e-4  # slack below the coarse min-pool (fp noise)
@@ -54,7 +54,7 @@ def pixel_directions_np(camera: Camera) -> np.ndarray:
     return np.stack([dx * inv, dy * inv, -inv], axis=-1).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def pixel_directions(camera: Camera, device: torch.device) -> torch.Tensor:
     """Ray directions ``(H*W, 3)`` in raster order, cached per camera on
     the device."""

@@ -843,3 +843,211 @@ def test_march_on_a_nocs_like_camera_equals_plain_twin(dev, flags):
                              flags, flags).reshape(depth.shape)
     assert int((want > 0).sum()) > 300
     assert torch.equal(depth, want)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's captured graphs (sdfest_torch/pipeline/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_CAMERA = dict(width=128, height=96, fx=64, fy=64, cx=64, cy=48,
+                    pixel_center=0.5)
+GRAPH_PRESETS = {"full_frame": ("mug_procedural", {}),
+                 "fast": ("mug_procedural_fast", dict(roi_margin=16)),
+                 "temporal": ("mug_procedural_temporal", {})}
+
+
+def _graph_pipe(dev, name, **overrides):
+    from sdfest_torch.pipeline.pipeline import SDFPipeline
+    from sdfest_torch.utils.presets import preset
+
+    config = preset(name)
+    config.update(camera=dict(GRAPH_CAMERA), max_iterations=6, **overrides)
+    return SDFPipeline(config, device=dev)
+
+
+def _observation(pipe, shift=0.0):
+    """Depth of a decoded mug at a tilted pose (``shift`` moves it
+    sideways)."""
+    g = torch.Generator().manual_seed(0)
+    latent = (0.5 * torch.randn(1, 8, generator=g)).to(pipe.device)
+    q = torch.tensor([0.17, 0.30, 0.09, 0.93], device=pipe.device)
+    with torch.no_grad():
+        sdf = pipe._decode(latent)[0, 0]
+        return api.render_depth(
+            sdf, torch.tensor([0.02 + shift, -0.01, -0.5],
+                              device=pipe.device),
+            q / q.norm(), 10.0, camera=pipe.camera, threshold=0.005,
+            device=pipe.device)
+
+
+def _counted_call(pipe, depth, **kwargs):
+    kernels.reset_launches()
+    out = pipe(depth, depth > 0, **kwargs)
+    torch.cuda.synchronize()
+    return out, {k: v.clone() for k, v in pipe.last_log.items()}, dict(
+        kernels.counts())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(GRAPH_PRESETS))
+def test_graph_call_equals_eager_bit_for_bit_without_shape_optimization(
+        dev, path):
+    """Without shape optimization no launch adds in a varying order (the
+    scatter is not launched), so the graph call equals the eager loop bit
+    for bit at every iteration, with the same launch counts; a second call
+    of the same shapes replays without capturing again."""
+    from sdfest_torch.pipeline import graphs
+
+    name, overrides = GRAPH_PRESETS[path]
+    pipe = _graph_pipe(dev, name, **overrides)
+    depth = _observation(pipe)
+    with graphs.eager():
+        want, want_log, want_counts = _counted_call(
+            pipe, depth, shape_optimization=False)
+    assert len(pipe.graphs) == 0
+    got, log, counts = _counted_call(pipe, depth, shape_optimization=False)
+    assert pipe.graphs.captures == 1 and pipe.graphs.replays == 1
+    assert counts == want_counts and counts["launches"]["scatter"] == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for k in want_log:
+        assert torch.equal(log[k], want_log[k]), k
+    again, _, counts = _counted_call(pipe, depth, shape_optimization=False)
+    assert pipe.graphs.captures == 1 and pipe.graphs.replays == 2
+    assert counts == want_counts
+    for g, w in zip(again, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(GRAPH_PRESETS))
+def test_graph_call_with_shape_optimization_starts_as_eager(dev, path):
+    """With shape optimization the scatter's float atomics part graph and
+    eager runs after the first update: iteration 0's loss within 1e-6, the
+    launch counts equal, every loss finite."""
+    from sdfest_torch.pipeline import graphs
+
+    name, overrides = GRAPH_PRESETS[path]
+    pipe = _graph_pipe(dev, name, **overrides)
+    depth = _observation(pipe)
+    with graphs.eager():
+        _, want_log, want_counts = _counted_call(pipe, depth)
+    _, log, counts = _counted_call(pipe, depth)
+    assert counts == want_counts and counts["launches"]["scatter"] > 0
+    assert abs(float(log["loss"][0]) - float(want_log["loss"][0])) <= 1e-6
+    assert bool(torch.isfinite(log["loss"]).all())
+
+
+@pytest.mark.cuda
+def test_graph_outputs_survive_the_next_call(dev):
+    """The estimate and last_log of call k are the caller's own: call k + 1
+    (another observation, the same graph) leaves them unchanged."""
+    pipe = _graph_pipe(dev, "mug_procedural")
+    first = pipe(*(lambda d: (d, d > 0))(_observation(pipe)))
+    log = pipe.last_log
+    kept = [t.clone() for t in first]
+    kept_log = {k: v.clone() for k, v in log.items()}
+    second = pipe(*(lambda d: (d, d > 0))(_observation(pipe, shift=0.01)))
+    assert pipe.graphs.captures == 1 and pipe.graphs.replays == 2
+    assert not torch.equal(second[0], first[0])
+    for t, k in zip(first, kept):
+        assert torch.equal(t, k)
+    for k, v in kept_log.items():
+        assert torch.equal(log[k], v), k
+
+
+@pytest.mark.cuda
+def test_graph_refine_batch_equals_eager_without_shape_optimization(dev):
+    """refine_batch of 4 hypotheses through one phase graph equals the
+    eager loop bit for bit, with one launch of each fused kernel per
+    iteration for all of them."""
+    from sdfest_torch.pipeline import graphs
+
+    pipe = _graph_pipe(dev, "mug_procedural")
+    depth = pipe._preprocess_depth(*(lambda d: (d, d > 0))(
+        _observation(pipe)))[None]
+    points, masks = pipe._lift(depth, 1)
+    g = torch.Generator().manual_seed(1)
+    states = {
+        "position": (torch.tensor([0.02, -0.01, -0.5]) + 0.005 * torch.randn(
+            4, 3, generator=g))[:, None].to(dev),
+        "orientation": torch.tensor([[[0.17, 0.30, 0.09, 0.93]]] * 4,
+                                    device=dev),
+        "scale": torch.full((4, 1), 0.1, device=dev),
+        "latent": (0.5 * torch.randn(4, 1, 8, generator=g)).to(dev)}
+    views = (depth, points, masks, torch.zeros(1, 3, device=dev),
+             torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev))
+    with graphs.eager():
+        kernels.reset_launches()
+        want = pipe.refine_batch(states, *views, shape_optimization=False)
+        want_counts = kernels.counts()
+    kernels.reset_launches()
+    got = pipe.refine_batch(states, *views, shape_optimization=False)
+    assert kernels.counts() == want_counts
+    assert kernels.launches()["march"] == 6
+    assert kernels.hypotheses()["march"] == 24
+    for g_part, w_part in zip(got, want):
+        for k in w_part:
+            assert torch.equal(g_part[k], w_part[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["full_frame", "fast"])
+def test_graph_owns_the_cached_rays_it_reads(dev, path):
+    """A captured call reads the cameras' rays and the sampler's divisor
+    from bounded caches.  With the caches cleared and their memory handed
+    out again (filled with NaN), a replay still equals the eager call bit
+    for bit: the graph keeps what it read alive."""
+    import gc
+
+    from sdfest_torch.ops import interpolation
+    from sdfest_torch.pipeline import graphs
+
+    name, overrides = GRAPH_PRESETS[path]
+    pipe = _graph_pipe(dev, name, **overrides)
+    depth = _observation(pipe)
+    with graphs.eager():
+        want, want_log, _ = _counted_call(pipe, depth,
+                                          shape_optimization=False)
+    _counted_call(pipe, depth, shape_optimization=False)
+    cameras = [pipe.camera] + [pipe.camera.strided(f)
+                               for f, _, _ in pipe.last_plan[0]]
+    shapes = [(c.height * c.width, 3) for c in cameras] + [()]
+    for cache in (plain.pixel_directions, api._tiled_directions,
+                  interpolation._divisor):
+        cache.cache_clear()
+    gc.collect()
+    filler = [torch.full(s, float("nan"), device=dev) for s in shapes
+              for _ in range(8)]
+    got, log, _ = _counted_call(pipe, depth, shape_optimization=False)
+    assert pipe.graphs.captures == 1 and pipe.graphs.replays == 2
+    del filler
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for k in want_log:
+        assert torch.equal(log[k], want_log[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["full_frame", "fast"])
+def test_per_phase_call_replays_one_graph_per_phase(dev, path):
+    """``fused_call: false``: one graph per phase of the plan (the first
+    also takes preprocessing and the init), equal to the eager loop bit
+    for bit without shape optimization, with the same launch counts."""
+    from sdfest_torch.pipeline import graphs
+
+    name, overrides = GRAPH_PRESETS[path]
+    pipe = _graph_pipe(dev, name, fused_call=False, **overrides)
+    depth = _observation(pipe)
+    with graphs.eager():
+        want, want_log, want_counts = _counted_call(
+            pipe, depth, shape_optimization=False)
+    got, log, counts = _counted_call(pipe, depth, shape_optimization=False)
+    n_phases = len(pipe.last_plan[0]) + 1
+    assert n_phases == (3 if path == "fast" else 1)
+    assert pipe.graphs.captures == pipe.graphs.replays == n_phases
+    assert counts == want_counts
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for k in want_log:
+        assert torch.equal(log[k], want_log[k]), k
