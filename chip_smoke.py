@@ -11,7 +11,7 @@ card) and the CUDA toolkit:
     python3 chip_smoke.py --phases build,check,bf16,multiview   # slice 4
     python3 chip_smoke.py --phases build,check,batch   # refine_batch
     python3 chip_smoke.py --phases build,check,mesh,evaluate   # slice 8
-    python3 chip_smoke.py --phases build,check,train   # slice 9: training
+    python3 chip_smoke.py --phases build,check,train   # slices 9, 13: training
     python3 chip_smoke.py --phases build,check,category,runtime   # slice 10
     python3 chip_smoke.py --phases build,check,parallel,scripts   # slice 11
     python3 chip_smoke.py --phases graph   # captured graphs against eager
@@ -168,23 +168,32 @@ Phases:
             version, the pc values (1e-4) and the pc loss's grid gradient
             (1e-5 of its largest value) against the plain versions on the same
             rows, the loss terms against the CPU port on the same inputs,
-            eps, quaternions and depth (rtol 1e-5, loss_pc 1e-4); then 20
-            steps from a seeded fresh initialisation (each one march, one
-            sample-grad and one scatter launch; losses finite, the last 5
-            below the first 5; ms/step the median of steps 5-20) and one
-            step past the KLD warm-up.  The init trainer of preset
+            eps, quaternions and depth (rtol 1e-5, loss_pc 1e-4).  Then each
+            trainer path as captured graphs against graphs.eager() (two
+            trainers of one seed, one generator seed each; a first dispatch
+            that captures, then turns eager, graph, graph, eager, ...): 20
+            train_steps from a seeded fresh initialisation (step 0's loss
+            terms equal, the parameters after it within 1e-6 of the largest
+            but for at most 1e-4 of them, every loss within 1% of eager's,
+            the loss falling) and one past the KLD warm-up; chained
+            dispatches of 10 steps on the mugs held on the card (bit for
+            bit with pc_weight 0; with the pc loss every loss within 1%);
             init_mug_procedural_v3 on views of the committed mug VAE: the
-            full 131,072-sample bf16 ring on the card, the first generation
-            batch's march (B = 16, 320x240) bit for bit its plain version
-            and its labels against the CPU port's from the same draws and
-            depth, 20 replay units from a fresh initialisation (one march
-            each, 10 optimizer steps at batch 64; losses finite, the
-            orientation CE of the last 5 units below the first 5) and 2
-            from the committed init_v3 weights and batch_stats; ms per
-            unit, views/s, steps/s; torch.profiler over one VAE step and
-            one replay unit.  Then the fresh VAE saved as flax msgpack +
-            YAML, loaded by SDFPipeline: its decoder equal to the trained
-            one on 4 latents within 1e-6, generate_depth finite
+            full 131,072-sample bf16 ring on the card (one per path), the
+            first generation batch's march (B = 16, 320x240) bit for bit its
+            plain version and its labels against the CPU port's, chained
+            replay dispatches of steps_per_dispatch = 10 units (10 steps at
+            batch 64) and fresh-stream chains of 10 steps, each bit for bit
+            eager (loss terms, parameters, BatchNorm statistics, Adam's
+            state, the ring), the orientation CE falling; 2 eager units
+            from the committed init_v3 weights.  Per path: ms per step or
+            unit (median and range of the turns), torch.profiler's busy
+            share of one graph dispatch, graph launches and host syncs per
+            dispatch (sync debug mode), capture and warm-up s, pool MB,
+            kernel launches per step against eager's and the trace's.  Then
+            the fresh VAE saved as flax msgpack + YAML, loaded by
+            SDFPipeline: its decoder equal to the trained one on 4 latents
+            within 1e-6, generate_depth finite
   time      each kernel and its plain twin over 30 distinct inputs (CUDA
             events), with the least time the card could take (bound); the
             march also at the three ROI shapes of the fast plan, plain,
@@ -2040,7 +2049,7 @@ class Smoke:
 
         import torch
 
-        from sdfest_torch.pipeline import graphs
+        from sdfest_torch.utils import graphs
         from sdfest_torch.render import kernels
 
         cache = pipe.graphs
@@ -2680,13 +2689,16 @@ class Smoke:
 
     def train(self):
         """The training path on the card: the VAE trainer (step-0 parity,
-        20 steps, the warm branch), the init trainer (the bf16 ring, the
-        first generation batch's parity, 20 replay units from a fresh
-        start, 2 from the committed weights) and the loop closing through
-        SDFPipeline (see the module docstring)."""
+        20 steps as graphs against eager, the warm branch, a chained
+        dispatch on the mugs held on the card), the init trainer (the bf16
+        ring, the first generation batch's parity, the chained replay and
+        fresh-stream dispatches as graphs against eager, 2 units from the
+        committed weights) and the loop closing through SDFPipeline (see
+        the module docstring)."""
         import os
         import tempfile
 
+        import numpy as np
         import torch
 
         from sdfest_torch.datasets.generated import SDFVAEViewDataset
@@ -2710,6 +2722,9 @@ class Smoke:
             self.train_vae_step0(cfg, torch.from_numpy(next(batches)))
             out["vae"], vae = self.train_vae_steps(cfg, batches,
                                                    make_trainer)
+            mugs = torch.from_numpy(np.stack([data[i] for i in range(
+                len(data))])).to(self.dev)
+            out["vae_chain"] = self.train_vae_chain(cfg, mugs, make_trainer)
             out["init"] = self.train_init(train_init, SDFVAEViewDataset)
             # the loop closes: the fresh VAE as flax msgpack + YAML, loaded
             # by the port's pipeline from that file
@@ -2847,63 +2862,246 @@ class Smoke:
             pc_value_err=err_value, pc_grid_err=err_grid,
             pc_grid_tol=tol_grid, pc_grid_max=grid_max, loss_terms_rel=rel)
 
-    def train_vae_steps(self, cfg, batches, make_trainer):
-        """TRAIN_VAE_STEPS steps from a seeded fresh initialisation, then
-        one past the KLD warm-up; returns the report and the trainer."""
+    def train_turns(self, label, cache, graph_run, eager_run, units,
+                    compare, turns=3):
+        """One dispatch of a trainer path on the graph path (the first of
+        its key: warm-up and capture) and one under ``graphs.eager()``
+        (two trainers of one seed, each drawing from its own generator of
+        one seed), then ``turns`` turns of each in the order eager, graph,
+        graph, eager, ...: ms per step or unit (``units`` per dispatch),
+        kernel launches per dispatch (the graph's equal to eager's), graph
+        launches per dispatch; ``compare(graph_out, eager_out, i)`` holds
+        the i-th dispatches' outputs to each other.  Then one more dispatch
+        of each under torch.cuda's sync debug mode (host syncs).  Returns
+        the report row and the outputs."""
         import statistics
 
         import torch
 
         from sdfest_torch.render import kernels
+        from sdfest_torch.utils import graphs
 
-        trainer = make_trainer(dict(cfg, seed=0), self.dev)
-        gen = torch.Generator(device=self.dev).manual_seed(0)
-        losses, times = [], []
-        want = dict.fromkeys(kernels.KERNELS, 0)
-        want.update(march=1, sample_grad=1, scatter=1)
-        for _ in range(TRAIN_VAE_STEPS):
-            batch = torch.from_numpy(next(batches))
+        def timed(eager):
             torch.cuda.synchronize()
             kernels.reset_launches()
+            replays = cache.replays
             t0 = time.perf_counter()
-            metrics = trainer.step(batch, generator=gen)
+            if eager:
+                with graphs.eager():
+                    out = eager_run()
+            else:
+                out = graph_run()
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            counts = kernels.launches()
-            assert counts == want, f"VAE step launches {counts}"
-            losses.append({k: float(v) for k, v in metrics.items()})
-        total = [m["loss"] for m in losses]
+            return dict(out=out, ms=(time.perf_counter() - t0) * 1e3 / units,
+                        counts=kernels.launches(),
+                        graph_launches=cache.replays - replays)
+
+        before = (cache.captures, cache.warm_up_seconds,
+                  cache.capture_seconds, cache.pool_bytes)
+        runs = {"graph": [timed(False)], "eager": [timed(True)]}
+        captured = dict(graphs=cache.captures - before[0],
+                        warm_up_s=cache.warm_up_seconds - before[1],
+                        capture_s=cache.capture_seconds - before[2],
+                        pool_mb=(cache.pool_bytes - before[3]) / 1e6,
+                        first_dispatch_ms=runs["graph"][0]["ms"] * units)
+        for i in range(turns):
+            for eager in ((True, False) if i % 2 == 0 else (False, True)):
+                runs["eager" if eager else "graph"].append(timed(eager))
+        for i, (g, e) in enumerate(zip(runs["graph"], runs["eager"])):
+            assert g["counts"] == e["counts"], (label, i, g["counts"],
+                                                e["counts"])
+            compare(g["out"], e["out"], i)
+        _, syncs = count_syncs(graph_run)
+        with graphs.eager():
+            _, eager_syncs = count_syncs(eager_run)
+        ms = {k: [r["ms"] for r in v[1:]] for k, v in runs.items()}
+        counts = runs["graph"][1]["counts"]
+        row = dict(
+            ms_per_unit={k: dict(median=statistics.median(v), min=min(v),
+                                 max=max(v), runs=v) for k, v in ms.items()},
+            graph_launches_per_dispatch=[r["graph_launches"]
+                                         for r in runs["graph"][1:]],
+            host_syncs_per_dispatch=syncs, eager_host_syncs=eager_syncs,
+            kernel_launches_per_dispatch={k: v for k, v in counts.items()
+                                          if v},
+            kernel_launches_per_unit={k: v / units for k, v in
+                                      counts.items() if v},
+            **captured)
+        assert set(row["graph_launches_per_dispatch"]) == {1}, (label, row)
+        assert syncs == 0, f"{label}: {syncs} host syncs in a dispatch"
+        return row, runs
+
+    def train_line(self, label, row, prof, unit, extra=""):
+        """The line of one trainer path (see train_turns)."""
+        g, e = row["ms_per_unit"]["graph"], row["ms_per_unit"]["eager"]
+        print(f"train graph {label}: ms/{unit} graph median {g['median']:.3f}"
+              f" (range {g['min']:.3f}-{g['max']:.3f}, {len(g['runs'])} "
+              f"turns) against eager median {e['median']:.3f} (range "
+              f"{e['min']:.3f}-{e['max']:.3f}); busy share of one profiled "
+              f"dispatch {prof['busy_share']:.4f}; graph launches per "
+              f"dispatch {row['graph_launches_per_dispatch']}; host syncs "
+              f"per dispatch {row['host_syncs_per_dispatch']} (eager "
+              f"{row['eager_host_syncs']}); capture {row['capture_s']:.2f} s,"
+              f" warm-up {row['warm_up_s']:.2f} s, pools "
+              f"{row['pool_mb']:.1f} MB; kernel launches per {unit} "
+              f"{row['kernel_launches_per_unit']} (eager's equal, the "
+              f"trace's {prof['traced_launches']}){extra} ({card_line()})")
+        row.update(busy_share=prof["busy_share"],
+                   device_ms=prof["device_ms"],
+                   traced_launches=prof["traced_launches"])
+
+    def train_vae_steps(self, cfg, batches, make_trainer):
+        """TRAIN_VAE_STEPS train_steps (batch 8, 640x480) from a seeded
+        fresh initialisation on the graph path and under graphs.eager():
+        step 0's loss terms equal, the parameters after it within 1e-6 of
+        the largest, the loss within 1% of eager's at every step, the loss
+        falling; one step past the KLD warm-up.  Returns the report and the
+        graph path's trainer."""
+        import torch
+
+        from sdfest_torch.render import kernels
+
+        graph, eager = (make_trainer(dict(cfg, seed=0), self.dev)
+                        for _ in range(2))
+        gens = [torch.Generator(device=self.dev).manual_seed(0)
+                for _ in range(2)]
+        data = [torch.from_numpy(next(batches)).to(self.dev)
+                for _ in range(TRAIN_VAE_STEPS + 6)]
+        it = {"graph": iter(data), "eager": iter(data)}
+        want = dict.fromkeys(kernels.KERNELS, 0)
+        want.update(march=1, sample_grad=1, scatter=1)
+        bars = {}
+
+        def compare(g, e, i):
+            share = abs(float(g["loss"]) - float(e["loss"])) / abs(
+                float(e["loss"]))
+            bars[i] = share
+            if i == 0:
+                equal = {k: torch.equal(g[k], e[k]) for k in e}
+                largest = max(float(p.detach().abs().max())
+                              for p in eager.vae.parameters())
+                diff = torch.cat([(p - q).detach().abs().flatten()
+                                  for p, q in zip(graph.vae.parameters(),
+                                                  eager.vae.parameters())])
+                off = int((diff > 1e-6 * largest).sum())
+                bars.update(step0_equal=equal, params_err=float(diff.max()),
+                            params_largest=largest, params_off=off,
+                            params_n=diff.numel())
+                assert all(equal.values()), f"vae step 0 terms {equal}"
+                assert off <= VAE_STEP1_SHARE * diff.numel(), (off, largest)
+                assert bars["params_err"] <= 2 * cfg["learning_rate"]
+            assert share <= 0.01, f"vae step {i}: loss {share:.4f} off eager"
+
+        row, runs = self.train_turns(
+            "vae-step", graph.graphs,
+            lambda: graph.train_step(next(it["graph"]), gens[0]),
+            lambda: eager.train_step(next(it["eager"]), gens[1]), 1,
+            compare, turns=TRAIN_VAE_STEPS - 1)
+        assert row["kernel_launches_per_dispatch"] == {
+            k: v for k, v in want.items() if v}, row
+        total = [float(r["out"]["loss"]) for r in runs["graph"]]
         first, last = sum(total[:5]) / 5, sum(total[-5:]) / 5
-        ms = statistics.median(times[5:])
-        trainer.iteration = trainer.WARM_UP_ITERATIONS + 1
-        warm = {k: float(v) for k, v in trainer.step(
-            torch.from_numpy(next(batches)), generator=gen).items()}
-        finite = all(math.isfinite(v) for m in losses + [warm]
-                     for v in m.values())
-        print(f"train vae {TRAIN_VAE_STEPS} steps (fresh, seed 0): "
-              f"ms/step {ms:.2f} (median of steps 6-{TRAIN_VAE_STEPS}; "
-              f"first {times[0]:.1f}), launches per step "
-              f"{ {k: v for k, v in counts.items() if v} }; loss "
-              f"{total[0]:.2f} -> "
-              f"{total[-1]:.2f}, mean first 5 {first:.2f}, last 5 "
-              f"{last:.2f}; loss_pc {losses[0]['loss_pc']:.4f} -> "
-              f"{losses[-1]['loss_pc']:.4f}; warm step (iteration "
-              f"{trainer.WARM_UP_ITERATIONS + 1}): loss_kld "
-              f"{warm['loss_kld']:.3f}, loss {warm['loss']:.2f}")
-        assert finite, "a VAE loss is not finite"
+        assert all(math.isfinite(v) for v in total), "a VAE loss diverged"
         assert last < first, "the VAE loss did not fall"
-        self._profile_run("train-vae-step", lambda: trainer.step(
-            torch.from_numpy(next(batches)), generator=gen), 1)
-        return dict(steps=TRAIN_VAE_STEPS, ms_per_step=ms,
-                    ms_first_step=times[0], loss_first5=first,
-                    loss_last5=last, launches_per_step={
-                        k: v for k, v in counts.items() if v},
-                    warm_step=warm), trainer
+        graph.iteration = graph.WARM_UP_ITERATIONS + 1
+        warm = {k: float(v) for k, v in graph.train_step(
+            next(it["graph"]), gens[0]).items()}
+        assert all(math.isfinite(v) for v in warm.values())
+        prof = self._profile_run("train-vae-step", lambda: graph.train_step(
+            next(it["graph"]), gens[0]), 1)
+        shares = [v for k, v in bars.items() if isinstance(k, int)]
+        self.train_line(
+            "vae-step (batch 8, pc 640x480)", row, prof, "step",
+            f"; step 0 loss terms equal {all(bars['step0_equal'].values())},"
+            f" parameters after it: {bars['params_off']} of "
+            f"{bars['params_n']} off by more than 1e-6 of the largest "
+            f"({1e-6 * bars['params_largest']:.3e}; tol a share of "
+            f"{VAE_STEP1_SHARE}), max|d| {bars['params_err']:.3e} (tol two "
+            f"Adam steps); loss per step off eager's by at "
+            f"most {max(shares):.2e} of it over {len(shares)} steps (tol "
+            f"0.01); loss {total[0]:.2f} -> {total[-1]:.2f}, mean first 5 "
+            f"{first:.2f}, last 5 {last:.2f}; warm step (iteration "
+            f"{graph.WARM_UP_ITERATIONS + 1}): loss_kld "
+            f"{warm['loss_kld']:.3f}, loss {warm['loss']:.2f}")
+        row.update(loss_first5=first, loss_last5=last, warm_step=warm,
+                   loss_share_max=max(shares),
+                   params_err_after_step0=bars["params_err"])
+        return row, graph
+
+    def train_vae_chain(self, cfg, data, make_trainer):
+        """Chained VAE dispatches of TRAIN_CHAIN_K steps on the procedural
+        mugs held on the card (batch 8): with pc_weight 0 graph and eager
+        equal bit for bit (loss terms, parameters, Adam's state); with the
+        pc loss the loss within 1% of eager's at every step, timed in
+        turns and profiled."""
+        import torch
+
+        k = TRAIN_CHAIN_K
+        pair = [make_trainer(dict(cfg, seed=0, pc_weight=0.0), self.dev)
+                for _ in range(2)]
+        chains = [t.make_chained_step(data, 8, k) for t in pair]
+        gens = [torch.Generator(device=self.dev).manual_seed(1)
+                for _ in range(2)]
+
+        def equal(g, e, i):
+            diff = [name for name in e if not torch.equal(g[name], e[name])]
+            assert not diff, f"vae chain (pc_weight 0) dispatch {i}: {diff}"
+
+        exact, _ = self.train_turns(
+            "vae-chain-pc0", pair[0].graphs,
+            lambda: chains[0](data, gens[0]),
+            lambda: chains[1](data, gens[1]), k, equal, turns=1)
+        self.same_state(pair[0], pair[1], "vae chain (pc_weight 0)")
+        graph, eager = (make_trainer(dict(cfg, seed=0), self.dev)
+                        for _ in range(2))
+        chains = [t.make_chained_step(data, 8, k) for t in (graph, eager)]
+        shares = []
+
+        def close(g, e, i):
+            share = float(((g["loss"] - e["loss"]).abs()
+                           / e["loss"].abs()).max())
+            shares.append(share)
+            assert share <= 0.01, f"vae chain dispatch {i}: {share:.4f}"
+
+        row, _ = self.train_turns(
+            "vae-chain", graph.graphs, lambda: chains[0](data, gens[0]),
+            lambda: chains[1](data, gens[1]), k, close)
+        assert row["kernel_launches_per_dispatch"] == {
+            "march": k, "sample_grad": k, "scatter": k}, row
+        prof = self._profile_run("train-vae-chain",
+                                 lambda: chains[0](data, gens[0]), k)
+        self.train_line(
+            f"vae-chain (K {k}, batch 8, {data.shape[0]} mugs on the card)",
+            row, prof, "step",
+            f"; with pc_weight 0 graph == eager bit for bit (loss terms, "
+            f"parameters, Adam's state) over "
+            f"{len(exact['graph_launches_per_dispatch']) + 1} dispatches; "
+            f"with the pc loss every step's loss off eager's by at most "
+            f"{max(shares):.2e} of it (tol 0.01)")
+        row.update(pc0_bit_for_bit=True, loss_share_max=max(shares),
+                   pc0=exact)
+        return row
+
+    def same_state(self, a, b, label):
+        """Two trainers' parameters, buffers and Adam states bit for bit."""
+        import torch
+
+        sa, sb = a.state_dict()["model"], b.state_dict()["model"]
+        diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
+        for p, q in zip(a.optimizer.params(), b.optimizer.params()):
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                if not torch.equal(a.optimizer.state[p][key],
+                                   b.optimizer.state[q][key]):
+                    diff.append(key)
+        assert not diff, f"{label}: graph != eager in {diff[:5]}"
 
     def train_init(self, train_init, view_dataset):
-        """The init trainer of init_mug_procedural_v3 on the card."""
-        import statistics
-
+        """The init trainer of init_mug_procedural_v3 on the card: the
+        bf16 ring and the first generation batch's parity, the chained
+        replay dispatch (steps_per_dispatch units) and the chained
+        fresh-stream dispatch (TRAIN_CHAIN_K steps) on the graph path and
+        under graphs.eager(), bit for bit, then two eager replay units from
+        the committed weights."""
         import torch
 
         from sdfest_torch.render import api, kernels, plain
@@ -2915,19 +3113,22 @@ class Smoke:
         loader = runner._create_dataset(
             "generated_dataset", cfg["datasets"]["generated_dataset"])
         ds = runner._generated_datasets["generated_dataset"]
-        trainer = runner.trainer
+        graph = runner.trainer
+        eager = train_init.Trainer(cfg, device=self.dev).trainer
         gen_batch = cfg["batch_size"]
         t_train, train_batch = (cfg["replay_train_steps"],
                                 cfg["replay_train_batch"])
+        k = cfg["steps_per_dispatch"]
         torch.cuda.synchronize()
         free0 = torch.cuda.mem_get_info()[0]
-        ring = trainer.init_replay_buffer(cfg["replay_buffer_size"],
-                                          ds.config["num_points"], 8)
+        rings = [t.init_replay_buffer(cfg["replay_buffer_size"],
+                                      ds.config["num_points"], 8)
+                 for t in (graph, eager)]
         torch.cuda.synchronize()
         ring_bytes = sum(v.numel() * v.element_size()
-                         for v in ring.store.values())
-        assert ring.store["pointset"].device.type == self.dev.type and \
-            ring.store["pointset"].dtype == torch.bfloat16
+                         for v in rings[0].store.values())
+        assert rings[0].store["pointset"].device.type == self.dev.type and \
+            rings[0].store["pointset"].dtype == torch.bfloat16
         # the first generation batch: its march and labels
         draws = ds.draw(gen_batch, loader.generator)
         kernels.reset_launches()
@@ -2946,7 +3147,7 @@ class Smoke:
         march_equal = torch.equal(depth.reshape(gen_batch, -1), twin)
         batch = ds.views_from_depth(depth, draws)
         cpu_ds = view_dataset(ds.config, ds.decoder, device="cpu")
-        cpu = cpu_ds.views_from_depth(depth.cpu(), {k: v.cpu() for k, v in
+        cpu = cpu_ds.views_from_depth(depth.cpu(), {k_: v.cpu() for k_, v in
                                                     draws.items()})
         same_index = torch.equal(batch["orientation"].cpu(),
                                  cpu["orientation"])
@@ -2955,70 +3156,105 @@ class Smoke:
         d_scale = float((batch["scale"].cpu() - cpu["scale"]).abs().max())
         print(f"train init ring: {cfg['replay_buffer_size']} samples x "
               f"{ds.config['num_points']} bf16 points, {ring_bytes / 1e9:.3f}"
-              f" GB on the card (free before {free0 / 1e9:.1f} GB); first "
-              f"generation batch (B = {gen_batch}, {ds.camera.width}x"
-              f"{ds.camera.height}): 1 march launch, bit for bit its plain "
-              f"version {march_equal}, hits {int((depth > 0).sum())}; labels "
-              f"against the CPU port: orientation indices equal {same_index},"
-              f" max|dposition| {d_position:.2e} (tol 1e-4 m), max|dscale| "
-              f"{d_scale:.2e} (tol 1e-6)")
+              f" GB on the card, one for each path (free before "
+              f"{free0 / 1e9:.1f} GB); first generation batch (B = "
+              f"{gen_batch}, {ds.camera.width}x{ds.camera.height}): 1 march "
+              f"launch, bit for bit its plain version {march_equal}, hits "
+              f"{int((depth > 0).sum())}; labels against the CPU port: "
+              f"orientation indices equal {same_index}, max|dposition| "
+              f"{d_position:.2e} (tol 1e-4 m), max|dscale| {d_scale:.2e} "
+              f"(tol 1e-6)")
         assert march_equal, "the generation march differs from plain"
         assert same_index and d_position <= 1e-4 and d_scale <= 1e-6
-        # replay units from a fresh initialisation
-        gen = torch.Generator(device=self.dev).manual_seed(1)
-        units, times = [], []
-        for _ in range(TRAIN_INIT_UNITS):
-            torch.cuda.synchronize()
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            metrics = trainer.replay_unit(ring, ds, gen_batch, train_batch,
-                                          t_train, gen)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            counts = kernels.launches()
-            assert counts["march"] == 1 and sum(counts.values()) == 1, counts
-            units.append([{k: float(v) for k, v in m.items()}
-                          for m in metrics])
-        ce = [sum(m["loss_orientation"] for m in u) / len(u) for u in units]
-        total = [m["loss"] for u in units for m in u]
-        finite = all(math.isfinite(v) for u in units for m in u
-                     for v in m.values())
-        unit_s = statistics.median(times[1:])
-        # two units from the committed init_v3 weights and batch_stats
+
+        def equal(g, e, i):
+            diff = [name for name in e if not torch.equal(g[name], e[name])]
+            assert not diff, f"init dispatch {i}: graph != eager in {diff}"
+
+        def both_equal(label):
+            self.same_state(graph, eager, label)
+            diff = [i for i, (a, b) in enumerate(zip(rings[0].tensors(),
+                                                     rings[1].tensors()))
+                    if not torch.equal(a, b)]
+            assert not diff, f"{label}: the rings differ in {diff}"
+
+        # the chained replay dispatch: K units from a fresh initialisation
+        gens = [torch.Generator(device=self.dev).manual_seed(1)
+                for _ in range(2)]
+        replay = [t.make_replay_chained_step(ds, gen_batch, train_batch,
+                                             t_train, k)
+                  for t in (graph, eager)]
+        row, runs = self.train_turns(
+            "init-replay", graph.graphs,
+            lambda: replay[0](rings[0], gens[0]),
+            lambda: replay[1](rings[1], gens[1]), k, equal)
+        both_equal("init replay chain")
+        assert row["kernel_launches_per_dispatch"] == {"march": k}, row
+        ce = [float(r["out"]["loss_orientation"].mean())
+              for r in runs["graph"]]
+        total = torch.cat([r["out"]["loss"] for r in runs["graph"]])
+        assert bool(torch.isfinite(total).all()), "an init loss diverged"
+        assert ce[-1] < ce[0], f"the orientation CE did not fall: {ce}"
+        prof = self._profile_run("train-init-replay",
+                                 lambda: replay[0](rings[0], gens[0]),
+                                 k * t_train)
+        filled = int(rings[0].filled)
+        self.train_line(
+            f"init-replay (K {k} units of {t_train} steps at batch "
+            f"{train_batch}, generation batch {gen_batch})", row, prof,
+            "unit",
+            f"; graph == eager bit for bit (loss terms, parameters, "
+            f"BatchNorm statistics, Adam's state, ring rows, cursor "
+            f"{int(rings[0].cursor)}, filled {filled}) over "
+            f"{len(runs['graph']) + 1} dispatches; orientation CE per "
+            f"dispatch {[round(c, 3) for c in ce]}; loss "
+            f"{float(total[0]):.2f} -> {float(total[-1]):.2f}")
+        out = dict(ring_samples=cfg["replay_buffer_size"],
+                   ring_bytes=ring_bytes, march_bit_for_bit=march_equal,
+                   labels_equal=same_index, position_err=d_position,
+                   scale_err=d_scale, replay=row, ce_per_dispatch=ce,
+                   ring_filled=filled)
+        row.update(views_per_s=gen_batch * 1e3 / row["ms_per_unit"][
+            "graph"]["median"], steps_per_s=t_train * 1e3 / row[
+            "ms_per_unit"]["graph"]["median"])
+        # the chained fresh-stream dispatch: K steps of generation and
+        # training, from a fresh initialisation (the profile above took the
+        # graph path's trainer ahead)
+        graph, eager = (train_init.Trainer(cfg, device=self.dev).trainer
+                        for _ in range(2))
+        gens = [torch.Generator(device=self.dev).manual_seed(2)
+                for _ in range(2)]
+        chain = [t.make_chained_step(ds, gen_batch, TRAIN_CHAIN_K)
+                 for t in (graph, eager)]
+        row, _ = self.train_turns(
+            "init-chain", graph.graphs, lambda: chain[0](gens[0]),
+            lambda: chain[1](gens[1]), TRAIN_CHAIN_K, equal)
+        self.same_state(graph, eager, "init fresh chain")
+        assert row["kernel_launches_per_dispatch"] == {
+            "march": TRAIN_CHAIN_K}, row
+        prof = self._profile_run("train-init-chain",
+                                 lambda: chain[0](gens[0]), TRAIN_CHAIN_K)
+        self.train_line(
+            f"init-chain (K {TRAIN_CHAIN_K} steps, batch {gen_batch} at "
+            f"{ds.camera.width}x{ds.camera.height})", row, prof, "step",
+            "; graph == eager bit for bit (loss terms, parameters, "
+            "BatchNorm statistics, Adam's state)")
+        out["chain"] = row
+        # two eager units from the committed init_v3 weights and
+        # batch_stats
         committed = train_init.Trainer(preset("init_mug_procedural_v3"),
                                        device=self.dev).trainer
         weights.load_flax_into(committed.net,
                                msgpack_reader.load(INIT_V3_WEIGHTS))
-        committed_units = [committed.replay_unit(ring, ds, gen_batch,
-                                                 train_batch, t_train, gen)
-                           for _ in range(2)]
+        units = [committed.replay_unit(rings[1], ds, gen_batch, train_batch,
+                                       t_train, gens[1]) for _ in range(2)]
         committed_ce = [sum(float(m["loss_orientation"]) for m in u) / len(u)
-                        for u in committed_units]
-        committed_finite = all(math.isfinite(float(v)) for u in
-                               committed_units for m in u for v in m.values())
-        first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
-        print(f"train init {TRAIN_INIT_UNITS} replay units (fresh, "
-              f"{TRAIN_INIT_UNITS * t_train} steps at batch {train_batch}, "
-              f"ring filled {ring.filled}): ms/unit {unit_s * 1e3:.2f} "
-              f"(median of units 2-{TRAIN_INIT_UNITS}; first "
-              f"{times[0] * 1e3:.1f}), views/s {gen_batch / unit_s:.1f}, "
-              f"optimizer steps/s {t_train / unit_s:.1f}; orientation CE "
-              f"mean of units 1-5 {first:.3f}, of the last 5 {last:.3f}; "
-              f"loss {total[0]:.2f} -> {total[-1]:.2f}; from the committed "
-              f"init_v3: orientation CE per unit {committed_ce}")
-        assert finite and committed_finite, "an init loss is not finite"
-        assert last < first, "the orientation CE did not fall"
-        self._profile_run("train-init-unit", lambda: trainer.replay_unit(
-            ring, ds, gen_batch, train_batch, t_train, gen), t_train)
-        return dict(ring_samples=cfg["replay_buffer_size"],
-                    ring_bytes=ring_bytes, march_bit_for_bit=march_equal,
-                    labels_equal=same_index, position_err=d_position,
-                    scale_err=d_scale, units=TRAIN_INIT_UNITS,
-                    ms_per_unit=unit_s * 1e3, ms_first_unit=times[0] * 1e3,
-                    views_per_s=gen_batch / unit_s,
-                    steps_per_s=t_train / unit_s, ce_first5=first,
-                    ce_last5=last, committed_ce=committed_ce,
-                    march_launches_per_unit=counts["march"])
+                        for u in units]
+        assert all(math.isfinite(c) for c in committed_ce)
+        print(f"train init from the committed init_v3: orientation CE per "
+              f"unit {committed_ce}")
+        out["committed_ce"] = committed_ce
+        return out
 
     # -- slice 11: parallel and scripts ------------------------------------
 
@@ -4407,7 +4643,13 @@ def init_outputs(pipe, sample, u):
 
 
 # the train phase: its data set, steps and units
-TRAIN_MUGS, TRAIN_VAE_STEPS, TRAIN_INIT_UNITS = 16, 20, 20
+TRAIN_MUGS, TRAIN_VAE_STEPS, TRAIN_CHAIN_K = 16, 20, 10
+# the VAE's parameters after one step on the graph path against eager:
+# the scatter's float atomics add in no fixed order, and Adam's first step
+# (lr * g / (|g| + eps)) turns a change of 1e-10 in a gradient near 0 into
+# 1e-5: within 1e-6 of the largest parameter but for at most this share of
+# them, which stay within two Adam steps
+VAE_STEP1_SHARE = 1e-4
 VAE_WEIGHTS = "trained_models/mug_procedural/mug_procedural.msgpack"
 INIT_V3_WEIGHTS = ("trained_models/init_mug_procedural_v3/"
                    "init_mug_procedural_v3.msgpack")

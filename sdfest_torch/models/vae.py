@@ -23,8 +23,10 @@ from sdfest_torch.ops.interpolation import resize_trilinear
 from sdfest_torch.utils.misc import str_to_tsdf
 
 
-def fp32_convolutions():
-    """A context in which cuDNN convolutions run in full fp32.
+def fp32_convolutions(deterministic: Optional[bool] = None):
+    """A context in which cuDNN convolutions run in full fp32 (and, with
+    ``deterministic``, only cuDNN's deterministic algorithms: the trainers'
+    steps take them, so that two runs of a step agree bit for bit).
 
     By PyTorch's default a float32 cuDNN convolution may run in TF32, which
     keeps about three significant digits (on an H100 with PyTorch 2.11 the
@@ -37,9 +39,11 @@ def fp32_convolutions():
     for the rest of the process.
     """
     cudnn = torch.backends.cudnn
+    if deterministic is None:
+        deterministic = cudnn.deterministic
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        benchmark_limit=cudnn.benchmark_limit,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+                       deterministic=deterministic, allow_tf32=False)
 
 
 class SDFDecoder(nn.Module):

@@ -39,7 +39,7 @@ at a phase's end, at most 4 per 50-iteration call at the default interval
 of 10 (2 under the fast plan's 20 / 20 / 10).
 
 On the card the work after the probe runs as captured CUDA graphs
-(:mod:`sdfest_torch.pipeline.graphs`), the counterpart of the JAX
+(:mod:`sdfest_torch.utils.graphs`), the counterpart of the JAX
 package's ``jax.jit`` over ``_refine`` and its ``_fused_program``: the
 call is a list of steps (:class:`_Prologue`: preprocessing and the init;
 per phase :class:`_Views`, its view inputs, and :class:`_Chunk`, its
@@ -80,7 +80,7 @@ from sdfest_torch.models.vae import create_decoder_from_config
 from sdfest_torch.ops import pointset, quaternion
 from sdfest_torch.ops.camera import Camera
 from sdfest_torch.ops.so3grid import SO3Grid
-from sdfest_torch.pipeline import graphs, losses
+from sdfest_torch.pipeline import losses
 from sdfest_torch.render.api import (
     crop,
     ray_set,
@@ -92,6 +92,7 @@ from sdfest_torch.render.warm import (
     motion_bound,
     warm_render_step,
 )
+from sdfest_torch.utils import graphs
 from sdfest_torch.utils.device import resolve_device
 from sdfest_torch.utils.weights import load_decoder_weights, load_init_weights
 
@@ -103,7 +104,7 @@ _LOSS_KEYS = ("loss", "loss_depth", "loss_pc", "inlier_ratio")
 class _Phase(NamedTuple):
     """The static part of one refinement phase: what ``jax.jit`` takes as
     static in the JAX package's ``_refine`` (``pipeline.py:359``), so it
-    keys the phase's graphs (:mod:`sdfest_torch.pipeline.graphs`)."""
+    keys the phase's graphs (:mod:`sdfest_torch.utils.graphs`)."""
 
     n_iter: int
     roi: Optional[Tuple[int, int]]
@@ -925,10 +926,8 @@ class SDFPipeline:
         (captured on the first run of ``key`` with this config and these
         shapes), on the CPU or inside :func:`graphs.eager` the eager
         loop."""
-        if self.graphs.active(self.device):
-            return self.graphs.run((key, _frozen(self.config)), fn, carry,
-                                   self.device)
-        return fn(carry)
+        return self.graphs.call((key, _frozen(self.config)), fn, carry,
+                                self.device)
 
     def _segment(self, segment: tuple, carry: dict) -> dict:
         """The captured body: the steps of ``segment`` in order.  It makes

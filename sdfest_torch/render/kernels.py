@@ -6,7 +6,7 @@ tensors launches the hand-written kernel from ``sdfest_torch/csrc/`` or
 raises: there is no fallback.  ``<wrapper>.launches`` counts the kernel's
 launches (a plain integer, reset by assigning 0).  A wrapper called while a
 CUDA graph captures counts its launch once, at capture; the graph cache
-(:mod:`sdfest_torch.pipeline.graphs`) adds a graph's counts on every replay
+(:mod:`sdfest_torch.utils.graphs`) adds a graph's counts on every replay
 (:func:`add_counts`).
 
 | wrapper         | CUDA source             | replaces (pallas_kernel.py)    |
@@ -601,7 +601,7 @@ def set_counts(state: dict) -> None:
 
 def count_difference(after: dict, before: dict) -> dict:
     """The counts made between two :func:`counts` (the launches of a
-    captured graph, :mod:`sdfest_torch.pipeline.graphs`)."""
+    captured graph, :mod:`sdfest_torch.utils.graphs`)."""
     out = {k: {n: after[k][n] - before[k].get(n, 0) for n in after[k]}
            for k in after}
     out["rasters"] = {r: c for r, c in out["rasters"].items() if c}

@@ -13,11 +13,18 @@ load on the host, batched by a shuffling loader at a fixed point count and
 trained without a latent target, as in the JAX package.  With
 ``replay_buffer_size > 0`` and one generated dataset, each replay unit
 renders one generation batch into the ring on the device and takes
-``replay_train_steps`` optimizer steps at ``replay_train_batch``
-(:meth:`InitTrainer.replay_unit`); otherwise every step trains on a fresh
-batch.  ``steps_per_dispatch`` (the JAX package's chaining of steps into one
-compiled program) has no counterpart: units and steps run one after
-another.  Checkpoints every ``checkpoint_iteration`` steps; ``resume: true``
+``replay_train_steps`` optimizer steps at ``replay_train_batch``;
+otherwise every step trains on a fresh batch.  On one device the work runs
+as captured CUDA graphs (eager on the CPU and inside ``graphs.eager()``),
+by the JAX script's rule: with one active generated dataset,
+``steps_per_dispatch: K`` replay units per graph
+(:meth:`InitTrainer.make_replay_chained_step`) with a ring, or, without
+one and K > 1, K fresh generation and training steps per graph
+(:meth:`InitTrainer.make_chained_step`); otherwise one
+:meth:`InitTrainer.train_step` per batch.  The loss terms are read once per
+dispatch; logging, validation and checkpoints still happen per step (a
+checkpoint inside a dispatch holds the state at its end under the step's
+iteration).  Checkpoints every ``checkpoint_iteration`` steps; ``resume: true``
 continues from the latest ``<iteration>.ckpt`` in ``model_dir``,
 ``init_weights`` loads a checkpoint or a model file of either package; the
 final weights and ``batch_stats`` are written as flax msgpack with the init
@@ -28,6 +35,7 @@ config.  Validation (``validation_iteration``) averages
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 import zlib
@@ -211,14 +219,15 @@ class Trainer:
 
     def benchmark(self, steps: int = 30) -> float:
         """Mean seconds per fresh-stream training step (generation and the
-        step) over ``steps`` steps after 5 warm-up steps."""
+        step, one graph per step on the card) over ``steps`` steps after 5
+        warm-up steps."""
         loader = self._create_multi_data_loader()
         for _ in range(5):
-            self.trainer.step(next(loader))
+            self.trainer.train_step(next(loader))
         synchronize(self.device)
         start = time.perf_counter()
         for _ in range(steps):
-            self.trainer.step(next(loader))
+            self.trainer.train_step(next(loader))
         synchronize(self.device)
         mean = (time.perf_counter() - start) / steps
         print(f"train step: {mean * 1000:.1f} ms "
@@ -261,44 +270,64 @@ class Trainer:
 
         active = [name for name, spec in cfg["datasets"].items()
                   if spec.get("probability", 1.0) > 0.0]
+        single = len(active) == 1 and active[0] in self._generated_datasets
+        spd = int(cfg.get("steps_per_dispatch", 1) or 1)
+        if spd > 1 and not single:
+            print("steps_per_dispatch requires a single generated dataset; "
+                  "one step per dispatch")
+            spd = 1
         replay_capacity = int(cfg.get("replay_buffer_size", 0) or 0)
-        if replay_capacity > 0 and (
-                len(active) != 1
-                or active[0] not in self._generated_datasets):
+        if replay_capacity > 0 and not single:
             print("replay_buffer_size requires a single generated dataset; "
                   "falling back to fresh-stream training")
             replay_capacity = 0
         ring = None
-        if replay_capacity > 0:
+        chains: Dict[int, object] = {}
+        if single:
             dataset = self._generated_datasets[active[0]]
+            # a stream of its own, folding in the resume point
+            generator = _generator(self.device, data_seed(active[0]),
+                                   1 + start_iteration)
+        if replay_capacity > 0:
             t_train = int(cfg.get("replay_train_steps", 10) or 10)
             train_batch = int(cfg.get("replay_train_batch", 64)
                               or self._batch_size)
             ring = self.trainer.init_replay_buffer(
                 replay_capacity, self._num_points,
                 self._vae_config["latent_size"])
-            generator = _generator(self.device, data_seed(active[0]),
-                                   1 + start_iteration)
+
+        def dispatch(remaining: int) -> Dict[str, torch.Tensor]:
+            """One dispatch: K replay units, K fresh steps, or one step."""
+            if ring is not None:
+                k = min(spd, math.ceil(remaining / t_train))
+                if k not in chains:
+                    chains[k] = self.trainer.make_replay_chained_step(
+                        dataset, self._batch_size, train_batch, t_train, k)
+                return chains[k](ring, generator)
+            if spd > 1:
+                k = min(spd, remaining)
+                if k not in chains:
+                    chains[k] = self.trainer.make_chained_step(
+                        dataset, self._batch_size, k)
+                return chains[k](generator)
+            return {name: v[None] for name, v in
+                    self.trainer.train_step(next(data_loader)).items()}
 
         if validation_iteration:
             self._validate(validation_loaders, writer, start_iteration)
         start = time.time()
         iteration = start_iteration
         while iteration < self._iterations:
-            if ring is not None:
-                chunk = self.trainer.replay_unit(
-                    ring, dataset, self._batch_size, train_batch, t_train,
-                    generator)
-            else:
-                chunk = [self.trainer.step(next(data_loader))]
-            for metrics in chunk:
+            got = {name: v.tolist() for name, v in
+                   dispatch(self._iterations - iteration).items()}
+            for j in range(len(got["loss"])):
                 iteration += 1
                 if writer is not None and iteration % 20 == 0:
-                    for name, value in metrics.items():
-                        writer.add_scalar(name, float(value), iteration)
+                    for name, values in got.items():
+                        writer.add_scalar(name, values[j], iteration)
                 if iteration % 100 == 0 or iteration == self._iterations:
                     print(f"Iteration {iteration}/{self._iterations} "
-                          f"loss {float(metrics['loss']):.4f}")
+                          f"loss {got['loss'][j]:.4f}")
                 if validation_iteration and \
                         iteration % validation_iteration == 0:
                     self._validate(validation_loaders, writer, iteration)

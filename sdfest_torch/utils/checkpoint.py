@@ -24,10 +24,14 @@ from sdfest_torch.utils import msgpack_reader, msgpack_writer, weights
 
 def save_checkpoint(path: str, trainer, iteration: int, run_name: str
                     ) -> None:
-    """Write ``trainer.state_dict()`` and its metadata (the JAX package's
-    keys; the trainers keep no epoch)."""
+    """Write ``trainer.state_dict()`` under ``iteration`` and its metadata
+    (the JAX package's keys; the trainers keep no epoch).  Inside a chained
+    dispatch ``iteration`` is the step's and the state the dispatch's end,
+    as the JAX scripts write it."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(trainer.state_dict(), path)
+    state = trainer.state_dict()
+    state["iteration"] = int(iteration)
+    torch.save(state, path)
     meta = {"iteration": int(iteration), "run_name": run_name, "epoch": 0}
     with open(path + ".meta.json", "w") as f:
         json.dump(meta, f)

@@ -1,34 +1,46 @@
-"""Captured CUDA graphs of the refinement: the port's counterpart of the
-compilation cache of ``jax.jit``.
+"""Captured CUDA graphs: the port's counterpart of the compilation cache of
+``jax.jit``, for the pipeline and the trainers.
 
 The JAX package runs every refinement phase as one jitted program (``_refine``
 is ``jax.jit`` over a ``lax.scan`` of its iterations,
 ``sdfest_tpu/pipeline/pipeline.py:359``) and, with ``fused_call: true``, the
-whole estimate after the probe as one more (``_fused_program``, ``:1009``).
-On the card the port captures the same stretches of work as CUDA graphs and
-replays them: one graph launch in place of the ~1,200 PyTorch launches that
-one iteration of one view issues from the host.
+whole estimate after the probe as one more (``_fused_program``, ``:1009``);
+its trainers jit every step and chain ``steps_per_dispatch`` steps into one
+program (``sdfest_tpu/training/vae_trainer.py:210-250``,
+``init_trainer.py:133-305``).  On the card the port captures the same
+stretches of work as CUDA graphs and replays them: one graph launch in place
+of the ~1,200 PyTorch launches that one iteration of one view issues from
+the host.
 
 :class:`GraphCache` keys each graph by what JAX makes static (the caller's
-key: plan, ROI sizes, stride, iteration counts, flags, the frozen config)
-together with the structure, shapes and dtypes of its tensor inputs, so a
-tracker that calls with stable shapes captures once and then only replays.
+key: plan, ROI sizes, stride, iteration counts, K, batch sizes, flags, the
+frozen config) together with the structure, shapes and dtypes of its tensor
+inputs, so a caller with stable shapes captures once and then only replays.
 
 - *Capture.*  The first run of a key warms the function up on a side stream
-  (the lazy work of a first use: the kernels' ``nvcc`` build and ``ctypes``
-  load, the cached ray tables, cuDNN and cuBLAS handles and workspaces),
-  then captures it with ``torch.cuda.graph`` into a private memory pool.
-  The graph's inputs and outputs are static tensors: each run copies its
-  inputs in, replays, and hands back the static outputs, which the next
-  replay of that graph overwrites (callers clone what they keep).
+  (``warm_up_runs`` times: the lazy work of a first use, the kernels'
+  ``nvcc`` build and ``ctypes`` load, the cached ray tables, cuDNN and
+  cuBLAS handles and workspaces, autograd's buffers), then captures it with
+  ``torch.cuda.graph`` into a private memory pool.  The graph's inputs and
+  outputs are static tensors: each run copies its inputs in, replays, and
+  hands back the static outputs, which the next replay of that graph
+  overwrites (callers clone what they keep).
+- *State.*  A trainer's body writes its state in place (parameters, Adam's
+  moments and counts, BatchNorm statistics, a replay ring, an iteration
+  counter): the caller names those tensors (``state``), the cache copies
+  them before the warm-up and puts them back after the warm-up and after
+  the capture, so the first run takes exactly one step.  Tensors the body
+  only reads in place (``resident``: a dataset held on the card) are not
+  copied.  Both are part of the key by their address and kept alive by
+  the graph.
 - *Launch counts.*  A wrapper of :mod:`sdfest_torch.render.kernels` counts
   its launch when it issues it, which in a captured function happens once,
   at capture.  The cache records each graph's counts during the capture and
   adds them on every replay (the warm-up's and the capture's own counts are
   taken back), so the counts per call are those of the eager loop.
 - *Ownership.*  A graph reads every tensor at the address it had at
-  capture, so it owns what it reads: its static inputs, its pool, and the
-  tensors its body took from a
+  capture, so it owns what it reads: its static inputs, its pool, its
+  state and resident tensors, and the tensors its body took from a
   :func:`~sdfest_torch.utils.device.device_cache` (the cameras' rays,
   constant divisors), which it keeps alive after the cache has dropped
   them.  The pipeline's weights are read in place (a ``load_state_dict``
@@ -49,7 +61,8 @@ import collections
 import contextlib
 import gc
 import time
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -62,6 +75,11 @@ from sdfest_torch.utils.device import holding
 # refine_batch of 8 (PERF.md section 5), so a quarter of 80 GB holds ~180
 # call graphs (plans, ROI sizes) or ~24 batch graphs.
 POOL_SHARE = 0.25
+# eager runs before a trainer's capture: the first builds what a first step
+# builds (Adam's state, autograd's and cuDNN's workspaces), the second runs
+# on what the first left, as the capture will (PyTorch's recipe for
+# capturing a whole network warms up over several steps)
+TRAIN_WARM_UP_RUNS = 2
 _eager_depth = 0
 
 
@@ -135,6 +153,12 @@ def clone(tree):
     return unflatten(spec, [x.clone() for x in leaves])
 
 
+def stack(trees: Sequence[dict]) -> dict:
+    """Dicts of per-step tensors stacked on a leading axis, oldest first
+    (the stacked outputs of ``lax.scan``)."""
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
 # ---------------------------------------------------------------------------
 # capture
 # ---------------------------------------------------------------------------
@@ -186,29 +210,31 @@ class _Graph(NamedTuple):
     out_spec: Any
     counts: dict  # the kernels' launch counts of one replay
     pool_bytes: int
-    keep: list  # what the body took from device caches, kept alive
+    keep: list  # state, resident and device-cache tensors, kept alive
 
 
 class GraphCache:
-    """Captured graphs of one pipeline, keyed as ``jax.jit`` keys its
-    programs (see the module docstring).
+    """Captured graphs of one pipeline or trainer, keyed as ``jax.jit`` keys
+    its programs (see the module docstring).
 
     ``backend`` captures and replays (:class:`CudaGraphs` on the card; the
     CPU tests pass a stand-in with the same protocol); it acts on the
     devices of its ``devices``.  Graphs are kept while their pools fit in
     ``max_pool_bytes`` (by default :data:`POOL_SHARE` of the card's
     memory; no bound off the card), the least recently run dropped first
-    (its pool is freed with it); the graph run last is always kept.
+    (its pool is freed with it); the graph run last is always kept.  A
+    capture is preceded by ``warm_up_runs`` eager runs.
 
     Totals since construction: ``captures``, ``replays`` (graph launches),
     ``warm_up_seconds``, ``capture_seconds`` (capture and instantiation)
     and ``pool_bytes`` (of the graphs kept).
     """
 
-    def __init__(self, backend=None, max_pool_bytes: Optional[int] = None
-                 ) -> None:
+    def __init__(self, backend=None, max_pool_bytes: Optional[int] = None,
+                 warm_up_runs: int = 1) -> None:
         self.backend = backend if backend is not None else CudaGraphs()
         self.max_pool_bytes = max_pool_bytes
+        self.warm_up_runs = warm_up_runs
         self._graphs: "collections.OrderedDict[Any, _Graph]" = (
             collections.OrderedDict())
         self.captures = 0
@@ -228,17 +254,33 @@ class GraphCache:
     def __len__(self) -> int:
         return len(self._graphs)
 
-    def run(self, key, fn: Callable[[Any], Any], inputs, device):
+    def call(self, key, fn: Callable[[Any], Any], inputs, device,
+             state: Sequence[torch.Tensor] = (),
+             resident: Sequence[torch.Tensor] = ()):
+        """``fn(inputs)``: one replay of its graph (:meth:`run`) where the
+        cache is :meth:`active` on ``device``, else the eager run (the
+        graph's plain version)."""
+        if self.active(device):
+            return self.run(key, fn, inputs, device, state, resident)
+        return fn(inputs)
+
+    def run(self, key, fn: Callable[[Any], Any], inputs, device,
+            state: Sequence[torch.Tensor] = (),
+            resident: Sequence[torch.Tensor] = ()):
         """``fn(inputs)`` as a graph: captured on the first run of ``key``
-        with inputs of this structure, shapes and dtypes, replayed after
-        that.  Returns the graph's static outputs in new containers (the
-        next replay of this graph overwrites the tensors)."""
+        with inputs of this structure, shapes and dtypes (and these
+        ``state`` and ``resident`` tensors), replayed after that.  Returns
+        the graph's static outputs in new containers (the next replay of
+        this graph overwrites the tensors)."""
         leaves, spec = flatten(inputs)
+        held = list(state) + list(resident)
         full_key = (key, spec, tuple((tuple(x.shape), x.dtype, x.device)
-                                     for x in leaves))
+                                     for x in leaves),
+                    tuple((x.data_ptr(), tuple(x.shape), x.dtype)
+                          for x in held))
         graph = self._graphs.get(full_key)
         if graph is None:
-            graph = self._record(fn, leaves, spec, device)
+            graph = self._record(fn, leaves, spec, device, list(state), held)
             self._graphs[full_key] = graph
             self._evict(device)
         else:
@@ -261,18 +303,28 @@ class GraphCache:
                and self.pool_bytes > self.max_pool_bytes):
             self._graphs.popitem(last=False)
 
-    def _record(self, fn, leaves, spec, device) -> _Graph:
+    def _record(self, fn, leaves, spec, device, state, held) -> _Graph:
         static = [x.detach().clone() for x in leaves]
         call = lambda: fn(unflatten(spec, static))
+        saved = [x.detach().clone() for x in state]
+
+        @torch.no_grad()
+        def restore():
+            for dst, src in zip(state, saved):
+                dst.copy_(src)
+
         before = kernels.counts()
-        keep: list = []
+        keep: list = list(held)
         try:
             t0 = time.perf_counter()
-            self.backend.warm_up(call, device)
+            for _ in range(self.warm_up_runs):
+                self.backend.warm_up(call, device)
+            restore()
             t1 = time.perf_counter()
             kernels.set_counts(before)
             with holding(keep):
                 captured = self.backend.capture(call, device)
+            restore()
             t2 = time.perf_counter()
             counts = kernels.count_difference(kernels.counts(), before)
         finally:

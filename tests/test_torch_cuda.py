@@ -846,7 +846,7 @@ def test_march_on_a_nocs_like_camera_equals_plain_twin(dev, flags):
 
 
 # ---------------------------------------------------------------------------
-# the pipeline's captured graphs (sdfest_torch/pipeline/graphs.py)
+# the pipeline's captured graphs (sdfest_torch/utils/graphs.py)
 # ---------------------------------------------------------------------------
 
 GRAPH_CAMERA = dict(width=128, height=96, fx=64, fy=64, cx=64, cy=48,
@@ -896,7 +896,7 @@ def test_graph_call_equals_eager_bit_for_bit_without_shape_optimization(
     scatter is not launched), so the graph call equals the eager loop bit
     for bit at every iteration, with the same launch counts; a second call
     of the same shapes replays without capturing again."""
-    from sdfest_torch.pipeline import graphs
+    from sdfest_torch.utils import graphs
 
     name, overrides = GRAPH_PRESETS[path]
     pipe = _graph_pipe(dev, name, **overrides)
@@ -925,7 +925,7 @@ def test_graph_call_with_shape_optimization_starts_as_eager(dev, path):
     """With shape optimization the scatter's float atomics part graph and
     eager runs after the first update: iteration 0's loss within 1e-6, the
     launch counts equal, every loss finite."""
-    from sdfest_torch.pipeline import graphs
+    from sdfest_torch.utils import graphs
 
     name, overrides = GRAPH_PRESETS[path]
     pipe = _graph_pipe(dev, name, **overrides)
@@ -961,7 +961,7 @@ def test_graph_refine_batch_equals_eager_without_shape_optimization(dev):
     """refine_batch of 4 hypotheses through one phase graph equals the
     eager loop bit for bit, with one launch of each fused kernel per
     iteration for all of them."""
-    from sdfest_torch.pipeline import graphs
+    from sdfest_torch.utils import graphs
 
     pipe = _graph_pipe(dev, "mug_procedural")
     depth = pipe._preprocess_depth(*(lambda d: (d, d > 0))(
@@ -1001,7 +1001,7 @@ def test_graph_owns_the_cached_rays_it_reads(dev, path):
     import gc
 
     from sdfest_torch.ops import interpolation
-    from sdfest_torch.pipeline import graphs
+    from sdfest_torch.utils import graphs
 
     name, overrides = GRAPH_PRESETS[path]
     pipe = _graph_pipe(dev, name, **overrides)
@@ -1034,7 +1034,7 @@ def test_per_phase_call_replays_one_graph_per_phase(dev, path):
     """``fused_call: false``: one graph per phase of the plan (the first
     also takes preprocessing and the init), equal to the eager loop bit
     for bit without shape optimization, with the same launch counts."""
-    from sdfest_torch.pipeline import graphs
+    from sdfest_torch.utils import graphs
 
     name, overrides = GRAPH_PRESETS[path]
     pipe = _graph_pipe(dev, name, fused_call=False, **overrides)
@@ -1051,3 +1051,172 @@ def test_per_phase_call_replays_one_graph_per_phase(dev, path):
         assert torch.equal(g, w)
     for k in want_log:
         assert torch.equal(log[k], want_log[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the trainers' captured graphs (sdfest_torch/utils/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _vae_trainers(dev, **overrides):
+    """Two VAE trainers from the committed mug VAE (pc render 160x120)."""
+    from sdfest_torch.training.vae_trainer import VAETrainer
+    from sdfest_torch.utils import msgpack_reader, weights
+    from sdfest_torch.utils.presets import preset
+
+    cfg = dict(preset("vae_mug_procedural"), pc_render_width=160,
+               pc_render_height=120, **overrides)
+    tree = msgpack_reader.load("trained_models/mug_procedural/"
+                               "mug_procedural.msgpack")
+    pair = []
+    for _ in range(2):
+        t = VAETrainer(cfg, device=dev)
+        weights.load_flax_into(t.vae, tree)
+        pair.append(t)
+    return pair
+
+
+def _train_data(dev, n=6):
+    return _decoded_mugs(dev, n).detach()
+
+
+def _same_trainer_state(a, b):
+    for (k, v), w in zip(a.state_dict()["model"].items(),
+                         b.state_dict()["model"].values()):
+        assert torch.equal(v, w), k
+    for p, q in zip(a.optimizer.params(), b.optimizer.params()):
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(a.optimizer.state[p][key],
+                               b.optimizer.state[q][key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["step", "chain"])
+def test_vae_graph_equals_eager_bit_for_bit_without_pc_loss(dev, path):
+    """With ``pc_weight: 0`` no float atomics add: ``train_step`` and a
+    chain of K = 3 (batch 2 on 6 grids held on the card) as graphs equal
+    ``graphs.eager()`` bit for bit over two dispatches; the second replays
+    on the generator's new draws (its metrics differ from the first's),
+    with 0 kernel launches counted and one graph launch per dispatch."""
+    from sdfest_torch.utils import graphs
+
+    graph, eager = _vae_trainers(dev, pc_weight=0.0)
+    data = _train_data(dev)
+    runs = {}
+    for t in (graph, eager):
+        chained = t.make_chained_step(data, 2, 3)
+        runs[id(t)] = ((lambda t: lambda g: t.train_step(data[:2], g))(t)
+                       if path == "step" else
+                       (lambda c: lambda g: c(data, g))(chained))
+    gens = [torch.Generator(device=dev).manual_seed(4) for _ in range(2)]
+    outs = []
+    for turn in range(2):
+        got = runs[id(graph)](gens[0])
+        with graphs.eager():
+            want = runs[id(eager)](gens[1])
+        for k in want:
+            assert torch.equal(got[k], want[k]), (turn, k)
+        _same_trainer_state(graph, eager)
+        outs.append(got["loss"].clone())
+    assert graph.graphs.captures == 1 and graph.graphs.replays == 2
+    assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_vae_graph_step_with_pc_loss_starts_as_eager(dev):
+    """With the pc loss the scatter's float atomics add in no fixed order:
+    the first step's loss terms equal; the parameters after it within 1e-6
+    of the largest parameter but for at most 1e-4 of them, which stay
+    within two Adam steps (Adam's first step ``lr * g / (|g| + eps)`` turns
+    a change of 1e-10 in a gradient near 0, the atomics' last bits, into
+    1e-5); one march, sample-grad and scatter launch per step counted on
+    the graph path as on the eager one."""
+    from sdfest_torch.utils import graphs
+
+    graph, eager = _vae_trainers(dev)
+    data = _train_data(dev)
+    gens = [torch.Generator(device=dev).manual_seed(5) for _ in range(2)]
+    kernels.reset_launches()
+    got = graph.train_step(data[:2], gens[0])
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    kernels.reset_launches()
+    with graphs.eager():
+        want = eager.train_step(data[:2], gens[1])
+    torch.cuda.synchronize()
+    assert kernels.launches() == counts == {
+        "march": 1, "march_warm": 0, "sample": 0, "sample_grad": 1,
+        "scatter": 1}
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    largest = max(float(p.detach().abs().max())
+                  for p in eager.vae.parameters())
+    diff = torch.cat([(p - q).detach().abs().flatten() for p, q in zip(
+        graph.vae.parameters(), eager.vae.parameters())])
+    assert int((diff > 1e-6 * largest).sum()) <= 1e-4 * diff.numel()
+    assert float(diff.max()) <= 2 * eager.config["learning_rate"]
+
+
+def _init_trainers(dev):
+    from sdfest_torch.datasets.generated import SDFVAEViewDataset
+    from sdfest_torch.training.init_trainer import InitTrainer
+    from sdfest_torch.utils.presets import preset
+
+    cfg = preset("init_mug_procedural_v3")
+    cfg["head"].update(orientation_repr="discretized",
+                       orientation_grid_resolution=1)
+    pair = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        pair.append(InitTrainer(cfg, latent_size=8, device=dev))
+    views = dict(cfg["datasets"]["generated_dataset"]["config_dict"],
+                 width=160, height=120, num_points=500,
+                 orientation_repr="discretized",
+                 orientation_grid_resolution=1)
+    ds = SDFVAEViewDataset(views, _mug_vae(dev).decoder, device=dev)
+    return pair, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["step", "chain", "replay"])
+def test_init_graph_equals_eager_bit_for_bit(dev, path):
+    """The init trainer's ``train_step``, a chain of K = 2 generation and
+    training steps (batch 8, 160x120) and a replay chain of K = 2 units of
+    3 steps (ring of 64) as graphs equal ``graphs.eager()`` bit for bit
+    over two dispatches: metrics, parameters, BatchNorm statistics, Adam's
+    state, the ring and its cursor; one march launch per generation
+    batch."""
+    from sdfest_torch.utils import graphs
+
+    (graph, eager), ds = _init_trainers(dev)
+    batch = ds.sample_batch(8, torch.Generator(device=dev).manual_seed(1))
+    rings = {id(t): t.init_replay_buffer(64, 500, 8) for t in (graph, eager)}
+    runs = {}
+    for t in (graph, eager):
+        if path == "step":
+            runs[id(t)] = (lambda t: lambda g: t.train_step(batch))(t)
+        elif path == "chain":
+            runs[id(t)] = (lambda c: lambda g: c(g))(
+                t.make_chained_step(ds, 8, 2))
+        else:
+            runs[id(t)] = (lambda c, r: lambda g: c(r, g))(
+                t.make_replay_chained_step(ds, 8, 16, 3, 2), rings[id(t)])
+    gens = [torch.Generator(device=dev).manual_seed(6) for _ in range(2)]
+    for turn in range(2):
+        kernels.reset_launches()
+        got = runs[id(graph)](gens[0])
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        kernels.reset_launches()
+        with graphs.eager():
+            want = runs[id(eager)](gens[1])
+        torch.cuda.synchronize()
+        assert kernels.counts() == counts
+        assert counts["launches"]["march"] == (0 if path == "step" else 2)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (turn, k)
+        _same_trainer_state(graph, eager)
+        for a, b in zip(rings[id(graph)].tensors(),
+                        rings[id(eager)].tensors()):
+            assert torch.equal(a, b)
+    assert graph.graphs.captures == 1 and graph.graphs.replays == 2

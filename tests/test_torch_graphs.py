@@ -7,8 +7,9 @@ The CPU has no CUDA graph, so the graph cache runs here on a stand-in
 backend (:class:`FakeGraphs`): its capture runs the captured body once under
 :func:`no_host_reads`, which makes every host read (``Tensor.item``,
 ``__bool__``, ``tolist``, ``cpu``, ``numpy``, ``int``, ``float``) and every
-tensor made from host data (``torch.tensor``, ``torch.as_tensor`` and
-``torch.from_numpy`` of Python or numpy data) raise: the CPU's proxy for
+tensor made from host data (``torch.tensor``, ``torch.as_tensor``,
+``torch.from_numpy`` and ``Tensor.new_tensor`` of Python or numpy data)
+raise: the CPU's proxy for
 "a stream can capture it".  The kernel wrappers lift the guard while they
 run their plain versions, which read the host; on the card a kernel launch
 takes their place.  A replay reruns the body on the static inputs into the
@@ -35,7 +36,7 @@ from scipy.spatial.transform import Rotation
 from sdfest_tpu.pipeline.pipeline import SDFPipeline as JPipeline
 from sdfest_torch.ops import pointset as tpointset
 from sdfest_torch.ops.camera import Camera
-from sdfest_torch.pipeline import graphs
+from sdfest_torch.utils import graphs
 from sdfest_torch.pipeline.pipeline import SDFPipeline
 from sdfest_torch.ops import interpolation
 from sdfest_torch.render import api, kernels, plain
@@ -102,7 +103,16 @@ def no_host_reads():
             return makers[name](data, *args, **kwargs)
         return guarded
 
+    new_tensor = torch.Tensor.new_tensor
+
+    def guarded_new_tensor(self, data, *args, **kwargs):
+        if _GUARD["on"] and not isinstance(data, torch.Tensor):
+            raise HostRead("Tensor.new_tensor of host data in a captured "
+                           "body")
+        return new_tensor(self, data, *args, **kwargs)
+
     was = _GUARD["on"]
+    torch.Tensor.new_tensor = guarded_new_tensor
     for name in _READS:
         setattr(torch.Tensor, name, read(name))
     for name in _MAKERS:
@@ -112,6 +122,7 @@ def no_host_reads():
         yield
     finally:
         _GUARD["on"] = was
+        torch.Tensor.new_tensor = new_tensor
         for name, fn in saved.items():
             setattr(torch.Tensor, name, fn)
         for name, fn in makers.items():
