@@ -6,42 +6,46 @@
 // scatter_sdf_grad_pallas -> _scatter_impl -> _scatter_kernel (the sdf
 // gradient of the fused backward, render/api.py:79-95).
 //
-// Design.  One thread per row, into a grid that the wrapper zero-fills with
-// torch.zeros.  On the main path ~92% of the rows have a zero cotangent,
-// and the active ones lie side by side (the queries are 16x16 tile-major),
-// so the lanes of a warp mostly share a handful of base cells:
-//  1. a warp votes (__ballot_sync) on cotangent != 0, and a warp with no
-//     active row leaves before it reads a point;
-//  2. __match_any_sync groups the warp's active lanes by base cell; the
-//     lowest lane of each group sums the group's 8 corner contributions
-//     (shuffles, members in lane order) and issues the group's atomics
-//     alone (their results unused: RED instructions);
-//  3. when res is even, a leader whose cell has an even z index adds each
-//     z-pair of corners with one 8-byte float2 atomicAdd (sm_90): 4
-//     atomics instead of 8 (an odd res or z index takes 8 scalar ones).
-// 4. blockIdx.z is the hypothesis: its points and cotangents (n rows) and
-//    its grid (res^3 values) are its own, and since a block holds rows of
-//    one hypothesis only, no warp aggregates across two (8 x 614,400 rows:
-//    20.9-21.2 us with the fill against 8 x 7.7, on an NVIDIA H100 80GB
-//    HBM3 at 700 W; PERF.md section 6).
-// NOT DETERMINISTIC: the order of the float atomics across warps changes
-// from run to run, so the last bits of the sums do.  The JAX kernel is
-// deterministic (a matmul transpose accumulated over sequential grid steps,
-// which has no counterpart on 132 SMs running blocks in no order).
+// Deterministic, as the TPU kernel is: no float atomics.  Every cell adds
+// its contributions ((wx * wy) * wz) * cot in increasing row index, the
+// order of scatter_plain's serial index_add_ on the CPU, so the grid equals
+// that plain version bit for bit whatever order the blocks run in, and each
+// hypothesis's grid does not depend on the batch.  Integer atomics only
+// count rows and hand out slots; where a row lands inside its bucket is then
+// fixed by its row index.  Five launches over per-hypothesis scratch
+// (blockIdx.z is the hypothesis), after a zero fill of the counts:
+//  1. count  (one thread per row): an active row (cot != 0) adds 1 to the
+//     count of its base cell (warp-aggregated: lanes of one cell add once)
+//     and keeps the value it got, its arrival in that cell's bucket;
+//  2. alloc  (one thread per cell): each non-empty bucket takes a range of
+//     the row list from a per-hypothesis counter (one atomic per block; the
+//     ranges' places vary from run to run, their contents do not);
+//  3. place  (one thread per row): an active row writes its index at its
+//     arrival slot of its bucket;
+//  4. rank   (one thread per slot): a row's rank in its bucket is the
+//     number of rows there with a smaller index; the row moves to that slot
+//     of the sorted list (the arrival array, dead by then), and its cell
+//     fractions (trilinear.cuh's locate, as the sampler) and cotangent to
+//     that slot of a float4 array;
+//  5. gather (scatter_kernel, one thread per cell, output-stationary): the
+//     cell is corner (dx, dy, dz) of up to 8 base cells; it merges their
+//     sorted buckets by row index, adds each row's weight for that corner
+//     times its cotangent, and writes the cell once, so no zero fill of the
+//     grid.  The merge is a chain of dependent loads per cell: the rows
+//     of the bucket with the smallest next row that come before every
+//     other bucket's next row are added as one run, kRun slots loaded at
+//     a time.
+// Rows with a zero cotangent are skipped: in the plain version they add
+// w * 0, a zero, which leaves every sum as it was.
 //
-// What bounds it on the H100: device-memory bytes for the cotangents (4 B
-// per row), the active rows' points and the 1 MiB grid written once; the
-// grid stays in L2, so the atomics resolve there, and without aggregation
-// the 32 lanes' atomics on a few shared addresses serialize in L2.  A
-// zero fill fused into the kernel (a cooperative launch with a grid-wide
-// barrier before the atomics) measured slower than torch.zeros plus this
-// launch, and is not used.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (PERF.md section 6, chip run 5): 4.0 us per launch inside the
-// 50-iteration full-frame call (one atomic per corner and row: 5.0 us);
-// 7.9-8.0 us against that design's 8.9-9.0 us for the wrapper (fill
-// included) over 614,400 rows, of which 5.8-5.9 us is the floor with
-// every cotangent zero; float2 pairs 0.3-0.6 us faster than scalar
-// atomics.
+// What bounds it on the H100: not the bytes (cotangents 4 B per row, the
+// active rows' points, the 1 MiB grid written once) but the launches (five
+// kernels and a 1 MiB memset per call) and the gather's chains of
+// dependent loads in the cells near the surface, where up to 8 buckets
+// meet.  The scratch (counts and starts, res^3 ints each; arrivals and the
+// row list, n ints each; n float4) stays in L2 at the main path's sizes.
+#include <climits>
+
 #include <cuda_runtime.h>
 
 #include "trilinear.cuh"
@@ -49,80 +53,246 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = sdfest::kThreads / 32;
 
-__global__ void scatter_kernel(const float* __restrict__ points,
-                               const float* __restrict__ cot,
-                               float* __restrict__ grad, int n, int res) {
+__device__ __forceinline__ int base_cell(const float* __restrict__ points,
+                                         int row, int res) {
+  return sdfest::locate(points[3 * row], points[3 * row + 1],
+                        points[3 * row + 2], res)
+      .idx;
+}
+
+__global__ void scatter_count_kernel(const float* __restrict__ points,
+                                     const float* __restrict__ cot,
+                                     int* __restrict__ count,
+                                     int* __restrict__ arrival, int n,
+                                     int res) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t z = blockIdx.z;
   points += z * 3 * n;
   cot += z * n;
-  grad += z * res * res * res;
-  const float g = i < n ? cot[i] : 0.0f;
-  const bool live = g != 0.0f;
-  // every lane of the warp stays until the shuffles: no exit before here
+  arrival += z * n;
+  count += z * res * res * res;
+  const bool live = i < n && cot[i] != 0.0f;
+  // every lane of the warp stays until the match: no exit before here
   if (__ballot_sync(kFull, live) == 0u) return;
-
-  // this lane's 8 corner contributions c[dx * 4 + dy * 2 + dz]
-  float c[8];
-  int key = -1;  // the base cell; -1 for a lane with nothing to add
-  if (live) {
-    const sdfest::Cell cell = sdfest::locate(points[3 * i], points[3 * i + 1],
-                                             points[3 * i + 2], res);
-    const float wx[2] = {1.0f - cell.fx, cell.fx};
-    const float wy[2] = {1.0f - cell.fy, cell.fy};
-    const float wz[2] = {1.0f - cell.fz, cell.fz};
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      c[k] = wx[k >> 2] * wy[(k >> 1) & 1] * wz[k & 1] * g;
-    key = cell.idx;
-  } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) c[k] = 0.0f;
-  }
+  const int key = live ? base_cell(points, i, res) : -1;
   const int lane = threadIdx.x & 31;
   const unsigned group = __match_any_sync(kFull, key);
-  const bool leader = live && __ffs(group) - 1 == lane;
-  // the leader adds its group's other members, lowest lane first
-  unsigned rest = leader ? group & (group - 1u) : 0u;
-  while (__any_sync(kFull, rest != 0u)) {
-    const int src = rest ? __ffs(rest) - 1 : lane;
+  const int leader = __ffs(group) - 1;
+  int first = 0;
+  if (live && lane == leader) first = atomicAdd(count + key, __popc(group));
+  first = __shfl_sync(kFull, first, leader);
+  if (live) arrival[i] = first + __popc(group & ((1u << lane) - 1u));
+}
+
+__global__ void scatter_alloc_kernel(const int* __restrict__ count,
+                                     int* __restrict__ total,
+                                     int* __restrict__ start, int r3) {
+  __shared__ int warp_sum[kWarps];
+  __shared__ int block_base;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t z = blockIdx.z;
+  count += z * r3;
+  start += z * r3;
+  const int m = c < r3 ? count[c] : 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = m;  // inclusive sum over the warp's lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int s = warp_sum[w];
+      warp_sum[w] = sum;
+      sum += s;
+    }
+    block_base = sum ? atomicAdd(total + z, sum) : 0;
+  }
+  __syncthreads();
+  if (m > 0) start[c] = block_base + warp_sum[warp] + incl - m;
+}
+
+__global__ void scatter_place_kernel(const float* __restrict__ points,
+                                     const float* __restrict__ cot,
+                                     const int* __restrict__ start,
+                                     const int* __restrict__ arrival,
+                                     int* __restrict__ list, int n,
+                                     int res) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t z = blockIdx.z;
+  points += z * 3 * n;
+  cot += z * n;
+  if (i >= n || cot[i] == 0.0f) return;
+  const int key = base_cell(points, i, res);
+  list[z * n + start[z * res * res * res + key] + arrival[z * n + i]] = i;
+}
+
+__global__ void scatter_rank_kernel(const float* __restrict__ points,
+                                    const float* __restrict__ cot,
+                                    const int* __restrict__ total,
+                                    const int* __restrict__ count,
+                                    const int* __restrict__ start,
+                                    const int* __restrict__ list,
+                                    int* __restrict__ sorted,
+                                    float4* __restrict__ data, int n,
+                                    int res) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t z = blockIdx.z;
+  if (t >= total[z]) return;
+  const size_t r3 = (size_t)res * res * res;
+  list += z * n;
+  const int row = list[t];
+  const float* p = points + z * 3 * n + 3 * (size_t)row;
+  const sdfest::Cell c = sdfest::locate(p[0], p[1], p[2], res);
+  const int s = start[z * r3 + c.idx], m = count[z * r3 + c.idx];
+  int rank = 0;
+  for (int j = s; j < s + m; ++j) rank += list[j] < row;
+  sorted[z * n + s + rank] = row;
+  data[z * n + s + rank] = make_float4(c.fx, c.fy, c.fz, cot[z * n + row]);
+}
+
+constexpr int kRun = 4;  // rows of one bucket loaded per round trip
+
+__global__ void scatter_kernel(const int* __restrict__ count,
+                               const int* __restrict__ start,
+                               const int* __restrict__ sorted,
+                               const float4* __restrict__ data,
+                               float* __restrict__ grad, int n, int res) {
+  const int rr = res * res, r3 = rr * res;
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= r3) return;
+  const size_t z = blockIdx.z;
+  count += z * r3;
+  start += z * r3;
+  sorted += z * n;
+  data += z * n;
+  const int x = cell / rr, y = (cell / res) % res, w = cell % res;
+  // bucket k holds the rows whose base cell has this cell as corner
+  // (dx, dy, dz) = (k >> 2, (k >> 1) & 1, k & 1); head[k] is its next slot
+  // and next[k] that slot's row (INT_MAX once the bucket is used up)
+  int head[8], end[8], next[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    int h = 0, e = 0;
+    if (x - dx >= 0 && x - dx <= res - 2 && y - dy >= 0 &&
+        y - dy <= res - 2 && w - dz >= 0 && w - dz <= res - 2) {
+      const int key = cell - dx * rr - dy * res - dz;
+      const int m = count[key];
+      if (m > 0) {
+        h = start[key];
+        e = h + m;
+      }
+    }
+    head[k] = h;
+    end[k] = e;
+    next[k] = h < e ? sorted[h] : INT_MAX;
+  }
+  float acc = 0.0f;
+  for (;;) {
+    // the bucket with the smallest next row, and the smallest row of the
+    // others: its rows below that come next, one run of its slots
+    int row = INT_MAX, kb = 0, other = INT_MAX;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const float v = __shfl_sync(kFull, c[k], src);
-      if (rest) c[k] += v;
+      if (next[k] < row) {
+        other = row;
+        row = next[k];
+        kb = k;
+      } else if (next[k] < other) {
+        other = next[k];
+      }
     }
-    rest &= rest - 1u;
-  }
-  if (!leader) return;
-
-  const int rr = res * res;
-  // an even res and key put each z-pair at an 8-byte aligned address
-  if (((res | key) & 1) == 0) {
+    if (row == INT_MAX) break;
+    int h = head[0], e = end[0];
 #pragma unroll
-    for (int k = 0; k < 8; k += 2)
-      atomicAdd(reinterpret_cast<float2*>(grad + key + (k >> 2) * rr +
-                                          ((k >> 1) & 1) * res),
-                make_float2(c[k], c[k + 1]));
-  } else {
+    for (int k = 1; k < 8; ++k)
+      if (k == kb) {
+        h = head[k];
+        e = end[k];
+      }
+    const bool ux = kb >> 2, uy = (kb >> 1) & 1, uz = kb & 1;
+    int after = INT_MAX;  // the bucket's first row not added
+    for (bool more = true; more;) {
+      int r[kRun];
+      float4 f[kRun];
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        r[j] = h + j < e ? sorted[h + j] : INT_MAX;
+        f[j] = h + j < e ? data[h + j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        if (more && r[j] < other) {
+          // this cell is corner kb of the row's base cell: scatter_plain's
+          // ((wx * wy) * wz) * cot, each step rounded on its own
+          const float wx = ux ? f[j].x : 1.0f - f[j].x;
+          const float wy = uy ? f[j].y : 1.0f - f[j].y;
+          const float wz = uz ? f[j].z : 1.0f - f[j].z;
+          acc = __fadd_rn(
+              acc, __fmul_rn(__fmul_rn(__fmul_rn(wx, wy), wz), f[j].w));
+          ++h;
+        } else if (more) {
+          after = r[j];
+          more = false;
+        }
+      }
+    }
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      atomicAdd(grad + key + (k >> 2) * rr + ((k >> 1) & 1) * res + (k & 1),
-                c[k]);
+      if (k == kb) {
+        head[k] = h;
+        next[k] = after;
+      }
   }
+  grad[z * r3 + cell] = acc;
+}
+
+int blocks_for(long long items) {
+  return (int)((items + sdfest::kThreads - 1) / sdfest::kThreads);
 }
 
 }  // namespace
 
-// grad: 8-byte aligned (the float2 atomics of an even res; res^3 floats per
-// hypothesis keep every hypothesis's grid so).  batch hypotheses of n rows
-// each, one after the other in every operand.
+// scratch: 16-byte aligned, batch * (2 * res^3 + 6 * n) + batch 4-byte
+// words, laid out as the sorted rows' fractions and cotangents (batch * n
+// float4), counts (batch * res^3), the per-hypothesis totals (batch),
+// starts (batch * res^3), arrivals / the sorted row list (batch * n) and
+// the arrival-ordered row list (batch * n).  batch hypotheses of n rows
+// each, one after the other in every operand.  grad need not be filled:
+// every cell is written.
 extern "C" int sdfest_scatter(const float* points, const float* cot,
-                              float* grad, int n, int batch, int res,
-                              void* stream) {
+                              float* grad, void* scratch, int n, int batch,
+                              int res, void* stream) {
   if (n <= 0 || batch <= 0) return 0;
-  const dim3 blocks((n + sdfest::kThreads - 1) / sdfest::kThreads, 1, batch);
-  scatter_kernel<<<blocks, sdfest::kThreads, 0, (cudaStream_t)stream>>>(
-      points, cot, grad, n, res);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int r3 = res * res * res;
+  float4* data = static_cast<float4*>(scratch);
+  int* count = reinterpret_cast<int*>(data + (size_t)batch * n);
+  int* total = count + (size_t)batch * r3;
+  int* start = total + batch;
+  int* arrival = start + (size_t)batch * r3;
+  int* list = arrival + (size_t)batch * n;
+  cudaError_t err = cudaMemsetAsync(
+      count, 0, ((size_t)batch * r3 + batch) * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 rows(blocks_for(n), 1, batch), cells(blocks_for(r3), 1, batch);
+  const int t = sdfest::kThreads;
+  scatter_count_kernel<<<rows, t, 0, s>>>(points, cot, count, arrival, n,
+                                          res);
+  scatter_alloc_kernel<<<cells, t, 0, s>>>(count, total, start, r3);
+  scatter_place_kernel<<<rows, t, 0, s>>>(points, cot, start, arrival, list,
+                                          n, res);
+  // the sorted list reuses the arrivals' memory: place has read them
+  scatter_rank_kernel<<<rows, t, 0, s>>>(points, cot, total, count, start,
+                                         list, arrival, data, n, res);
+  scatter_kernel<<<cells, t, 0, s>>>(count, start, arrival, data, grad, n,
+                                     res);
   return (int)cudaGetLastError();
 }

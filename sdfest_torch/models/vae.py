@@ -5,11 +5,12 @@ trilinear resize to the layer's ``in_size`` when needed -> VALID (unpadded)
 Conv3d -> ReLU where configured.  Encoder: the config's ``layer_infos``
 (Conv3d, ReLU, Flatten, MaxPool3d, Linear) on ``(N, 1, D, D, D)``, then the
 ``linear_means`` / ``linear_log_var`` heads.  The convolutions run in full
-fp32 on any device (:func:`fp32_convolutions`; a training step runs its
-backward under it too).  Submodule names follow flax (``encoder.features_i``,
-``decoder.fc_i``, ``decoder.conv_i``), so
-:func:`sdfest_torch.utils.weights.flax_to_torch` maps the committed weights
-directly.  Randomness is an explicit ``eps`` or ``torch.Generator``.
+fp32 on any device (:func:`fp32_convolutions`; a training step and an
+estimate's shape optimization run their backward under it too).
+Submodule names follow flax (``encoder.features_i``, ``decoder.fc_i``,
+``decoder.conv_i``), so :func:`sdfest_torch.utils.weights.flax_to_torch`
+maps the committed weights directly.  Randomness is an explicit ``eps``
+or ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -25,8 +26,12 @@ from sdfest_torch.utils.misc import str_to_tsdf
 
 def fp32_convolutions(deterministic: Optional[bool] = None):
     """A context in which cuDNN convolutions run in full fp32 (and, with
-    ``deterministic``, only cuDNN's deterministic algorithms: the trainers'
-    steps take them, so that two runs of a step agree bit for bit).
+    ``deterministic``, only cuDNN's deterministic algorithms).  cuDNN reads
+    the flags when a convolution runs, its backward included, so every
+    gradient the port takes through the decoder is taken inside
+    ``fp32_convolutions(deterministic=True)``: the trainers' steps and the
+    estimate's iterations with shape optimization.  Two runs of either then
+    agree bit for bit.
 
     By PyTorch's default a float32 cuDNN convolution may run in TF32, which
     keeps about three significant digits (on an H100 with PyTorch 2.11 the

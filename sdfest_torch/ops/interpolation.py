@@ -144,71 +144,58 @@ def resize_trilinear(volume: torch.Tensor, out_size: int) -> torch.Tensor:
     package when ``out_size >= D`` (when shrinking, jax antialiases and
     this does not).
 
-    Where cuDNN's deterministic algorithms are asked for (the trainers'
-    steps, ``fp32_convolutions(deterministic=True)``) the backward is
-    :func:`_resize_adjoint`: PyTorch's CUDA backward adds with float atomics
-    in no fixed order, so two runs of one training step would part in the
-    last bits.  Elsewhere (the estimate's shape optimization) it is
-    PyTorch's, which is faster."""
+    Its backward is :func:`_resize_adjoint`, a fixed-order product:
+    PyTorch's CUDA backward adds with float atomics in no fixed order, so
+    two runs of a gradient through the decoder (the trainers' steps, the
+    estimate's shape optimization) would part in the last bits."""
     if out_size < volume.shape[-1]:
         raise ValueError("resize_trilinear only upsamples")
-    if torch.backends.cudnn.deterministic:
-        return _Resize.apply(volume, out_size)
-    return F.interpolate(
-        volume, size=(out_size,) * 3, mode="trilinear", align_corners=False
-    )
+    return _Resize.apply(volume, out_size)
 
 
-def _resize_taps_np(n: int, m: int, dtype) -> Tuple[np.ndarray, np.ndarray]:
-    """The outputs that read each input row of a half-pixel linear resize
-    ``n -> m`` (PyTorch's source index in ``dtype``, clamped at 0; the last
-    row read twice) and their weights: ``(n, K)`` indices and weights, the
-    unused entries at weight 0."""
+def _resize_matrix_np(n: int, m: int, dtype) -> np.ndarray:
+    """The ``(m, n)`` matrix of a half-pixel linear resize ``n -> m`` along
+    one axis: PyTorch's source index in ``dtype``, clamped at 0, and its two
+    taps (the last row's two taps on the same entry)."""
     one, half = dtype(1), dtype(0.5)
     scale = dtype(n) / dtype(m)
     src = scale * (np.arange(m).astype(dtype) + half) - half
     src = np.where(src < 0, dtype(0), src).astype(dtype)
     i0 = src.astype(np.int64)
     l1 = (src - i0.astype(dtype)).astype(dtype)
-    taps = [[] for _ in range(n)]
-    for j in range(m):
-        taps[i0[j]].append((j, one - l1[j]))
-        taps[min(i0[j] + 1, n - 1)].append((j, l1[j]))
-    k = max(len(t) for t in taps)
-    idx, w = np.zeros((n, k), np.int64), np.zeros((n, k), dtype)
-    for i, t in enumerate(taps):
-        for c, (j, wt) in enumerate(t):
-            idx[i, c], w[i, c] = j, wt
-    return idx, w
+    mat = np.zeros((m, n), dtype)
+    rows = np.arange(m)
+    np.add.at(mat, (rows, i0), one - l1)
+    np.add.at(mat, (rows, np.minimum(i0 + 1, n - 1)), l1)
+    return mat
 
 
 @device_cache(maxsize=32)
-def _resize_taps(n: int, m: int, device: torch.device, dtype: torch.dtype
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_resize_taps_np` on ``device``, made once (a captured step
-    reads them in place)."""
-    idx, w = _resize_taps_np(n, m, np.float64 if dtype == torch.float64
-                             else np.float32)
-    return (torch.from_numpy(idx).to(device),
-            torch.from_numpy(w).to(device, dtype))
+def _resize_matrix(n: int, m: int, device: torch.device, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """:func:`_resize_matrix_np` on ``device``, made once (a captured step
+    reads it in place)."""
+    return torch.from_numpy(_resize_matrix_np(
+        n, m, np.float64 if dtype == torch.float64 else np.float32)
+    ).to(device)
 
 
 def _resize_adjoint(grad: torch.Tensor, n: int) -> torch.Tensor:
-    """The gradient of ``(N, C, n, n, n)`` volumes from the gradient of
-    their trilinear resize to ``m``: the transpose of the one-axis resize
-    applied along each axis, each input row summing its taps in a fixed
-    order (no atomics)."""
-    for dim in (2, 3, 4):
-        idx, w = _resize_taps(n, grad.shape[dim], grad.device, grad.dtype)
-        shape = [1] * grad.dim()
-        shape[dim] = n
-        acc = None
-        for c in range(idx.shape[1]):
-            term = torch.index_select(grad, dim, idx[:, c]) * \
-                w[:, c].reshape(shape)
-            acc = term if acc is None else acc + term
-        grad = acc
-    return grad
+    """The gradient of ``(N, C, n, n, n)`` volumes from the gradient
+    ``(N, C, m, m, m)`` of their trilinear resize: per axis one product with
+    the transpose of the resize's ``(m, n)`` matrix (:func:`torch.mm`, full
+    precision and a fixed order in float32 and float64; no atomics).  Each
+    product contracts the last axis and writes its result first, so the
+    three run on the volume as it lies, and one copy restores the layout:
+    four launches."""
+    lead, m = grad.shape[:2], grad.shape[-1]
+    mat_t = _resize_matrix(n, m, grad.device, grad.dtype).t()
+    out = grad
+    for _ in range(3):  # z, then y, then x: (N C X Y z) -> (n_z, N C X Y)
+        out = torch.mm(mat_t, out.reshape(-1, m).t())
+    # (n_x, n_y, n_z, N C) -> (N, C, n_x, n_y, n_z)
+    return out.reshape(n, n, n, -1).permute(3, 0, 1, 2).reshape(
+        *lead, n, n, n)
 
 
 class _Resize(torch.autograd.Function):

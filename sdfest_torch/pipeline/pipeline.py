@@ -66,6 +66,7 @@ mp4), which the card's machine lacks: there they run on the CPU side only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import pickle
@@ -76,7 +77,10 @@ import numpy as np
 import torch
 
 from sdfest_torch.models.pose_net import create_pose_net
-from sdfest_torch.models.vae import create_decoder_from_config
+from sdfest_torch.models.vae import (
+    create_decoder_from_config,
+    fp32_convolutions,
+)
 from sdfest_torch.ops import pointset, quaternion
 from sdfest_torch.ops.camera import Camera
 from sdfest_torch.ops.so3grid import SO3Grid
@@ -1102,55 +1106,63 @@ class SDFPipeline:
         latent = params["latent"]
         if not phase.shape_optimization:
             latent = latent.detach()
-        sdf = self._decode(latent)[:, 0]
-        ph = dict(ph)
-        use_warm = "warm" in ph
-        if use_warm:
-            motion = motion_bound(params["position"], norm_q,
-                                  params["scale"], sdf, ph["shared"])
-            warms = list(ph["warm"])
-        view_losses = []
-        for v, (depth_v, points_v, mask_v, rays_v) in enumerate(ctx["views"]):
-            position_c = quaternion.apply(
-                ctx["q_w2c"][v], params["position"] - ctx["cam_pos"][v])
-            orientation_c = quaternion.multiply(ctx["q_w2c"][v], norm_q)
+        # with shape optimization the gradient runs through the decoder:
+        # its forward and backward under fp32_convolutions(deterministic=
+        # True), as a trainer's step (cuDNN reads the flags when the
+        # backward runs): the convolutions in full fp32 with deterministic
+        # algorithms (the resizes' backward is a fixed-order adjoint always)
+        with (fp32_convolutions(deterministic=True)
+              if phase.shape_optimization else contextlib.nullcontext()):
+            sdf = self._decode(latent)[:, 0]
+            ph = dict(ph)
+            use_warm = "warm" in ph
             if use_warm:
-                depth_estimate, warms[v] = warm_render_step(
-                    sdf, position_c, orientation_c, params["scale"],
-                    warms[v], motion, it % ctx["refresh_k"] == 0,
-                    ctx["camera"], self.config["threshold"], device=dev,
-                )
-                loss_pc = losses.masked_pc_loss(
-                    points_v, mask_v, position_c, orientation_c,
-                    params["scale"], sdf,
-                )
-            else:
-                depth_estimate, pc_values = render_depth_with_pc_values(
-                    sdf, position_c, orientation_c, params["scale"],
-                    points_v, mask_v, rays=rays_v, **ctx["render"],
-                )
-                loss_pc = losses.masked_mean_abs(pc_values, mask_v)
-            view_losses.append((losses.depth_l1_loss(
-                depth_v, depth_estimate), loss_pc))
-        # summed in view order, as the JAX package's scan over views
-        loss_depth, loss_pc = view_losses[0]
-        for ld, lp in view_losses[1:]:
-            loss_depth, loss_pc = loss_depth + ld, loss_pc + lp
-        loss = (self.config.get("depth_weight", 1.0) * loss_depth
-                + self.config.get("pc_weight", 1.0) * loss_pc)
-        if phase.constraint_weight is not None:
-            loss = loss + phase.constraint_weight * (
-                losses.point_constraint_loss(params["orientation"],
-                                             ctx["source"], ctx["target"]))
-        if use_warm:
-            ph["warm"] = warms
-            ph["shared"] = {"position": params["position"].detach(),
-                            "orientation": norm_q.detach(),
-                            "scale": params["scale"].detach(),
-                            "sdf": sdf.detach()}
-        wanted = [k for k in _STATE_KEYS
-                  if k != "latent" or phase.shape_optimization]
-        got = torch.autograd.grad(loss.sum(), [params[k] for k in wanted])
+                motion = motion_bound(params["position"], norm_q,
+                                      params["scale"], sdf, ph["shared"])
+                warms = list(ph["warm"])
+            view_losses = []
+            for v, (depth_v, points_v, mask_v, rays_v) in enumerate(
+                    ctx["views"]):
+                position_c = quaternion.apply(
+                    ctx["q_w2c"][v], params["position"] - ctx["cam_pos"][v])
+                orientation_c = quaternion.multiply(ctx["q_w2c"][v], norm_q)
+                if use_warm:
+                    depth_estimate, warms[v] = warm_render_step(
+                        sdf, position_c, orientation_c, params["scale"],
+                        warms[v], motion, it % ctx["refresh_k"] == 0,
+                        ctx["camera"], self.config["threshold"], device=dev,
+                    )
+                    loss_pc = losses.masked_pc_loss(
+                        points_v, mask_v, position_c, orientation_c,
+                        params["scale"], sdf,
+                    )
+                else:
+                    depth_estimate, pc_values = render_depth_with_pc_values(
+                        sdf, position_c, orientation_c, params["scale"],
+                        points_v, mask_v, rays=rays_v, **ctx["render"],
+                    )
+                    loss_pc = losses.masked_mean_abs(pc_values, mask_v)
+                view_losses.append((losses.depth_l1_loss(
+                    depth_v, depth_estimate), loss_pc))
+            # summed in view order, as the JAX package's scan over views
+            loss_depth, loss_pc = view_losses[0]
+            for ld, lp in view_losses[1:]:
+                loss_depth, loss_pc = loss_depth + ld, loss_pc + lp
+            loss = (self.config.get("depth_weight", 1.0) * loss_depth
+                    + self.config.get("pc_weight", 1.0) * loss_pc)
+            if phase.constraint_weight is not None:
+                loss = loss + phase.constraint_weight * (
+                    losses.point_constraint_loss(params["orientation"],
+                                                 ctx["source"], ctx["target"]))
+            if use_warm:
+                ph["warm"] = warms
+                ph["shared"] = {"position": params["position"].detach(),
+                                "orientation": norm_q.detach(),
+                                "scale": params["scale"].detach(),
+                                "sdf": sdf.detach()}
+            wanted = [k for k in _STATE_KEYS
+                      if k != "latent" or phase.shape_optimization]
+            got = torch.autograd.grad(loss.sum(), [params[k] for k in wanted])
         grads = {k: torch.zeros_like(state[k]) for k in _STATE_KEYS}
         grads.update(zip(wanted, got))
         with torch.no_grad():

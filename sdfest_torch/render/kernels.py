@@ -78,7 +78,7 @@ _SIGNATURES = {
     "sample": ("sample", "sdfest_sample", [_P] * 4 + [_I] * 3 + [_P]),
     "sample_grad": ("sample_grad", "sdfest_sample_grad",
                     [_P] * 5 + [_I] * 3 + [_P]),
-    "scatter": ("scatter", "sdfest_scatter", [_P] * 3 + [_I] * 3 + [_P]),
+    "scatter": ("scatter", "sdfest_scatter", [_P] * 4 + [_I] * 3 + [_P]),
 }
 _FUNCS = {}
 
@@ -514,7 +514,10 @@ def scatter_plain(
     points: torch.Tensor, cotangents: torch.Tensor, res: int
 ) -> torch.Tensor:
     """Gradient of sampling w.r.t. the grid: corner weights x cotangent
-    (rows ``(B, N, 3)``/``(B, N)``: one grid per hypothesis)."""
+    (rows ``(B, N, 3)``/``(B, N)``: one grid per hypothesis).  Each
+    contribution is ``((wx * wy) * wz) * cot``, and a cell adds its
+    contributions in increasing row index (``index_add_`` on the CPU adds
+    serially): the order the kernel keeps."""
     if points.ndim == 3:
         return per_hypothesis(points.shape[0], lambda b: scatter_plain(
             points[b], cotangents[b], res))
@@ -530,12 +533,13 @@ def scatter(
 ) -> torch.Tensor:
     """``(res, res, res)`` accumulation of each point's 8 corner weights
     times its cotangent (``csrc/scatter.cu``; plain version
-    :func:`scatter_plain`).  On CUDA the lanes of a warp that share a base
-    cell sum their contributions first, and one lane adds them with float
-    atomics (float2 atomics on the z-pairs of even cells when ``res`` is
-    even): the sums are not deterministic in their last bits.  Rows ``(B, N,
-    3)``/``(B, N)`` give ``(B, res, res, res)``, zero-filled once for the
-    batch, from one launch; a warp never spans two hypotheses."""
+    :func:`scatter_plain`).  On CUDA the rows with a nonzero cotangent are
+    bucketed by base cell and sorted by row index, and one thread per cell
+    adds its contributions in increasing row index, without float atomics:
+    the grid equals :func:`scatter_plain` on CPU copies of the inputs bit
+    for bit, run after run.  Rows ``(B, N, 3)``/``(B, N)`` give ``(B, res,
+    res, res)`` from one call (one count); each hypothesis's grid is the
+    one its rows give alone."""
     lead = tuple(points.shape[:-2])
     if len(lead) > 1:
         raise ValueError("expected points (N, 3) or (B, N, 3)")
@@ -543,12 +547,20 @@ def scatter(
     if _on_cpu(points, cotangents):
         return scatter_plain(points, cotangents, res)
     _check_rows(n, 1, lead)
-    grad = torch.zeros((*lead, res, res, res), dtype=torch.float32,
+    if not n:
+        return torch.zeros((*lead, res, res, res), dtype=torch.float32,
+                           device=points.device)
+    grad = torch.empty((*lead, res, res, res), dtype=torch.float32,
                        device=points.device)
-    if n:
-        _launch("scatter", points.device, points.data_ptr(),
-                cotangents.data_ptr(), grad.data_ptr(), n, _batch(lead), res)
-        _count(scatter, lead)
+    # the sorted rows' float4s, counts, totals, starts, arrivals and the
+    # row list (csrc/scatter.cu)
+    batch = _batch(lead)
+    scratch = torch.empty(batch * (2 * res ** 3 + 6 * n + 1),
+                          dtype=torch.int32, device=points.device)
+    _launch("scatter", points.device, points.data_ptr(),
+            cotangents.data_ptr(), grad.data_ptr(), scratch.data_ptr(), n,
+            batch, res)
+    _count(scatter, lead)
     return grad
 
 

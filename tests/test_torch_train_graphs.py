@@ -644,25 +644,28 @@ def test_train_init_chains_steps_per_dispatch(tmp_path, replay):
 @pytest.mark.parametrize("n,m", [(6, 16), (14, 32), (4, 8), (5, 5)])
 def test_decoder_resize_backward_is_the_adjoint(n, m):
     """The decoders' trilinear resize (6 -> 16, 14 -> 32, 30 -> 64 in the
-    mug VAE) in a trainer's step: forward ``F.interpolate`` bit for bit,
-    backward the fixed-order adjoint (PyTorch's CUDA backward adds with
-    float atomics), equal to PyTorch's backward within 1e-12 in float64;
-    outside a step PyTorch's own."""
+    mug VAE), in a trainer's step and outside one: forward
+    ``F.interpolate`` bit for bit, backward always the fixed-order adjoint
+    (PyTorch's CUDA backward adds with float atomics), equal to PyTorch's
+    backward within 1e-12 in float64."""
     from sdfest_torch.models.vae import fp32_convolutions
     from sdfest_torch.ops.interpolation import resize_trilinear
 
     g = torch.Generator().manual_seed(n)
     x = torch.randn(2, 3, n, n, n, generator=g, dtype=torch.float64)
     grad = torch.randn(2, 3, m, m, m, generator=g, dtype=torch.float64)
-    outs = []
-    for port in (True, False):
+    xi = x.clone().requires_grad_(True)
+    y = torch.nn.functional.interpolate(xi, size=(m,) * 3, mode="trilinear",
+                                        align_corners=False)
+    want = (y.detach(), torch.autograd.grad(y, xi, grad)[0])
+    for deterministic in (True, False):
         xi = x.clone().requires_grad_(True)
-        with fp32_convolutions(deterministic=port):
+        with fp32_convolutions(deterministic=deterministic):
             y = resize_trilinear(xi, m)
-        assert (type(y.grad_fn).__name__ == "_ResizeBackward") == port
-        outs.append((y.detach(), torch.autograd.grad(y, xi, grad)[0]))
-    assert torch.equal(outs[0][0], outs[1][0])
-    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=0, atol=1e-12)
+        assert type(y.grad_fn).__name__ == "_ResizeBackward"
+        assert torch.equal(y.detach(), want[0])
+        torch.testing.assert_close(torch.autograd.grad(y, xi, grad)[0],
+                                   want[1], rtol=0, atol=1e-12)
 
 
 # ---------------------------------------------------------------------------
