@@ -211,10 +211,16 @@ Phases:
             16x16 tiles per render, the flat launch, all-miss poses of the
             default and bf16 marches; the scatter with zero cotangents and
             its device time per stage (profiler: main path, zero
-            cotangents, B = 8) beside its buckets and chains, and as the
-            mug comes closer (DENSE_DISTANCES: time, plain time, bound,
-            buckets, chains, stages; bit for bit the plain version on CPU
-            copies); the
+            cotangents, B = 8) beside its buckets and contributions per
+            cell, as the mug comes closer (DENSE_DISTANCES: time, plain
+            and library time at B = 1 and B = 8, bound, buckets,
+            contributions per cell, the cells of each gather path, stages;
+            bit for bit the plain version on CPU copies), on one base cell
+            of 614,400 rows (time, within 50 ms, bit for bit), at a VAE
+            step's shape
+            (B = 8 x 307,200 pc rows, beside its library call), and one
+            full-frame graph call with the mug at 0.12 m (ms per call,
+            device ms, the scatter's share); the
             sampler on hot inputs, an empty kernel at its launch geometry
             and F.grid_sample (library yardstick); sample-grad's and the
             scatter's library yardsticks (aten.grid_sampler_3d_backward:
@@ -476,6 +482,75 @@ def gather_bytes(points, active, res) -> int:
     return 12 * int(active.sum()) + 4 * int(torch.unique(idx).numel())
 
 
+def library_operands(rows, cot, res):
+    """aten.grid_sampler_3d_backward's grid and gradient operands for rows
+    ``(N, 3)`` or ``(B, N, 3)`` and their cotangents: the coordinates in
+    grid_sample's (z, y, x) order as ``(B, 1, 1, N, 3)`` (sdf[x][y][z] is
+    its (D, H, W)) and the cotangents of the in-volume rows ``(B, 1, 1, 1,
+    N)`` (zero padding and the kernels' extrapolation differ only
+    outside)."""
+    from sdfest_torch.ops.interpolation import _base_and_frac
+
+    b = rows.shape[0] if rows.ndim == 3 else 1
+    inside = _base_and_frac(rows.reshape(-1, 3), res)[2].reshape(cot.shape)
+    coords = rows.reshape(b, -1, 3)[..., [2, 1, 0]].reshape(b, 1, 1, -1, 3)
+    return coords.contiguous(), (cot * inside).reshape(b, 1, 1, 1, -1) \
+        .contiguous()
+
+
+def scatter_library(inputs, res, long_sums=False, check=None):
+    """The scatter's library yardstick over the scatter's ``inputs`` (rows,
+    cotangents), unbatched or ``(B, ...)``, as ``(call, operands)``:
+    aten.grid_sampler_3d_backward's grid half (output_mask [True, False])
+    on library_operands, one call for all B grids.  The first ``check``
+    inputs' grids (all by default) are held to the plain version first,
+    within 1e-5 * max(1, max|want|) (the main path's rows) or, with
+    ``long_sums`` (dense and batched rows, chains of up to ~1,800
+    contributions that the library's float atomics add in another order),
+    within the bound of a float sum in any order: 2 * (longest chain) *
+    2^-24 times the largest sum of |contribution|."""
+    import torch
+
+    from sdfest_torch.ops.interpolation import trilinear_weights
+    from sdfest_torch.render import kernels as k
+
+    backward = torch.ops.aten.grid_sampler_3d_backward
+    b = inputs[0][0].shape[0] if inputs[0][0].ndim == 3 else 1
+    grid = torch.zeros((b, 1, res, res, res), device=inputs[0][0].device)
+    ops = [library_operands(p, c, res) for p, c in inputs]
+    call = lambda x: backward(x[1], grid, x[0], 0, 0, True,
+                              [True, False])[0]
+    for (p, _), x in zip(inputs[:check], ops[:check]):
+        cot = x[1].reshape(p.shape[:-1])
+        want = k.scatter_plain(p, cot, res)
+        err = float((call(x).reshape(want.shape) - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        if long_sums:
+            rows = p.reshape(-1, 3)[cot.reshape(-1) != 0]
+            chain = int(torch.bincount(trilinear_weights(rows, res)[0]
+                                       .reshape(-1)).max()) if len(rows) else 1
+            sums = k.scatter_plain(p, cot.abs(), res)
+            tol = max(tol, 2 * chain * 2.0 ** -24 * float(sums.max()))
+        assert err <= tol, f"grid_sampler_3d_backward grid grad: {err} > {tol}"
+    return call, ops
+
+
+def scatter_library_ms(inputs, res, long_sums=False, check=None) -> float:
+    """Mean device ms of scatter_library's call over its operands (CUDA
+    events)."""
+    return cuda_ms(*scatter_library(inputs, res, long_sums, check))
+
+
+def gather_paths(chain) -> dict:
+    """Cells per path of the scatter's gather, from the contributions per
+    cell: a warp (up to GATHER_WARP), a block (up to GATHER_BLOCK), windows
+    (more)."""
+    return {"warp": int(((chain > 0) & (chain <= GATHER_WARP)).sum()),
+            "block": int(((chain > GATHER_WARP)
+                          & (chain <= GATHER_BLOCK)).sum()),
+            "windows": int((chain > GATHER_BLOCK).sum())}
+
+
 def free_port() -> int:
     """A free TCP port on localhost (for a process group's store)."""
     import socket
@@ -711,6 +786,17 @@ class Smoke:
             out[f"asymmetry_half_turn_{name}"] = self.asymmetry(half_turn)
         print("pipeline witness " + json.dumps(out))
         return out
+
+    def backward_rows(self, gt, seed, gen):
+        """The fused backward's rows of ``queries(gt, 0.01, seed)`` (the
+        surrogate queries, then the pc queries) and their cotangents, drawn
+        from ``gen`` on the active rows (0 elsewhere)."""
+        import torch
+
+        s, sm, o, m = self.queries(gt, 0.01, seed)
+        m = torch.cat([sm, m])
+        cot = torch.randn(m.shape[0], generator=gen).to(self.dev)
+        return torch.cat([s, o]).contiguous(), (cot * m).contiguous()
 
     def queries(self, gt, perturb, seed):
         """Main-path sampler inputs at a refinement-like state: the
@@ -3865,6 +3951,8 @@ class Smoke:
         self.time_grad_library(sample_grad_inp, inp)
         self.time_scatter_stages(inp)
         self.time_scatter_dense()
+        self.time_scatter_single_cell()
+        self.time_dense_call()
         # march at distinct poses (the coarse table is built once per grid,
         # outside the timed kernel)
         dirs = plain.pixel_directions(self.camera, self.dev)
@@ -3968,7 +4056,10 @@ class Smoke:
         inp = [(p, (torch.randn(m.shape, generator=gen).to(self.dev)
                     * m).contiguous()) for p, m in inp]
         rows["scatter"] = cuda_ms(lambda x: k.scatter(*x, res), inp)
+        library = {"scatter": scatter_library_ms(inp, res, long_sums=True,
+                                                 check=2)}
         del inp
+        self.time_scatter_vae_shaped(sets)
         rays = dirs.reshape(self.camera.height, self.camera.width, 3)
         pose_sets = [stack(poses, i) for i in range(reps)]
         rows["march"] = cuda_ms(lambda p: k.march(
@@ -3992,13 +4083,44 @@ class Smoke:
             b_ms, by = bound(nbytes, n * one["ops"])
             entry = dict(hypotheses=n, ms=ms, b1_ms_times_b=n * one["ms"],
                          bound_ms=b_ms, bound_by=by, bytes=nbytes,
-                         shared_bytes=once)
+                         shared_bytes=once, library_ms=library.get(name))
             self.report[name].setdefault("batch", {})["time"] = entry
+            lib = (f"; library {library[name]:.4f} ms" if name in library
+                   else "")
             print(f"time batch {name:<12} B={n} one launch {ms:.4f} ms; "
                   f"{n} x B=1 {n * one['ms']:.4f} ms; bound {b_ms:.5f} ms "
                   f"({by}: {once / 1e6:.3f} MB shared + {n} x "
                   f"{(one['bytes'] - once) / 1e6:.3f} MB = "
-                  f"{nbytes / 1e6:.3f} MB)")
+                  f"{nbytes / 1e6:.3f} MB){lib}")
+
+    def time_scatter_vae_shaped(self, sets):
+        """The scatter at a VAE step's shape: B = HYPOTHESES hypotheses of
+        the 307,200 pc rows (10 windows of the time phase's sets, seeded
+        cotangents on the valid rows), beside its library call; the first
+        bit for bit its plain version on CPU copies."""
+        import torch
+
+        from sdfest_torch.render import kernels as k
+
+        res, n = self.sdf.shape[0], HYPOTHESES
+        gen = torch.Generator(device="cpu").manual_seed(5)
+        pc = [(o.contiguous(), (torch.randn(o.shape[0], generator=gen)
+                                .to(self.dev) * m).contiguous())
+              for _, _, o, m in sets]
+        inp = [tuple(torch.stack([pc[(i + j) % len(pc)][t]
+                                  for j in range(n)]) for t in (0, 1))
+               for i in range(10)]
+        ms = cuda_ms(lambda x: k.scatter(*x, res), inp)
+        lms = scatter_library_ms(inp, res, long_sums=True, check=2)
+        exact = torch.equal(k.scatter(*inp[0], res).cpu(), k.scatter_plain(
+            inp[0][0].cpu(), inp[0][1].cpu(), res))
+        self.report["scatter"]["vae_shaped"] = dict(
+            hypotheses=n, rows=inp[0][0].shape[1], ms=ms, library_ms=lms,
+            bit_for_bit=exact)
+        print(f"time scatter VAE-shaped (B={n} x {inp[0][0].shape[1]} pc "
+              f"rows) kernel {ms:.4f} ms library {lms:.4f} ms; bit for bit "
+              f"the plain version on CPU copies {exact} ({card_line()})")
+        assert exact, "the VAE-shaped scatter is not its plain version's"
 
     def time_tiles(self, poses, dirs, coarse):
         """The march's per-tile culling at the 30 timed poses: active 16x16
@@ -4128,30 +4250,22 @@ class Smoke:
         kernels' extrapolation differ only there).  output_mask [False,
         True] with the mask as cotangent gives sample-grad's point
         gradient (not its value: no single call gives both); [True, False]
-        with the scatter's cotangents gives the grid gradient.  Each held
-        against the plain version within 1e-5 * max(1, max|want|) first."""
+        with the scatter's cotangents gives the grid gradient
+        (scatter_library_ms).  Each held against the plain version within
+        1e-5 * max(1, max|want|) first."""
         import torch
 
-        from sdfest_torch.ops.interpolation import _base_and_frac
         from sdfest_torch.render import kernels as k
 
         res = self.sdf.shape[0]
         grid = self.sdf[None, None].contiguous()
         backward = torch.ops.aten.grid_sampler_3d_backward
-
-        def library(rows, cot, mask):
-            # sdf[x][y][z] is grid_sample's (D, H, W); coordinates (z, y, x)
-            coords = rows[:, [2, 1, 0]].reshape(1, 1, 1, -1, 3).contiguous()
-            in_volume = _base_and_frac(rows, res)[2]
-            return coords, (cot * in_volume).reshape(1, 1, 1, 1, -1) \
-                .contiguous(), (mask * in_volume).contiguous()
-
         # sample-grad: the point gradient, cotangent = the in-volume mask
-        inp = [library(p, m, m) for p, m in sample_grad_inp]
+        inp = [library_operands(p, m, res) for p, m in sample_grad_inp]
         call = lambda x: backward(x[1], grid, x[0], 0, 0, True,
                                   [False, True])[1]
-        for (p, _), x in zip(sample_grad_inp, inp):
-            want = k.sample_grad_plain(self.sdf, p, x[2])[1]
+        for (p, m), x in zip(sample_grad_inp, inp):
+            want = k.sample_grad_plain(self.sdf, p, x[1].reshape(-1))[1]
             got = call(x).reshape(-1, 3)[:, [2, 1, 0]]
             err = float((got - want).abs().max())
             tol = 1e-5 * max(1.0, float(want.abs().max()))
@@ -4162,28 +4276,25 @@ class Smoke:
               f"(point gradient, in-volume rows) {ms:.4f} ms (kernel "
               f"{self.report['sample_grad']['ms']:.4f} ms, value and "
               f"gradient)")
-        # the scatter: the grid gradient of the kernel's cotangents
-        inp = [library(p, c, torch.ones_like(c)) for p, c in scatter_inp]
-        call = lambda x: backward(x[1], grid, x[0], 0, 0, True,
-                                  [True, False])[0]
-        for (p, _), x in zip(scatter_inp, inp):
-            want = k.scatter_plain(p, x[1].reshape(-1), res)
-            err = float((call(x).reshape(want.shape) - want).abs().max())
-            tol = 1e-5 * max(1.0, float(want.abs().max()))
-            assert err <= tol, f"grid_sampler_3d_backward grid grad: {err}"
-        ms = cuda_ms(call, inp)
-        self.report["scatter"]["library_ms"] = ms
+        # the scatter: the grid gradient of the kernel's cotangents, one
+        # by one and in one graph of its calls, as the kernel is timed
+        call, ops = scatter_library(scatter_inp, res)
+        ms, gms = cuda_ms(call, ops), graph_ms(call, ops)
+        r = self.report["scatter"]
+        r["library_ms"] = ms
+        r["graph"]["library_ms"] = gms
         print(f"time scatter library aten.grid_sampler_3d_backward (grid "
-              f"gradient, in-volume rows) {ms:.4f} ms (kernel "
-              f"{self.report['scatter']['ms']:.4f} ms)")
+              f"gradient, in-volume rows) {ms:.4f} ms, in one graph of "
+              f"{len(ops)} calls {gms:.4f} ms (kernel {r['ms']:.4f} ms, in "
+              f"a graph {r['graph']['ms']:.4f} ms)")
 
     def time_scatter_stages(self, inp):
         """The scatter's device time per stage (torch.profiler over 30
         calls): on the time phase's backward rows, with zero cotangents
         and at B = 8 (windows of 8 of the sets); beside it the buckets of
         the first set (non-empty base cells, their largest row count) and
-        the contributions per touched cell (each cell's serial chain in the
-        gather)."""
+        the contributions per touched cell (what the gather sorts and
+        folds for it)."""
         import torch
 
         from sdfest_torch.ops.interpolation import trilinear_weights
@@ -4198,7 +4309,8 @@ class Smoke:
               f"{res ** 3}, at most {int(rows.max())} rows; contributions "
               f"per touched cell max {int(touched.max())} mean "
               f"{float(touched.mean()):.2f} over {touched.numel()} cells "
-              f"({int((c != 0).sum())} active rows)")
+              f"({int((c != 0).sum())} active rows; gather paths "
+              f"{gather_paths(chain)})")
         n = HYPOTHESES
         sets = {"main path": inp,
                 "zero cotangents": [(q, torch.zeros_like(x)) for q, x in inp],
@@ -4218,12 +4330,13 @@ class Smoke:
         """The scatter as the object comes closer (the first ground-truth
         pose's orientation at DENSE_DISTANCES, 10 query sets each, the
         main path's backward rows with seeded cotangents): per call its
-        time (CUDA events), its plain version's and the bound, beside the
-        buckets (largest row count, the rank step's compares: the sum of
-        squared bucket sizes) and the gather's longest chain; the device
-        time per stage (profiler); the first two sets bit for bit the
-        plain version on CPU copies.  Runs on a parent tree too (where the
-        atomics' order fails that check)."""
+        time (CUDA events), its plain version's, the library call's
+        (scatter_library_ms) and the bound, beside the buckets (largest
+        row count), the contributions per touched cell (the longest fold)
+        and the cells each gather path takes; at B = HYPOTHESES (windows
+        of the 10 sets) the kernel and the library call; the device time
+        per stage (profiler); the first two sets bit for bit the plain
+        version on CPU copies.  Runs on a parent tree too."""
         import torch
 
         from sdfest_torch.ops.interpolation import trilinear_weights
@@ -4234,14 +4347,8 @@ class Smoke:
         gen = torch.Generator(device="cpu").manual_seed(6)
         out = self.report["scatter"]["dense"] = []
         for dist in DENSE_DISTANCES:
-            inp = []
-            for i in range(10):
-                s, sm, o, m = self.queries(((0.0, 0.0, -dist), 0.1, q),
-                                           0.01, 200 + i)
-                m = torch.cat([sm, m])
-                cot = torch.randn(m.shape[0], generator=gen).to(self.dev)
-                inp.append((torch.cat([s, o]).contiguous(),
-                            (cot * m).contiguous()))
+            inp = [self.backward_rows(((0.0, 0.0, -dist), 0.1, q), 200 + i,
+                                      gen) for i in range(10)]
             p, c = inp[0]
             idx, _ = trilinear_weights(p[c != 0], res)
             rows = torch.bincount(idx[:, 0], minlength=res ** 3)
@@ -4250,32 +4357,113 @@ class Smoke:
             n = p.shape[0]
             ms = cuda_ms(lambda x: k.scatter(*x, res), inp)
             pms = cuda_ms(lambda x: k.scatter_plain(*x, res), inp)
+            lms = scatter_library_ms(inp, res, long_sums=True, check=2)
             b_ms, by = bound(n * 4 + 12 * active + res ** 3 * 4,
                              active * OPS_SCATTER)
+            hyp = HYPOTHESES
+            batch = [tuple(torch.stack([inp[(i + j) % len(inp)][t]
+                                        for j in range(hyp)])
+                           for t in (0, 1)) for i in range(len(inp))]
+            batch_ms = cuda_ms(lambda x: k.scatter(*x, res), batch)
+            batch_lms = scatter_library_ms(batch, res, long_sums=True,
+                                           check=2)
+            del batch
             stages = scatter_stage_ms(inp, res)
             # its own order, bit for bit (the plain version on CPU copies)
             exact = all(torch.equal(k.scatter(*x, res).cpu(), k.scatter_plain(
                 x[0].cpu(), x[1].cpu(), res)) for x in inp[:2])
             row = dict(distance=dist, n=n, active_rows=active, ms=ms,
-                       plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                       plain_ms=pms, library_ms=lms, bound_ms=b_ms,
+                       bound_by=by, batch=dict(hypotheses=hyp, ms=batch_ms,
+                                               library_ms=batch_lms),
                        buckets=int((rows > 0).sum()),
                        bucket_max=int(rows.max()),
-                       rank_compares=int((rows.long() ** 2).sum()),
                        chain_max=int(chain.max()),
                        chain_mean=float(chain[chain > 0].float().mean()),
+                       gather_paths=gather_paths(chain),
                        stages_ms=stages, bit_for_bit=exact)
             out.append(row)
             print(f"time scatter dense at {dist} m: kernel {ms:.4f} ms plain "
-                  f"{pms:.4f} ms bound {b_ms:.5f} ms ({by}); bit for bit the "
-                  f"plain version on CPU copies {exact}; active rows "
-                  f"{active:.0f} of {n}; buckets {row['buckets']}, largest "
-                  f"{row['bucket_max']} rows, rank compares "
-                  f"{row['rank_compares']}; gather chain max "
-                  f"{row['chain_max']} mean {row['chain_mean']:.1f}; stages "
+                  f"{pms:.4f} ms library {lms:.4f} ms bound {b_ms:.5f} ms "
+                  f"({by}); B={hyp} kernel {batch_ms:.4f} ms library "
+                  f"{batch_lms:.4f} ms; bit for bit the plain version on CPU "
+                  f"copies {exact}; active rows {active:.0f} of {n}; buckets "
+                  f"{row['buckets']}, largest {row['bucket_max']} rows; "
+                  f"contributions per cell max {row['chain_max']} mean "
+                  f"{row['chain_mean']:.1f}; gather paths "
+                  f"{row['gather_paths']}; stages "
                   + ", ".join(f"{st} {t:.4f}" for st, t in stages.items())
                   + f" ms ({card_line()})")
         assert all(r["bit_for_bit"] for r in out), (
             "a dense scatter is not its plain version's order")
+
+    def time_scatter_single_cell(self):
+        """The scatter's worst case: 614,400 rows with cotangents, all in
+        one base cell (8 cells of 614,400 contributions each, past any
+        block's shared memory): time per call (CUDA events, 3 calls), bit
+        for bit the plain version on CPU copies, within
+        SINGLE_CELL_LIMIT_MS."""
+        import torch
+
+        from sdfest_torch.render import kernels as k
+
+        res = self.sdf.shape[0]
+        n = 614_400
+        g = torch.Generator(device="cpu").manual_seed(8)
+        pts = -1.0 + (40.25 + 0.5 * torch.rand(n, 3, generator=g)) * (
+            2.0 / (res - 1))
+        cot = torch.randn(n, generator=g)
+        want = k.scatter_plain(pts, cot, res)
+        x = (pts.to(self.dev), cot.to(self.dev))
+        exact = torch.equal(k.scatter(*x, res).cpu(), want)
+        ms = cuda_ms(lambda x: k.scatter(*x, res), [x] * 3, warmup=1)
+        self.report["scatter"]["single_cell"] = dict(
+            rows=n, ms=ms, bit_for_bit=exact)
+        print(f"time scatter one base cell of {n} rows: {ms:.4f} ms per "
+              f"call; bit for bit the plain version on CPU copies {exact} "
+              f"({card_line()})")
+        assert exact, "the single-cell scatter is not its plain version's"
+        assert ms <= SINGLE_CELL_LIMIT_MS, f"single-cell scatter {ms} ms"
+
+    def time_dense_call(self):
+        """One full-frame call (the graph path) whose observed mug sits at
+        DENSE_DISTANCES[-1], straight ahead at the first ground-truth
+        pose's orientation: two calls to capture, then DENSE_CALLS timed
+        calls (host clock after a synchronize) and one profiled call
+        (device ms, the scatter's share).  Runs on a parent tree too."""
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        _, half, q = GT_POSES[0]
+        depth = self.observe(((0.0, 0.0, -DENSE_DISTANCES[-1]), half, q))
+        call = lambda: self.pipe(depth, depth > 0)
+        for _ in range(2):
+            call()
+        walls = []
+        for _ in range(DENSE_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        scatter_ms = sum(e.self_device_time_total for e in kernels
+                         if any(re.search(rf"\b{st}_kernel[(<]", e.key)
+                                for st in SCATTER_STAGES)) / 1e3
+        self.report["_dense_call"] = dict(
+            distance=DENSE_DISTANCES[-1], ms=walls, device_ms=dev_ms,
+            scatter_ms=scatter_ms)
+        print(f"time dense call (mug at {DENSE_DISTANCES[-1]} m, full frame, "
+              f"graph path): ms per call {[round(w, 3) for w in walls]}; "
+              f"device {dev_ms:.3f} ms per call, the scatter's kernels "
+              f"{scatter_ms:.3f} ms ({card_line()})")
 
     def time_scatter_zeros(self, sets):
         """The scatter with all-zero cotangents (the floor of launch, read
@@ -4713,10 +4901,17 @@ def active_tiles(marches) -> int:
 # the main path's poses are at 0.45-0.6 m; at 0.12 m the mug fills most of
 # the 640x480 frame
 DENSE_DISTANCES = (0.3, 0.2, 0.15, 0.12)
+# timed full-frame calls with the mug at DENSE_DISTANCES[-1]
+DENSE_CALLS = 3
 # the device kernels of one scatter call (csrc/scatter.cu), the last stage
-# ("scatter_kernel") the one each wrapper's count is traced by
+# ("scatter_kernel", the gather) the one each wrapper's count is traced by
 SCATTER_STAGES = ("scatter_count", "scatter_alloc", "scatter_place",
-                  "scatter_rank", "scatter")
+                  "scatter")
+# the gather's paths by a cell's contributions: a warp up to 256, a block's
+# shared memory up to 4,096, windows of rows beyond
+GATHER_WARP, GATHER_BLOCK = 256, 4096
+# the one-base-cell scatter of 614,400 rows must finish within this
+SINGLE_CELL_LIMIT_MS = 50.0
 # the kernels of the fused render op (one launch each per iteration); the
 # warm march launches on the temporal path only
 FUSED_KERNELS = ("march", "sample", "sample_grad", "scatter")
@@ -4889,6 +5084,7 @@ def kernels_line(report) -> str:
         for sub in ("roi", "plain", "no_adaptive", "cold", "mid_refinement",
                     "culling", "no_culling", "relaxed", "warm",
                     "active_tiles", "all_miss", "flat", "zero_cotangents",
+                    "dense", "single_cell", "vae_shaped", "stages_ms",
                     "hot", "empty", "all_skip", "batch", "graph", "mesh",
                     "category", "runtime", "parallel", "scripts", "train"):
             if sub in r:

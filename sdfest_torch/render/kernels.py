@@ -79,6 +79,9 @@ _SIGNATURES = {
     "sample_grad": ("sample_grad", "sdfest_sample_grad",
                     [_P] * 5 + [_I] * 3 + [_P]),
     "scatter": ("scatter", "sdfest_scatter", [_P] * 4 + [_I] * 3 + [_P]),
+    # the scatter's scratch words for (n, batch, res): its layout's size
+    "scatter_words": ("scatter", "sdfest_scatter_words", [_I] * 3,
+                      ctypes.c_longlong),
 }
 _FUNCS = {}
 
@@ -86,10 +89,10 @@ _FUNCS = {}
 def _function(name: str):
     fn = _FUNCS.get(name)
     if fn is None:
-        library, symbol, argtypes = _SIGNATURES[name]
+        library, symbol, argtypes, *restype = _SIGNATURES[name]
         fn = getattr(_build.library(library), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype[0] if restype else ctypes.c_int
         _FUNCS[name] = fn
     return fn
 
@@ -534,10 +537,11 @@ def scatter(
     """``(res, res, res)`` accumulation of each point's 8 corner weights
     times its cotangent (``csrc/scatter.cu``; plain version
     :func:`scatter_plain`).  On CUDA the rows with a nonzero cotangent are
-    bucketed by base cell and sorted by row index, and one thread per cell
-    adds its contributions in increasing row index, without float atomics:
-    the grid equals :func:`scatter_plain` on CPU copies of the inputs bit
-    for bit, run after run.  Rows ``(B, N, 3)``/``(B, N)`` give ``(B, res,
+    bucketed by base cell; each touched cell's contributions are loaded onto
+    the chip, put in row order there (a network of shuffles, or their rows'
+    bits in windows of row indices) and added in that order, without float
+    atomics: the grid equals :func:`scatter_plain` on CPU copies of the
+    inputs bit for bit, run after run.  Rows ``(B, N, 3)``/``(B, N)`` give ``(B, res,
     res, res)`` from one call (one count); each hypothesis's grid is the
     one its rows give alone."""
     lead = tuple(points.shape[:-2])
@@ -552,10 +556,11 @@ def scatter(
                            device=points.device)
     grad = torch.empty((*lead, res, res, res), dtype=torch.float32,
                        device=points.device)
-    # the sorted rows' float4s, counts, totals, starts, arrivals and the
-    # row list (csrc/scatter.cu)
+    # the placed rows and their float4s, the compact row list, the counts,
+    # bucket list, starts, cell lists and touched bitmap; the library gives
+    # its layout's size (csrc/scatter.cu)
     batch = _batch(lead)
-    scratch = torch.empty(batch * (2 * res ** 3 + 6 * n + 1),
+    scratch = torch.empty(_function("scatter_words")(n, batch, res),
                           dtype=torch.int32, device=points.device)
     _launch("scatter", points.device, points.data_ptr(),
             cotangents.data_ptr(), grad.data_ptr(), scratch.data_ptr(), n,

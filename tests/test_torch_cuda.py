@@ -355,9 +355,64 @@ def test_tiled_march_equals_its_twin_bit_for_bit(dev, mug, instance, case):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-def _scatter_case(dev, mug, case):
+def _one_cell(g, res, m, n):
+    """``n`` rows in random order, ``m`` of them with a cotangent and all
+    in base cell 40 of each axis at ``res``: 8 cells of ``m``
+    contributions each."""
+    pts = torch.rand(n, 3, generator=g) * 2.0 - 1.0
+    cot = torch.zeros(n)
+    rows = torch.randperm(n, generator=g)[:m]
+    pts[rows] = -1.0 + (40.25 + 0.5 * torch.rand(m, 3, generator=g)) * (
+        2.0 / (res - 1))
+    cot[rows] = torch.randn(m, generator=g)
+    return pts, cot
+
+
+def _dense_queries(dev, mug, distance):
+    """The fused backward's rows at 640x480 with the mug at ``distance`` m
+    straight ahead (the surrogate queries of a render at a moved pose and
+    the observed cloud's pc queries), seeded cotangents on the active
+    rows."""
+    from sdfest_torch.ops import pointset
+
+    sdf, cam = mug
+    rays = api.ray_set(cam, dev)
+    g = torch.Generator().manual_seed(12)
+    q = torch.tensor([0.25, 0.35, 0.1, 0.895])
+    obs = kernels.march(sdf, rays.march, kernels.pose_params(
+        torch.tensor([0.0, 0.0, -distance], device=dev),
+        (q / q.norm()).to(dev), torch.tensor(10.0, device=dev)), 0.005, 500)
+    points, pmask = pointset.depth_to_pointcloud_dense(obs, cam,
+                                                       order="tile")
+    d = 0.01 * torch.randn(8, generator=g)
+    pos = (torch.tensor([0.0, 0.0, -distance]) + d[:3]).to(dev)
+    q = ((q + d[3:7]) / (q + d[3:7]).norm()).to(dev)
+    inv_s = torch.tensor(1.0 / (0.1 * (1 + float(d[7]))), device=dev)
+    depth = kernels.march(sdf, rays.march, kernels.pose_params(pos, q, inv_s),
+                          0.005, 500)
+    sur, sur_m, _ = api._surrogate_queries(pos, q, inv_s, depth, rays)
+    obj, pc_m = api._pc_object_points(pos, q, inv_s, points, pmask,
+                                      sdf.shape[0])
+    m = torch.cat([sur_m.float(), pc_m.float()])
+    cot = torch.randn(m.shape[0], generator=g).to(dev) * m
+    return torch.cat([sur, obj]).contiguous(), cot.contiguous()
+
+
+def _scatter_case(dev, mug, case, res=64):
     """Points and cotangents of one scatter input."""
     g = torch.Generator().manual_seed(7)
+    if case == "single_cell_614400":  # every row in one base cell: 8 cells
+        # of 614,400 contributions, past any block's shared memory
+        pts, cot = _one_cell(g, res, 614_400, 614_400)
+        return pts.to(dev), cot.to(dev)
+    if case.startswith("cell_"):  # one base cell of m active rows among
+        # m + 1,000: the sizes around each of the gather's thresholds
+        m = int(case.split("_")[1])
+        pts, cot = _one_cell(g, res, m, m + 1000)
+        return pts.to(dev), cot.to(dev)
+    if case == "dense_0.12m":  # the mug filling the frame (longest chains
+        # ~1,800)
+        return _dense_queries(dev, mug, 0.12)
     if case == "zeros":
         pts = torch.rand(614_400, 3, generator=g) * 2.0 - 1.0
         return pts.to(dev), torch.zeros(614_400, device=dev)
@@ -396,15 +451,21 @@ def _scatter_case(dev, mug, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("res", [64, 63])
-@pytest.mark.parametrize("case", ["zeros", "one_cell", "dense_box",
-                                  "ragged_1000", "ragged_4099",
-                                  "tile_ordered"])
+@pytest.mark.parametrize("case", [
+    "zeros", "one_cell", "dense_box", "ragged_1000", "ragged_4099",
+    "tile_ordered", "single_cell_614400", "dense_0.12m",
+    *[f"cell_{m}" for m in (31, 32, 33, 64, 65, 128, 129, 256, 257, 4095,
+                            4096, 4097, 8192, 8193)]])
 def test_aggregated_scatter_matches_plain_twin(dev, mug, case, res):
     """The scatter equals scatter_plain on CPU copies of its inputs bit for
     bit (each cell adds its rows in increasing row index, without float
     atomics), on a grid of even and of odd res, in one launch; all-zero
-    cotangents give exact zeros."""
-    pts, cot = _scatter_case(dev, mug, case)
+    cotangents give exact zeros.  The cases reach every path of the
+    gather: groups of lanes for up to 8, 16 or 32 contributions, a warp's
+    windows for up to 64, 128 or 256, a block's for up to 4,096 and its
+    narrower windows beyond, a big bucket (more than 4,096 rows) sorted in
+    place, and one base cell of 614,400 rows."""
+    pts, cot = _scatter_case(dev, mug, case, res)
     kernels.reset_launches()
     got = kernels.scatter(pts, cot, res)
     torch.cuda.synchronize()

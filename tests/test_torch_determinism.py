@@ -50,21 +50,37 @@ def _rows(rng, n, span, zero_share):
     return points, cot
 
 
-@pytest.mark.parametrize("case", ["threads", "one_thread", "extrapolated",
-                                  "res_63", "batch_3", "zero_cotangents"])
+def _dense_rows(rng, n):
+    """``n`` rows in 3 base cells per axis (res 64): 27 buckets of ~n / 27
+    rows, up to 8 of which meet in a cell, so its chain of contributions
+    runs into the thousands."""
+    points = (-1.0 + (40.0 + 3.0 * rng.random((n, 3))) * (2.0 / 63.0)
+              ).astype(F32)
+    cot = rng.standard_normal(n).astype(F32)
+    cot[rng.random(n) < 0.1] = 0.0
+    return points, cot
+
+
+CASES = ["threads", "one_thread", "extrapolated", "res_63", "batch_3",
+         "zero_cotangents", "dense"]
+
+
+@pytest.mark.parametrize("case", CASES)
 def test_scatter_plain_adds_rows_in_order(case):
     """``scatter_plain`` equals the numpy loop bit for bit (signed zeros
     included): with PyTorch's threads and with one, points up to 0.5
     outside the volume, res 64 and 63, a batch of 3 hypotheses (each its
-    own loop) and all-zero cotangents."""
-    rng = np.random.default_rng(["threads", "one_thread", "extrapolated",
-                                 "res_63", "batch_3",
-                                 "zero_cotangents"].index(case))
+    own loop), all-zero cotangents, and 20,000 rows in 3 cells per axis
+    (chains of thousands of contributions per cell)."""
+    rng = np.random.default_rng(CASES.index(case))
     res = 63 if case == "res_63" else 64
     n_hyp = 3 if case == "batch_3" else 1
     span = 1.5 if case == "extrapolated" else 1.0
-    rows = [_rows(rng, 2000, span, 1.0 if case == "zero_cotangents"
-                  else 0.5) for _ in range(n_hyp)]
+    if case == "dense":
+        rows = [_dense_rows(rng, 20_000)]
+    else:
+        rows = [_rows(rng, 2000, span, 1.0 if case == "zero_cotangents"
+                      else 0.5) for _ in range(n_hyp)]
     points = torch.from_numpy(np.stack([p for p, _ in rows]))
     cot = torch.from_numpy(np.stack([c for _, c in rows]))
     threads = torch.get_num_threads()
@@ -81,6 +97,9 @@ def test_scatter_plain_adds_rows_in_order(case):
                               want.view(np.int32)), b
     if case == "zero_cotangents":
         assert not bool(got.any())
+    if case == "dense":
+        idx, _ = interpolation.trilinear_weights(points[0][cot[0] != 0], res)
+        assert int(torch.bincount(idx.reshape(-1)).max()) > 1000
 
 
 CAMERA = dict(width=64, height=48, fx=32, fy=32, cx=32, cy=24,
