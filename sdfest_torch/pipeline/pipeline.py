@@ -96,7 +96,7 @@ from sdfest_torch.render.warm import (
     motion_bound,
     warm_render_step,
 )
-from sdfest_torch.utils import graphs
+from sdfest_torch.utils import graphs, trace
 from sdfest_torch.utils.device import resolve_device
 from sdfest_torch.utils.weights import load_decoder_weights, load_init_weights
 
@@ -289,6 +289,13 @@ def _probe(depth: torch.Tensor) -> torch.Tensor:
 
     return torch.stack([torch.any(rows, dim=-1).long(), span(rows),
                         span(cols)], dim=-1)
+
+
+def _host_read(x: torch.Tensor):
+    """``x.tolist()``: a host read, where the device drains (a
+    ``host_read`` span with a mark on either side)."""
+    with trace.span("host_read", marks=True):
+        return x.tolist()
 
 
 def _normalize_multires(multires) -> List[Tuple[int, int]]:
@@ -916,7 +923,7 @@ class SDFPipeline:
                 self._segment, segment), carry)
             i = j
             last = segment[-1]
-            if isinstance(last, _Chunk) and last.check and bool(
+            if isinstance(last, _Chunk) and last.check and _host_read(
                     carry["phase"]["stop"]):  # the check's one host read
                 carry = self._stopped(carry, last.start + last.n)
                 while (i < len(steps) and isinstance(steps[i], _Chunk)
@@ -1098,8 +1105,11 @@ class SDFPipeline:
                    state: Dict[str, torch.Tensor], it: int):
         """Iteration ``it`` of a phase: decode, render and losses per view,
         the gradient, Adam's step, the best tracker and the log's row
-        ``it``.  Returns ``(state, phase carry)``."""
+        ``it``.  Returns ``(state, phase carry)``.  Its device marks split
+        it into the decode, the views' render and losses, the backward and
+        the step."""
         dev = self.device
+        trace.mark("iter.begin")
         params = {k: state[k].detach().requires_grad_(True)
                   for k in _STATE_KEYS}
         norm_q = _unit(params["orientation"])
@@ -1114,6 +1124,7 @@ class SDFPipeline:
         with (fp32_convolutions(deterministic=True)
               if phase.shape_optimization else contextlib.nullcontext()):
             sdf = self._decode(latent)[:, 0]
+            trace.mark("decode")
             ph = dict(ph)
             use_warm = "warm" in ph
             if use_warm:
@@ -1154,6 +1165,7 @@ class SDFPipeline:
                 loss = loss + phase.constraint_weight * (
                     losses.point_constraint_loss(params["orientation"],
                                                  ctx["source"], ctx["target"]))
+            trace.mark("render")
             if use_warm:
                 ph["warm"] = warms
                 ph["shared"] = {"position": params["position"].detach(),
@@ -1163,6 +1175,7 @@ class SDFPipeline:
             wanted = [k for k in _STATE_KEYS
                       if k != "latent" or phase.shape_optimization]
             got = torch.autograd.grad(loss.sum(), [params[k] for k in wanted])
+            trace.mark("backward")
         grads = {k: torch.zeros_like(state[k]) for k in _STATE_KEYS}
         grads.update(zip(wanted, got))
         with torch.no_grad():
@@ -1189,6 +1202,7 @@ class SDFPipeline:
                    "loss_pc": loss_pc, "inlier_ratio": ratio, **state}
             for k, v in row.items():
                 ph["log"][k][it].copy_(v)
+        trace.mark("step")
         return state, ph
 
     def _finish_phase(self, carry: dict, ph: dict) -> dict:
@@ -1232,6 +1246,7 @@ class SDFPipeline:
     # public API
     # ------------------------------------------------------------------
 
+    @trace.call("estimate")
     def __call__(
         self,
         depth_images,
@@ -1342,7 +1357,7 @@ class SDFPipeline:
             self.config.get("reuse_plan", False)) else None
         if plan is None:
             # the one sync
-            probe = _probe(self._preprocess_depth(depth, mask)).tolist()
+            probe = _host_read(_probe(self._preprocess_depth(depth, mask)))
             first = self.config.get("init_view", "first") == "first"
             if not (probe[0][0] if first else all(p[0] for p in probe)):
                 raise NoDepthError
@@ -1444,6 +1459,7 @@ class SDFPipeline:
     # hypothesis batches
     # ------------------------------------------------------------------
 
+    @trace.call("refine_batch")
     def refine_batch(
         self,
         states: Dict[str, torch.Tensor],
@@ -1572,7 +1588,7 @@ class SDFPipeline:
             if ref_loss is not None:
                 improved = (ref_loss - last_loss) >= early_delta * torch.clamp(
                     torch.abs(ref_loss), min=1e-8)
-                if not bool(improved.any()):  # the chunk's one host read
+                if not _host_read(improved.any()):  # the chunk's one host read
                     break
             ref_loss = last_loss
         return _batch_result(states, best, logs)
@@ -1584,7 +1600,7 @@ class SDFPipeline:
         (``pipeline.py:741-770``): :meth:`_roi_from_spans` of the observed
         pixels' bbox spans, read on the host once."""
         depth = torch.as_tensor(depth_images, device=self.device)
-        probe = _probe(depth.reshape(-1, *depth.shape[-2:])).tolist()
+        probe = _host_read(_probe(depth.reshape(-1, *depth.shape[-2:])))
         return self._roi_from_spans(
             [(sy, sx) for valid, sy, sx in probe if valid], factor)
 

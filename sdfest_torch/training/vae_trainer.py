@@ -55,7 +55,7 @@ from sdfest_torch.render.api import (
     sample_sdf_masked_extrapolating,
 )
 from sdfest_torch.training.optim import Adam
-from sdfest_torch.utils import graphs
+from sdfest_torch.utils import graphs, trace
 from sdfest_torch.utils.device import device_cache, resolve_device
 
 PC_DISTANCE = 5.0  # the pc render's camera distance (grid units)
@@ -251,7 +251,9 @@ class VAETrainer:
         """One Adam step on the batch ``x (B, 1, R, R, R)`` (on the device,
         float32) with its draws, at the device iteration counter, which it
         advances: the body of :meth:`step`, :meth:`train_step` and each
-        step of a chain.  No host read."""
+        step of a chain.  No host read.  Its device marks split it into
+        the forward, the backward and the update."""
+        trace.mark("step.begin")
         self.vae.train()
         params = self.optimizer.params()
         # the backward's convolutions in fp32 too, with cuDNN's
@@ -259,8 +261,10 @@ class VAETrainer:
         with fp32_convolutions(deterministic=True):
             loss, metrics = self.loss(x, self._count, eps=eps, quats=quats,
                                       pc_depth=pc_depth)
+            trace.mark("forward")
             grads = list(torch.autograd.grad(loss, params, allow_unused=True,
                                              materialize_grads=True))
+            trace.mark("backward")
         if group is not None:
             all_reduce_sum_(grads, group)
             all_reduce_sum_(list(metrics.values()), group)
@@ -270,6 +274,7 @@ class VAETrainer:
             p.grad = g
         self.optimizer.update(grads)
         self._count.add_(1)
+        trace.mark("update")
         return {k: v.detach() for k, v in metrics.items()}
 
     def _run(self, key, body: Callable, inputs,
@@ -333,23 +338,32 @@ class VAETrainer:
         ``eps`` and quaternions, all before the dispatch.  Returns the loss
         terms stacked on a leading ``(k,)`` axis, oldest first; no host read
         between the K steps.
+
+        A dispatch is a ``call`` span (kind ``chain``) holding a ``draws``
+        span; its ``call.begin`` mark follows the draws, whose launches the
+        device runs as the host issues them, so the host's draws show as
+        the device's idle time.
         """
         def chained(data_arg: torch.Tensor,
                     generator: Optional[torch.Generator] = None
                     ) -> Dict[str, torch.Tensor]:
-            n = data_arg.shape[0]
-            steps = []
-            for _ in range(k):
-                idx = self.indices(n, batch_size, generator)
-                steps.append((idx, *self.draws(batch_size, generator)))
-
             def body(steps):
                 return graphs.stack([
                     self._step(torch.index_select(data_arg, 0, idx), eps,
                                quats) for idx, eps, quats in steps])
 
-            metrics = self._run(("chain", batch_size, k), body, steps,
-                                resident=(data_arg,))
+            with trace.span("call", "chain"):
+                with trace.span("draws"):
+                    n = data_arg.shape[0]
+                    steps = []
+                    for _ in range(k):
+                        idx = self.indices(n, batch_size, generator)
+                        steps.append((idx, *self.draws(batch_size,
+                                                       generator)))
+                trace.mark("call.begin")
+                metrics = self._run(("chain", batch_size, k), body, steps,
+                                    resident=(data_arg,))
+                trace.mark("call.end")
             self._iteration += k
             return metrics
 

@@ -48,6 +48,12 @@ inputs, so a caller with stable shapes captures once and then only replays.
 - *Memory.*  A cache keeps graphs while their pools fit in
   :data:`POOL_SHARE` of the card's memory and drops the least recently
   run first.
+- *Tracing.*  Each run is a ``segment`` span (:mod:`sdfest_torch.utils.trace`)
+  with ``copy_in`` and ``launch``, and ``warm_up`` and ``capture`` on a
+  key's first run, whose clock reads give ``warm_up_seconds`` and
+  ``capture_seconds``.  A graph captured while a recording is open holds
+  the body's device marks as event nodes and is keyed apart; with tracing
+  off the keys and nodes are those of an untraced cache.
 - *Eager.*  :func:`eager` is the counterpart of ``jax.disable_jit()``: inside
   it the card runs the plain eager loop, for tests and ``chip_smoke.py``.
 - *No fallback.*  A capture or replay that fails raises.
@@ -60,13 +66,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
-import time
 from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
 import torch
 
 from sdfest_torch.render import kernels
+from sdfest_torch.utils import trace
 from sdfest_torch.utils.device import holding
 
 # the share of the card's memory that one cache's graph pools may hold;
@@ -211,6 +217,7 @@ class _Graph(NamedTuple):
     counts: dict  # the kernels' launch counts of one replay
     pool_bytes: int
     keep: list  # state, resident and device-cache tensors, kept alive
+    marks: list  # its device marks (trace.capturing), empty untraced
 
 
 class GraphCache:
@@ -272,25 +279,32 @@ class GraphCache:
         ``state`` and ``resident`` tensors), replayed after that.  Returns
         the graph's static outputs in new containers (the next replay of
         this graph overwrites the tensors)."""
-        leaves, spec = flatten(inputs)
-        held = list(state) + list(resident)
-        full_key = (key, spec, tuple((tuple(x.shape), x.dtype, x.device)
-                                     for x in leaves),
-                    tuple((x.data_ptr(), tuple(x.shape), x.dtype)
-                          for x in held))
-        graph = self._graphs.get(full_key)
-        if graph is None:
-            graph = self._record(fn, leaves, spec, device, list(state), held)
-            self._graphs[full_key] = graph
-            self._evict(device)
-        else:
-            self._graphs.move_to_end(full_key)
-        for dst, src in zip(graph.inputs, leaves):
-            dst.copy_(src)
-        graph.replay()
-        self.replays += 1
-        kernels.add_counts(graph.counts)
-        return unflatten(graph.out_spec, graph.outputs)
+        with trace.span("segment", marks=True):
+            leaves, spec = flatten(inputs)
+            held = list(state) + list(resident)
+            full_key = (key, spec, tuple((tuple(x.shape), x.dtype, x.device)
+                                         for x in leaves),
+                        tuple((x.data_ptr(), tuple(x.shape), x.dtype)
+                              for x in held))
+            if trace.on:
+                full_key += (trace.KEY,)
+            graph = self._graphs.get(full_key)
+            if graph is None:
+                graph = self._record(fn, leaves, spec, device, list(state),
+                                     held)
+                self._graphs[full_key] = graph
+                self._evict(device)
+            else:
+                self._graphs.move_to_end(full_key)
+            with trace.span("copy_in"):
+                for dst, src in zip(graph.inputs, leaves):
+                    dst.copy_(src)
+            with trace.span("launch"):
+                graph.replay()
+            trace.replayed(graph.marks)
+            self.replays += 1
+            kernels.add_counts(graph.counts)
+            return unflatten(graph.out_spec, graph.outputs)
 
     def _evict(self, device: torch.device) -> None:
         """Drop the least recently run graphs while the pools exceed the
@@ -316,22 +330,22 @@ class GraphCache:
         before = kernels.counts()
         keep: list = list(held)
         try:
-            t0 = time.perf_counter()
-            for _ in range(self.warm_up_runs):
-                self.backend.warm_up(call, device)
-            restore()
-            t1 = time.perf_counter()
+            with trace.timed("warm_up") as warm:
+                for _ in range(self.warm_up_runs):
+                    self.backend.warm_up(call, device)
+                restore()
             kernels.set_counts(before)
-            with holding(keep):
-                captured = self.backend.capture(call, device)
-            restore()
-            t2 = time.perf_counter()
+            with trace.timed("capture") as capture, \
+                    trace.capturing() as marks:
+                with holding(keep):
+                    captured = self.backend.capture(call, device)
+                restore()
             counts = kernels.count_difference(kernels.counts(), before)
         finally:
             kernels.set_counts(before)
         out_leaves, out_spec = flatten(captured.outputs)
         self.captures += 1
-        self.warm_up_seconds += t1 - t0
-        self.capture_seconds += t2 - t1
+        self.warm_up_seconds += warm.seconds
+        self.capture_seconds += capture.seconds
         return _Graph(static, captured.replay, out_leaves, out_spec, counts,
-                      captured.pool_bytes, keep)
+                      captured.pool_bytes, keep, marks)

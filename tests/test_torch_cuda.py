@@ -1388,3 +1388,37 @@ def test_init_graph_equals_eager_bit_for_bit(dev, path):
                         rings[id(eager)].tensors()):
             assert torch.equal(a, b)
     assert graph.graphs.captures == 1 and graph.graphs.replays == 2
+
+
+@pytest.mark.cuda
+def test_trace_marks_of_a_graph_replay_lie_inside_its_segment(dev):
+    """A graph captured while recording holds its marks as event nodes,
+    read from its last replay: in order, between that replay's segment
+    marks on the host's clock.  It is a graph of its own: the unmarked
+    graph of the same key stays, and both give the same result."""
+    from sdfest_torch.utils import graphs, trace
+
+    cache = graphs.GraphCache()
+    x = torch.randn(1 << 20, device=dev)
+
+    def body(a):
+        trace.mark("iter.begin")
+        for _ in range(20):
+            a = torch.sin(a) * 1.0001
+        trace.mark("decode")
+        return a
+
+    want = cache.run("k", body, x, dev).clone()
+    with trace.recording() as rec:
+        for _ in range(3):
+            got = cache.run("k", body, x, dev)
+    assert torch.equal(got, want)
+    assert cache.captures == 2 and len(cache) == 2
+    marked = [m for m in rec.marks if m.graph]
+    assert [m.name for m in marked] == ["iter.begin", "decode"]
+    last = {m.name: m.t_ns for m in rec.marks if m.graph == 0}
+    assert last["segment.begin"] <= marked[0].t_ns <= marked[1].t_ns \
+        <= last["segment.end"]
+    assert abs(rec.drift_ns) < 1_000_000
+    cache.run("k", body, x, dev)
+    assert cache.captures == 2
